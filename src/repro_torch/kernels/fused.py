@@ -1,0 +1,102 @@
+"""Fused single-pass pushdown kernel: chunk -> packed clause bitvectors.
+
+Wrapper of the hand-written CUDA kernel ``csrc/pushdown.cu``, the port of
+the TPU kernel ``repro.kernels.fused.clause_bitvectors_fused``.  One launch
+evaluates a whole compiled plan on a dense chunk and emits the packed
+per-clause words, the OR'd load mask and the per-clause popcounts.
+
+On a CUDA tensor the wrapper launches the kernel (or raises); on a CPU
+tensor it runs the plain version,
+:func:`repro_torch.kernels.ref.clause_bitvectors_ref`, which reads the
+plan's unique tables where the kernel reads its flat per-predicate rows.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import cuda_build, ref
+
+WORD_BITS = 32
+#: shared memory one block may use on an H100 (opt-in dynamic limit)
+MAX_SMEM = 232_448
+
+#: launches of the CUDA kernel in this process (the main-path proof)
+launches = 0
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+
+
+def _lib() -> ctypes.CDLL:
+    lib = cuda_build.load("pushdown")
+    if not getattr(lib, "_typed", False):
+        lib.ciao_pushdown.argtypes = [
+            _I, _P, _I, _I, _I, _P, _I, _P, _P, _I, _P, _P, _P, _P, _I, _I,
+            _P, _P, _P, _P]
+        lib.ciao_pushdown.restype = _I
+        lib.ciao_pushdown_smem_bytes.argtypes = [_I]
+        lib.ciao_pushdown_smem_bytes.restype = _I
+        lib.ciao_error_string.argtypes = [_I]
+        lib.ciao_error_string.restype = ctypes.c_char_p
+        lib._typed = True
+    return lib
+
+
+def _check(t: torch.Tensor, name: str, dtype, shape, device) -> None:
+    if t.dtype != dtype or tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: want {dtype}{list(shape)}, "
+                         f"got {t.dtype}{list(t.shape)}")
+    if t.device != device or not t.is_contiguous():
+        raise ValueError(f"{name}: must be contiguous on {device}")
+
+
+def clause_bitvectors_fused(data: torch.Tensor, plan: dict,
+                            n_valid: int, *, n_simple: int):
+    """(words uint32[C, W], or_words uint32[W], counts int32[C]).
+
+    ``data uint8[R, L]``; ``plan`` maps :class:`CompiledPlan` field names
+    to tensors on ``data``'s device (see ``ops.clause_bitvectors``).
+    ``W = ceil(R / 32)``; rows ``>= n_valid`` are zero.
+    """
+    if data.device.type == "cpu":
+        return ref.clause_bitvectors_ref(
+            data, plan["ukeys"], plan["uklens"], plan["uvals"],
+            plan["uvlens"], plan["uunb"], plan["key_ids"], plan["val_ids"],
+            plan["membership"], n_valid, n_simple=n_simple)
+    if data.device.type != "cuda":
+        raise ValueError(f"unsupported device {data.device}")
+    global launches
+    dev = data.device
+    R, L = data.shape
+    P, Mk = plan["keys"].shape
+    Mv = plan["vals"].shape[1]
+    C = plan["membership"].shape[0]
+    _check(data, "data", torch.uint8, (R, L), dev)
+    _check(plan["keys"], "keys", torch.uint8, (P, Mk), dev)
+    _check(plan["vals"], "vals", torch.uint8, (P, Mv), dev)
+    for name in ("klens", "vlens", "kinds", "unbounded"):
+        _check(plan[name], name, torch.int32, (P,), dev)
+    _check(plan["membership"], "membership", torch.uint8, (C, P), dev)
+    lib = _lib()
+    smem = lib.ciao_pushdown_smem_bytes(C)
+    if smem > MAX_SMEM:
+        raise ValueError(f"{C} clauses need {smem} B of shared memory per "
+                         f"block (limit {MAX_SMEM})")
+    W = (R + WORD_BITS - 1) // WORD_BITS
+    words = torch.empty((C, W), dtype=torch.uint32, device=dev)
+    or_words = torch.empty((W,), dtype=torch.uint32, device=dev)
+    counts = torch.zeros((C,), dtype=torch.int32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = lib.ciao_pushdown(
+        dev.index, data.data_ptr(), R, L, int(n_valid),
+        plan["keys"].data_ptr(), Mk, plan["klens"].data_ptr(),
+        plan["vals"].data_ptr(), Mv, plan["vlens"].data_ptr(),
+        plan["kinds"].data_ptr(), plan["unbounded"].data_ptr(),
+        plan["membership"].data_ptr(), C, P,
+        words.data_ptr(), or_words.data_ptr(), counts.data_ptr(), stream)
+    if err:
+        raise RuntimeError("pushdown kernel launch failed: "
+                           + lib.ciao_error_string(err).decode())
+    launches += 1
+    return words, or_words, counts
