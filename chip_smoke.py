@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one GPU.
 
-Builds both hand-written kernels from ``src/repro_torch/csrc``, holds each
-against its plain PyTorch version on the card, then drives the paper's
-loop at full size through the port's entry points:
+Builds every hand-written kernel from ``src/repro_torch/csrc`` (one nvcc
+per source, in parallel), holds each against its plain PyTorch version on
+the card, then drives two paths at full size through the port's entry
+points.  The main path, the paper's loop:
 
   ycsb records (1,048,576, in 128 chunks of 8,192)
     -> build_plan at 1.0 us/record (200-query zipf(1.5) workload)
@@ -12,8 +13,20 @@ loop at full size through the port's entry points:
     -> DeviceScanner("cuda") in batches of 64     [kernel B, csrc/scan.cu]
 
 Every ScanResult is checked against the host DataSkippingScanner on the
-same store, and a 65,536-record prefix against FullScanBaseline.  Any
-mismatch or fault raises (exit code != 0).
+same store, and a 65,536-record prefix against FullScanBaseline.  Then the
+split path, on the same chunks:
+
+  (a) the bench's 12-clause mixed plan: seed_split_eval (one match_any
+      launch, one match_key_value launch per key-value pair, host OR and
+      pack, one reduce launch for the load mask) == eval_fused, every chunk
+                              [kernels D, E: csrc/substring_match.cu;
+                               kernel C: csrc/bitvector_reduce.cu]
+  (b) the main plan: seed_split_eval -> a second CiaoStore
+      -> DataSkippingScanner(and_reduce=residual.bv_and_many_cuda)
+                                                  [kernels C, D, E]
+      and every ScanResult equals the main path's.
+
+Any mismatch or fault raises (exit code != 0).
 
     python3 chip_smoke.py                  # one CUDA card, full size
     python3 chip_smoke.py --records 65536  # a shorter rehearsal
@@ -217,6 +230,129 @@ def check_pushdown(dev) -> int:
     return n_checks
 
 
+def check_split_kernels(dev) -> int:
+    """Kernels C, D and E against their plain versions: the ycsb, yelp and
+    winlog pools, edge cases, R not a multiple of 32, a stride too wide to
+    stage in shared memory."""
+    import numpy as np
+    import torch
+    from repro_torch.core.client import encode_chunk, encode_patterns
+    from repro_torch.core.predicates import Kind
+    from repro_torch.data.datasets import generate_records, predicate_pool
+    from repro_torch.kernels import bitvector_ops, fused, ops, ref
+    from repro_torch.kernels import substring_match as sm
+    from repro_torch.kernels.plan import compile_plan
+
+    n = 0                                   # comparisons made
+
+    def on_dev(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    def check_d(data, patterns) -> None:
+        nonlocal n
+        n += 1
+        pats, plens = encode_patterns(patterns)
+        args = (data, on_dev(pats), on_dev(plens))
+        if same_bits(sm.multi_match_any(*args), ref.multi_match_any_ref(*args)):
+            raise AssertionError(f"match kernel != plain version "
+                                 f"(R={data.shape[0]}, L={data.shape[1]}, "
+                                 f"P={len(patterns)})")
+
+    def check_e(data, key, val) -> None:
+        nonlocal n
+        n += 1
+        args = (data, on_dev(np.frombuffer(bytearray(key), np.uint8)),
+                on_dev(np.frombuffer(bytearray(val), np.uint8)),
+                b"," in val or b"}" in val)
+        if same_bits(sm.key_value_match(*args), ref.key_value_match_ref(*args)):
+            raise AssertionError(f"key-value kernel != plain version "
+                                 f"({key!r}, {val!r}, L={data.shape[1]})")
+
+    def check_c(words) -> None:
+        nonlocal n
+        n += 1
+        t = words if isinstance(words, torch.Tensor) else on_dev(words)
+        got, want = bitvector_ops.bitvector_reduce(t), ref.bitvector_reduce_ref(t)
+        if max(same_bits(g, w) for g, w in zip(got, want)):
+            raise AssertionError(f"reduce kernel != plain version "
+                                 f"(P, W = {tuple(t.shape)})")
+
+    for ds in ("ycsb", "yelp", "winlog"):
+        pool = predicate_pool(ds)
+        data = on_dev(encode_chunk(generate_records(ds, 1000, seed=11)).data)
+        simple = list(dict.fromkeys(
+            t.patterns()[0] for c in pool for t in c.terms
+            if t.kind is not Kind.KEY_VALUE))
+        pairs = list(dict.fromkeys(
+            t.patterns() for c in pool for t in c.terms
+            if t.kind is Kind.KEY_VALUE))
+        check_d(data, simple)
+        for k, v in pairs:
+            check_e(data, k, v)
+        plan = compile_plan(tuple(pool))
+        words = fused.clause_bitvectors_fused(
+            data, ops.plan_tensors(plan, ops.FLAT_FIELDS, dev), 1000,
+            n_simple=plan.n_simple)[0]
+        every7 = words.view(torch.int32)[::7].contiguous().view(torch.uint32)
+        for rows in (words, words[:1], words[:3], every7):
+            check_c(rows)
+        print(f"  {ds}: {len(simple)} patterns (D), {len(pairs)} key-value "
+              f"pairs (E), pool words {tuple(words.shape)} (C), R=1000: "
+              "bit-identical")
+    # D: empty pattern (true iff the row holds a zero byte), windows at and
+    # past the stride end, R not a multiple of 32
+    edge = np.zeros((45, 128), np.uint8)
+    edge[0, :5] = ord("A")
+    edge[1, :] = ord("B")
+    edge[2, :127] = ord("C")
+    edge[3, 120:] = ord("A")
+    edge[4:] = np.random.default_rng(3).integers(1, 255, (41, 128),
+                                                 dtype=np.uint8)
+    check_d(on_dev(edge), [b"", b"A", b"BB", b"A" * 8, b"A" * 9,
+                           bytes(edge[9, 60:66])])
+    # E: unbounded values, delimiters after the key, a value ending at the
+    # stride end, records cut by the stride
+    kv_recs = [b'{"name":"par,is","age":7}', b'{"k":"a}b","z":1}',
+               b'{"age":4}', b'{"age":12,"tail":"bob"}',
+               b'{"x":"' + b"y" * 112 + b'","age":5}',
+               b'{"x":"' + b"y" * 113 + b'","age":5',
+               b'{"age":', b'{"a":1,"age":"3}"}', b'{"age":,3}',
+               b'{"age":}4'] * 7
+    kv = on_dev(encode_chunk(kv_recs).data)
+    kv_pairs = [(b'"name":', b'"par,is"'), (b'"name":', b'"par'),
+                (b'"k":', b'"a}b"'), (b'"k":', b'b"'), (b'"age":', b'5'),
+                (b'"age":', b'4'), (b'"age":', b'3'), (b'"age":', b'3}'),
+                (b'"age":', b'12'), (b'"tail":', b'"bob"')]
+    for k, v in kv_pairs:
+        check_e(kv, k, v)
+    for k, v in ((b'"age":', b""), (b"", b"5")):
+        for fn in (sm.key_value_match, ref.key_value_match_ref):
+            try:
+                fn(kv, on_dev(np.frombuffer(bytearray(k), np.uint8)),
+                   on_dev(np.frombuffer(bytearray(v), np.uint8)), False)
+            except ValueError:
+                n += 1
+                continue
+            raise AssertionError(f"{fn.__name__} took an empty pattern")
+    # a stride too wide for 8 records to fit in shared memory: read in place
+    wide = on_dev(encode_chunk([b'{"pad":"' + b"x" * 30000 + b'","age":7}',
+                                b'{"age":8,"a":"xx"}'] * 20).data)
+    if 8 * wide.shape[1] <= sm.MAX_SMEM:
+        raise AssertionError("the wide chunk would still be staged")
+    check_d(wide, [b'"age":7', b"xx", b"", b"zz"])
+    for k, v in kv_pairs[4:7]:
+        check_e(wide, k, v)
+    # C: the TPU test sweep, uniform rows, a long row
+    rng = np.random.default_rng(0)
+    for p, w in ((1, 1), (3, 64), (8, 130), (2, 257), (5, 100_003)):
+        check_c(rng.integers(0, 2**32, (p, w), dtype=np.uint64)
+                .astype(np.uint32))
+    for fill in (0, 0xFFFFFFFF):
+        check_c(np.full((4, 333), fill, np.uint32))
+    print(f"  edge cases: bit-identical ({n} comparisons in all)")
+    return n
+
+
 def small_store():
     """Mixed-epoch, mixed-tier store with promoted raw rows (2,048 rows)."""
     import numpy as np
@@ -397,7 +533,188 @@ def main_path(n_records: int, dev):
     print(f"  {n_pre * CHUNK}-record prefix: {len(unique)} distinct "
           "queries identical to FullScanBaseline")
     return {"chunks": chunks, "plan": report.plan, "engine": engine,
-            "scanner": scanner, "batches": batches, "launches": launches}
+            "scanner": scanner, "batches": batches, "launches": launches,
+            "store": store, "bvs": bvs, "queries": queries,
+            "results": steady}
+
+
+def _zero_counters() -> None:
+    from repro_torch.kernels import bitvector_ops, fused, scan_fused
+    from repro_torch.kernels import substring_match as sm
+    fused.launches = scan_fused.launches = bitvector_ops.launches = 0
+    sm.match_launches = sm.kv_launches = 0
+
+
+def _split_counters() -> dict:
+    from repro_torch.kernels import bitvector_ops
+    from repro_torch.kernels import substring_match as sm
+    return {"reduce": bitvector_ops.launches, "match": sm.match_launches,
+            "key_value": sm.kv_launches}
+
+
+def split_path(run, dev) -> dict:
+    """The split pushdown path on the main path's chunks: (a) split ==
+    fused under the bench's mixed plan, (b) split ingest into a second
+    store, scanned through kernel C's AND-reduce hook."""
+    import numpy as np
+    import torch
+    from repro_torch.benchmarks.bench_kernels import (
+        mixed_plan, seed_split_eval,
+    )
+    from repro_torch.core import bitvector
+    from repro_torch.core.server import CiaoStore, DataSkippingScanner
+    from repro_torch.kernels import residual
+    from repro_torch.kernels.engine import KernelEngine
+
+    chunks, n = run["chunks"], len(run["chunks"])
+    out = {}
+
+    # ---- (a): counters at 0 just before, read just after ----
+    mixed = mixed_plan("ycsb", 12, np.random.default_rng(0))
+    engine = KernelEngine("cuda")
+    torch.cuda.synchronize()
+    _zero_counters()
+    t_split = t_fused = 0.0
+    for i, chunk in enumerate(chunks):
+        t0 = time.perf_counter()
+        words, or_words = seed_split_eval(chunk, mixed, "cuda")
+        t_split += time.perf_counter() - t0
+        t0 = time.perf_counter()
+        fused = engine.eval_fused(chunk, mixed)
+        t_fused += time.perf_counter() - t0
+        if not (np.array_equal(words, fused.words)
+                and np.array_equal(or_words, fused.or_words)):
+            raise AssertionError(f"(a) split != fused on chunk {i}")
+    out["a"] = _split_counters()
+    # -----------------------------------------------------------------------
+    print(f"  (a) mixed plan ({len(mixed)} clauses): split == fused on all "
+          f"{n} chunks; split {t_split / n * 1e3:.3f} ms/chunk, fused "
+          f"{t_fused / n * 1e3:.3f} ms/chunk (host clock, results on the "
+          f"host); launches {out['a']}")
+    out["a_ms"] = (t_split / n * 1e3, t_fused / n * 1e3)
+
+    # ---- (b): counters at 0 just before, read just after ----
+    clauses = run["plan"].clauses
+    torch.cuda.synchronize()
+    _zero_counters()
+    store = CiaoStore(run["plan"])
+    t_split = t_ingest = 0.0
+    for i, (chunk, want) in enumerate(zip(chunks, run["bvs"])):
+        t0 = time.perf_counter()
+        words, or_words = seed_split_eval(chunk, clauses, "cuda")
+        t_split += time.perf_counter() - t0
+        counts = bitvector.popcount_rows(words).astype(np.int32)
+        if not (np.array_equal(words, want.words)
+                and np.array_equal(or_words, want.or_words)
+                and np.array_equal(counts, want.counts)):
+            raise AssertionError(f"(b) split != fused on chunk {i}")
+        t0 = time.perf_counter()
+        store.ingest_chunk(chunk, bitvector.ChunkBitvectors(
+            words=words, or_words=or_words, counts=counts,
+            n_records=chunk.n_records))
+        t_ingest += time.perf_counter() - t0
+    hooked = DataSkippingScanner(store, log_queries=False,
+                                 and_reduce=residual.bv_and_many_cuda)
+    before = _split_counters()["reduce"]
+    t0 = time.perf_counter()
+    got = [hooked.scan(q) for q in run["queries"]]
+    t_scan = time.perf_counter() - t0
+    out["b"] = _split_counters()
+    out["hook"] = out["b"]["reduce"] - before
+    # -----------------------------------------------------------------------
+    for q, a, b in zip(run["queries"], got, run["results"]):
+        if accounting(a) != accounting(b):
+            raise AssertionError(f"(b) hooked scan != main path: "
+                                 f"{q.describe()}")
+    main = run["store"].stats
+    if (store.stats.n_loaded, store.stats.n_records) != \
+            (main.n_loaded, main.n_records):
+        raise AssertionError("(b) split ingest loaded other rows")
+    print(f"  (b) main plan ({len(clauses)} clauses): split "
+          f"{t_split / n * 1e3:.3f} ms/chunk, ingest "
+          f"{t_ingest / n * 1e3:.3f} ms/chunk, loading ratio "
+          f"{store.stats.loading_ratio:.4%}; {len(got)} hooked scans in "
+          f"{t_scan:.3f} s, every ScanResult identical to the main path "
+          f"(full accounting); launches {out['b']}, of which "
+          f"{out['hook']} reduce launches by the and_reduce hook")
+    for phase_name in ("a", "b"):
+        if min(out[phase_name].values()) < 1:
+            raise AssertionError(f"({phase_name}) a kernel was not "
+                                 f"launched: {out[phase_name]}")
+    if out["hook"] < 1:
+        raise AssertionError("(b) the and_reduce hook never launched")
+    out["b_ms"] = (t_split / n * 1e3, t_ingest / n * 1e3, t_scan)
+    return out
+
+
+def split_kernel_rows(run, split, dev) -> list[dict]:
+    """Kernels C, D and E timed at phase (b)'s shapes (the main plan on a
+    main-path chunk) beside their plain versions."""
+    import torch
+    from repro_torch.core.client import encode_patterns
+    from repro_torch.core.predicates import Kind
+    from repro_torch.kernels import bitvector_ops, ref
+    from repro_torch.kernels import substring_match as sm
+
+    data = torch.from_numpy(run["chunks"][0].data).to(dev)
+    R, L = data.shape
+    terms = [t for c in run["plan"].clauses for t in c.terms]
+    simple = list(dict.fromkeys(t.patterns()[0] for t in terms
+                                if t.kind is not Kind.KEY_VALUE))
+    key, val = next(t.patterns() for t in terms if t.kind is Kind.KEY_VALUE)
+    pats, plens = encode_patterns(simple)
+    d_args = (data, torch.from_numpy(pats).to(dev),
+              torch.from_numpy(plens).to(dev))
+    e_args = (data, torch.tensor(list(key), dtype=torch.uint8, device=dev),
+              torch.tensor(list(val), dtype=torch.uint8, device=dev),
+              b"," in val or b"}" in val)
+    words = torch.from_numpy(run["bvs"][0].words).to(dev)    # the load mask
+    P, W = words.shape
+    cases = [
+        ("bitvector_reduce (load mask, and_reduce hook)",
+         "src/repro_torch/csrc/bitvector_reduce.cu",
+         "src/repro/kernels/bitvector_ops.py:39", "reduce",
+         "bitvector_reduce_kernel",
+         lambda: bitvector_ops.bitvector_reduce(words),
+         lambda: ref.bitvector_reduce_ref(words),
+         P * W * 4 + 2 * W * 4 + 4, f"P={P} W={W}",
+         "no PyTorch call reduces with AND or OR or counts bits"),
+        ("multi_match_any", "src/repro_torch/csrc/substring_match.cu",
+         "src/repro/kernels/substring_match.py:105", "match",
+         "multi_match_kernel", lambda: sm.multi_match_any(*d_args),
+         lambda: ref.multi_match_any_ref(*d_args),
+         R * L + pats.nbytes + plens.nbytes + len(simple) * R,
+         f"R={R} L={L} P={len(simple)} M={pats.shape[1]}",
+         "no PyTorch call searches bytes for substrings"),
+        ("key_value_match", "src/repro_torch/csrc/substring_match.cu",
+         "src/repro/kernels/substring_match.py:201", "key_value",
+         "key_value_kernel", lambda: sm.key_value_match(*e_args),
+         lambda: ref.key_value_match_ref(*e_args),
+         R * L + len(key) + len(val) + R,
+         f"R={R} L={L} mk={len(key)} mv={len(val)}",
+         "no PyTorch call matches a key-value predicate in bytes"),
+    ]
+    rows = []
+    for (name, source, replaces, counter, kname, kern, plain, nbytes, shape,
+         why) in cases:
+        got, want = kern(), plain()
+        if not isinstance(got, tuple):
+            got, want = (got,), (want,)
+        err = max(same_bits(g, w) for g, w in zip(got, want))
+        if err:
+            raise AssertionError(f"{name} != plain version at main shape")
+        ms, src = kernel_ms(kern, 50, kname)
+        rows.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": split["b"][counter],
+            "max_abs_err": err, "ms": ms, "plain_ms": cuda_ms(plain, 5),
+            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+            "library_ms": None, "library_note": why,
+            "launches_phase_a": split["a"][counter],
+            "ms_from": src, "wrapper_call_ms": cuda_ms(kern, 50),
+            "shape": shape,
+        })
+    return rows
 
 
 def kernel_table(run, dev) -> list[dict]:
@@ -491,11 +808,6 @@ def kernel_table(run, dev) -> list[dict]:
                   f"T={params.kinds.shape[0]} C={params.membership.shape[0]} "
                   f"Q={Q} S1={S1}"),
     })
-    for r in rows:
-        print(f"  {r['name']}: {r['ms']:.4f} ms ({r['ms_from']}; whole "
-              f"wrapper call {r['wrapper_call_ms']:.4f} ms; plain "
-              f"{r['plain_ms']:.3f} ms; bound {r['bound_ms']:.5f} ms by "
-              f"{r['bound_by']}) at {r['shape']}")
     return rows
 
 
@@ -528,8 +840,18 @@ def main(argv=None) -> int:
     print(f"  {len(qs)} queries: bit-identical")
     phase(f"main path: {args.records} records")
     run = main_path(args.records, dev)
+    phase("kernels C/D/E: reduce, match, key-value vs plain versions")
+    check_split_kernels(dev)
+    phase("split path: (a) split vs fused, (b) split ingest + hooked scan")
+    split = split_path(run, dev)
     phase("kernels at main-path shapes")
-    rows = kernel_table(run, dev)
+    rows = kernel_table(run, dev) + split_kernel_rows(run, split, dev)
+    for r in rows:
+        print(f"  {r['name']}: {r['ms']:.4f} ms ({r['ms_from']}; whole "
+              f"wrapper call {r['wrapper_call_ms']:.4f} ms; plain "
+              f"{r['plain_ms']:.3f} ms; bound {r['bound_ms']:.5f} ms by "
+              f"{r['bound_by']}; {r['launches']} launches on the path) at "
+              f"{r['shape']}")
     print(f"  total {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"kernels": rows}))

@@ -190,3 +190,12 @@ def torch_and_many(words: torch.Tensor) -> torch.Tensor:
     for row in words.view(torch.int32):
         out &= row
     return out.view(torch.uint32)
+
+
+def torch_or_many(words: torch.Tensor) -> torch.Tensor:
+    """OR-reduce over the leading axis: (P, W) -> (W,)."""
+    out = torch.zeros(words.shape[1:], dtype=torch.int32,
+                      device=words.device)
+    for row in words.view(torch.int32):
+        out |= row
+    return out.view(torch.uint32)

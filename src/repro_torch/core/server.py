@@ -1289,7 +1289,7 @@ class DataSkippingScanner:
     for non-lowerable terms (and as the differential oracle in tests).
 
     ``and_reduce`` optionally routes the packed bitvector AND through a
-    device kernel (``repro_torch.kernels.residual.bv_and_many_xla``); the
+    device kernel (``repro_torch.kernels.residual.bv_and_many_cuda``); the
     default is the host numpy reduction.
 
     Every scan is appended to ``store.query_log`` — the replan control

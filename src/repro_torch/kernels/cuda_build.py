@@ -21,7 +21,9 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
 
 #: library name -> CUDA source in ``csrc/``
-SOURCES = {"pushdown": "pushdown.cu", "scan": "scan.cu"}
+SOURCES = {"pushdown": "pushdown.cu", "scan": "scan.cu",
+           "bitvector_reduce": "bitvector_reduce.cu",
+           "substring_match": "substring_match.cu"}
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -78,9 +80,31 @@ def build(names=None) -> float:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library ``name``, built first if needed."""
+    """The loaded library ``name``, built first if needed.
+
+    Every library exports ``ciao_error_string(int) -> const char*``.
+    """
     lib = _libs.get(name)
     if lib is None:
         build([name])
-        lib = _libs[name] = ctypes.CDLL(str(lib_path(name)))
+        lib = ctypes.CDLL(str(lib_path(name)))
+        lib.ciao_error_string.argtypes = [ctypes.c_int]
+        lib.ciao_error_string.restype = ctypes.c_char_p
+        _libs[name] = lib
     return lib
+
+
+def check_tensor(t, name: str, dtype, shape, device) -> None:
+    """Raise unless ``t`` is a contiguous ``dtype[shape]`` on ``device``."""
+    if t.dtype != dtype or tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: want {dtype}{list(shape)}, "
+                         f"got {t.dtype}{list(t.shape)}")
+    if t.device != device or not t.is_contiguous():
+        raise ValueError(f"{name}: must be contiguous on {device}")
+
+
+def check_launch(lib: ctypes.CDLL, err: int, what: str) -> None:
+    """Raise with CUDA's message if a launch returned an error code."""
+    if err:
+        raise RuntimeError(f"{what} kernel launch failed: "
+                           + lib.ciao_error_string(err).decode())

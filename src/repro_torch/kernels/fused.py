@@ -17,6 +17,7 @@ import ctypes
 import torch
 
 from . import cuda_build, ref
+from .cuda_build import check_tensor as check
 
 WORD_BITS = 32
 #: shared memory one block may use on an H100 (opt-in dynamic limit)
@@ -37,18 +38,8 @@ def _lib() -> ctypes.CDLL:
         lib.ciao_pushdown.restype = _I
         lib.ciao_pushdown_smem_bytes.argtypes = [_I]
         lib.ciao_pushdown_smem_bytes.restype = _I
-        lib.ciao_error_string.argtypes = [_I]
-        lib.ciao_error_string.restype = ctypes.c_char_p
         lib._typed = True
     return lib
-
-
-def _check(t: torch.Tensor, name: str, dtype, shape, device) -> None:
-    if t.dtype != dtype or tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name}: want {dtype}{list(shape)}, "
-                         f"got {t.dtype}{list(t.shape)}")
-    if t.device != device or not t.is_contiguous():
-        raise ValueError(f"{name}: must be contiguous on {device}")
 
 
 def clause_bitvectors_fused(data: torch.Tensor, plan: dict,
@@ -72,12 +63,12 @@ def clause_bitvectors_fused(data: torch.Tensor, plan: dict,
     P, Mk = plan["keys"].shape
     Mv = plan["vals"].shape[1]
     C = plan["membership"].shape[0]
-    _check(data, "data", torch.uint8, (R, L), dev)
-    _check(plan["keys"], "keys", torch.uint8, (P, Mk), dev)
-    _check(plan["vals"], "vals", torch.uint8, (P, Mv), dev)
+    check(data, "data", torch.uint8, (R, L), dev)
+    check(plan["keys"], "keys", torch.uint8, (P, Mk), dev)
+    check(plan["vals"], "vals", torch.uint8, (P, Mv), dev)
     for name in ("klens", "vlens", "kinds", "unbounded"):
-        _check(plan[name], name, torch.int32, (P,), dev)
-    _check(plan["membership"], "membership", torch.uint8, (C, P), dev)
+        check(plan[name], name, torch.int32, (P,), dev)
+    check(plan["membership"], "membership", torch.uint8, (C, P), dev)
     lib = _lib()
     smem = lib.ciao_pushdown_smem_bytes(C)
     if smem > MAX_SMEM:
@@ -95,8 +86,6 @@ def clause_bitvectors_fused(data: torch.Tensor, plan: dict,
         plan["kinds"].data_ptr(), plan["unbounded"].data_ptr(),
         plan["membership"].data_ptr(), C, P,
         words.data_ptr(), or_words.data_ptr(), counts.data_ptr(), stream)
-    if err:
-        raise RuntimeError("pushdown kernel launch failed: "
-                           + lib.ciao_error_string(err).decode())
+    cuda_build.check_launch(lib, err, "pushdown")
     launches += 1
     return words, or_words, counts

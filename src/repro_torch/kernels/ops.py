@@ -1,13 +1,18 @@
-"""Public wrapper of the pushdown pass with backend dispatch.
+"""Public wrappers of the kernels with backend dispatch.
 
 Backends:
-  * ``"cuda"``  — the hand-written kernel (``kernels.fused``) on a card;
+  * ``"cuda"``  — the hand-written kernel (``kernels.fused``,
+    ``kernels.substring_match``, ``kernels.bitvector_ops``) on a card;
   * ``"torch"`` — its plain PyTorch version (``kernels.ref``) on any
     device, the CPU included.
 
-Rows are padded to a multiple of the fixed record block and sliced back,
-so callers never see alignment constraints and launches see a bounded set
-of shapes (DESIGN.md §3.5).
+Every wrapper takes and returns numpy, as the JAX package's do; the
+split path's wrappers (``match_any``, ``match_key_value``,
+``reduce_bitvectors``) also take a tensor already on the device, so a
+chunk is copied once for all of its launches.  The pushdown pass pads rows
+to a multiple of the fixed record block and slices them back (DESIGN.md
+§3.5); the split path's CUDA kernels take any R and W, so nothing else is
+padded.
 """
 from __future__ import annotations
 
@@ -15,7 +20,9 @@ import numpy as np
 import torch
 
 from . import ref
+from .bitvector_ops import bitvector_reduce
 from .fused import clause_bitvectors_fused
+from .substring_match import key_value_match, multi_match_any
 
 BACKENDS = ("cuda", "torch")
 
@@ -99,3 +106,70 @@ def clause_bitvectors(data, plan, *, backend: str = "cuda",
     W = (R + 31) // 32
     return (words[:, :W].cpu().numpy(), or_words[:W].cpu().numpy(),
             counts.cpu().numpy())
+
+
+_TORCH_TYPES = {np.uint8: torch.uint8, np.int32: torch.int32,
+                np.uint32: torch.uint32}
+
+
+def _tensor(a, dtype, dev: torch.device) -> torch.Tensor:
+    """``a`` (numpy, or a tensor of this type) contiguous on ``dev``."""
+    if isinstance(a, torch.Tensor):
+        if a.dtype != _TORCH_TYPES[dtype]:
+            raise ValueError(f"want a {_TORCH_TYPES[dtype]} tensor, "
+                             f"got {a.dtype}")
+        return a.to(dev).contiguous()
+    return torch.from_numpy(np.ascontiguousarray(a, dtype=dtype)).to(dev)
+
+
+def _split_device(backend: str, device, data) -> torch.device:
+    """The backend's device; a tensor argument's own device by default."""
+    if device is None and isinstance(data, torch.Tensor):
+        device = data.device
+    return resolve_device(backend, device)
+
+
+def match_any(data, patterns, plens, *, backend: str = "cuda",
+              device=None) -> np.ndarray:
+    """bool[P, R] any-position multi-pattern match (kernel D).
+
+    ``patterns uint8[P, M]`` zero-padded, ``plens`` int ``[P]`` or
+    ``[P, 1]`` (``client.encode_patterns``).
+    """
+    dev = _split_device(backend, device, data)
+    d = _tensor(data, np.uint8, dev)
+    pats = _tensor(patterns, np.uint8, dev)
+    lens = _tensor(np.asarray(plens, dtype=np.int32).reshape(-1), np.int32,
+                   dev)
+    fn = ref.multi_match_any_ref if backend == "torch" else multi_match_any
+    return fn(d, pats, lens).cpu().numpy().astype(bool)
+
+
+def match_key_value(data, key: bytes, val: bytes, *, backend: str = "cuda",
+                    device=None) -> np.ndarray:
+    """bool[R] key-value predicate match (paper Table I row 4, kernel E).
+
+    A value holding ``,`` or ``}`` is searched unbounded; an empty key or
+    value raises ``ValueError``.
+    """
+    if not key or not val:
+        raise ValueError("key and value patterns must be non-empty")
+    dev = _split_device(backend, device, data)
+    d = _tensor(data, np.uint8, dev)
+    k = _tensor(np.frombuffer(bytearray(key), np.uint8), np.uint8, dev)
+    v = _tensor(np.frombuffer(bytearray(val), np.uint8), np.uint8, dev)
+    unbounded = b"," in val or b"}" in val
+    fn = ref.key_value_match_ref if backend == "torch" else key_value_match
+    return fn(d, k, v, unbounded).cpu().numpy().astype(bool)
+
+
+def reduce_bitvectors(bitvecs, *, backend: str = "cuda", device=None):
+    """(and_words, or_words, surviving_count) over uint32[P, W] (kernel C).
+
+    ``P >= 1``; numpy ``uint32[W]`` words and an int count.
+    """
+    dev = _split_device(backend, device, bitvecs)
+    bv = _tensor(bitvecs, np.uint32, dev)
+    fn = ref.bitvector_reduce_ref if backend == "torch" else bitvector_reduce
+    a, o, c = fn(bv)
+    return a.cpu().numpy(), o.cpu().numpy(), int(c)

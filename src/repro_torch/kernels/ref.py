@@ -1,11 +1,20 @@
 """Plain PyTorch versions of the hand-written kernels.
 
-``clause_bitvectors_ref`` is the plain version of the pushdown kernel
-(``csrc/pushdown.cu``, wrapped by :mod:`repro_torch.kernels.fused`): the
-same function written as whole-tensor torch ops, so it runs on any device.
-It serves the CPU tests and the on-card comparison in ``chip_smoke.py``;
-the main path never calls it when a card is present.  The plain version of
-the scan kernel is :func:`repro_torch.kernels.scan_fused.scan_core`.
+Each is the same function as its kernel, written as whole-tensor torch
+ops, so it runs on any device.  They serve the CPU tests and the on-card
+comparison in ``chip_smoke.py``; no path calls them on a card.
+
+  * ``clause_bitvectors_ref`` — pushdown (``csrc/pushdown.cu``,
+    wrapper :mod:`repro_torch.kernels.fused`);
+  * ``multi_match_any_ref`` / ``key_value_match_ref`` — the split path's
+    matchers (``csrc/substring_match.cu``, wrapper
+    :mod:`repro_torch.kernels.substring_match`);
+  * ``bitvector_reduce_ref`` — AND/OR/popcount over packed rows
+    (``csrc/bitvector_reduce.cu``, wrapper
+    :mod:`repro_torch.kernels.bitvector_ops`).
+
+The plain version of the scan kernel is
+:func:`repro_torch.kernels.scan_fused.scan_core`.
 """
 from __future__ import annotations
 
@@ -96,8 +105,64 @@ def clause_bitvectors_ref(data, ukeys, uklens, uvals, uvlens, uunb,
     bits = torch.stack([hits[mem[c]].any(dim=0)
                         for c in range(mem.shape[0])]) & valid[None, :]
     words = bitvector.torch_pack(bits)
-    or_w = torch.zeros(words.shape[1], dtype=torch.int32, device=dev)
-    for row in words.view(torch.int32):
-        or_w |= row
     counts = bits.sum(dim=1, dtype=torch.int32)
-    return words, or_w.view(torch.uint32), counts
+    return words, bitvector.torch_or_many(words), counts
+
+
+def multi_match_any_ref(data: torch.Tensor, patterns: torch.Tensor,
+                        plens: torch.Tensor) -> torch.Tensor:
+    """uint8[P, R]: pattern p occurs anywhere in record r.
+
+    ``data uint8[R, L]``, ``patterns uint8[P, M]`` (zero-padded),
+    ``plens int32[P]``.  The first pattern byte is always compared, so an
+    empty pattern matches a record that holds a zero byte (one shorter
+    than the stride) and not one that fills it, as the TPU kernel does.
+    """
+    if data.shape[0] == 0 or patterns.shape[0] == 0:
+        return torch.zeros((patterns.shape[0], data.shape[0]),
+                           dtype=torch.uint8, device=data.device)
+    hit = _masked_window_eq(data, patterns, plens)          # (P, R, L)
+    return hit.any(dim=2).to(torch.uint8)
+
+
+def key_value_match_ref(data: torch.Tensor, key: torch.Tensor,
+                        val: torch.Tensor, unbounded: bool) -> torch.Tensor:
+    """uint8[R]: a ``key`` window at ``j`` and a ``val`` window at some
+    ``v >= j + len(key)`` with no ``,``/``}`` in ``[j + len(key), v]``
+    (none checked when ``unbounded``).  ``key``/``val`` are ``uint8[m]``,
+    both non-empty; bytes past the stride read as zero.
+    """
+    if key.numel() == 0 or val.numel() == 0:
+        raise ValueError("key and value patterns must be non-empty")
+    R, L = data.shape
+    dev = data.device
+    mk = key.numel()
+    lens = torch.tensor([mk, val.numel()], device=dev)
+    key_hit = _masked_window_eq(data, key[None], lens[:1])[0]
+    val_hit = _masked_window_eq(data, val[None], lens[1:])[0]
+    if unbounded:
+        delim = torch.zeros_like(val_hit)
+    else:
+        delim = (data == DELIM_COMMA) | (data == DELIM_BRACE)
+    pos = torch.arange(L, device=dev, dtype=torch.int32).expand(R, L)
+    big = torch.iinfo(torch.int32).max
+
+    def suffix_first(mask):                 # nearest set position >= p
+        at = torch.where(mask, pos, big)
+        return torch.flip(torch.cummin(torch.flip(at, [-1]), -1).values, [-1])
+
+    # the nearest usable value hit lies before the nearest delimiter
+    cond = suffix_first(val_hit & ~delim) < suffix_first(delim)
+    region = _shift_left(cond, mk)          # cond[j + mk], false past L
+    return (key_hit & region).any(dim=1).to(torch.uint8)
+
+
+def bitvector_reduce_ref(bitvecs: torch.Tensor):
+    """(and uint32[W], or uint32[W], popcount of the AND as int32[])
+    over the rows of ``bitvecs uint32[P, W]``, ``P >= 1``."""
+    if bitvecs.shape[0] == 0:
+        raise ValueError("bitvector_reduce needs at least one row")
+    and_w = bitvector.torch_and_many(bitvecs)
+    count = torch.tensor(bitvector.torch_popcount(and_w), dtype=torch.int32,
+                         device=bitvecs.device)
+    return and_w, bitvector.torch_or_many(bitvecs), count

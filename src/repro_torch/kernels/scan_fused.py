@@ -261,8 +261,6 @@ def _lib() -> ctypes.CDLL:
         lib.ciao_scan_max_words.restype = _I
         lib.ciao_scan_smem_bytes.argtypes = [_I, _I, _I]
         lib.ciao_scan_smem_bytes.restype = _I
-        lib.ciao_error_string.argtypes = [_I]
-        lib.ciao_error_string.restype = ctypes.c_char_p
         lib._typed = True
     return lib
 
@@ -274,13 +272,8 @@ def _check_plane(plane: DevicePlaneArrays) -> None:
             "scod": (torch.int32, (K, N)), "rcod": (torch.int32, (K, N)),
             "sid": (torch.int32, (N,)), "cw": (torch.uint32, (N,))}
     for name, (dtype, shape) in want.items():
-        t = getattr(plane, name)
-        if t.dtype != dtype or tuple(t.shape) != shape:
-            raise ValueError(f"plane.{name}: want {dtype}{list(shape)}, "
-                             f"got {t.dtype}{list(t.shape)}")
-        if t.device != plane.sid.device or not t.is_contiguous():
-            raise ValueError(f"plane.{name}: must be contiguous on "
-                             f"{plane.sid.device}")
+        cuda_build.check_tensor(getattr(plane, name), f"plane.{name}", dtype,
+                                shape, plane.sid.device)
 
 
 class StagedParams(NamedTuple):
@@ -361,9 +354,7 @@ def launch_scan(plane: DevicePlaneArrays, staged: StagedParams
         ptr["active"], T, C, Q, S1, n_sm * _BLOCKS_PER_SM,
         out[0].data_ptr(), out[1].data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream)
-    if err:
-        raise RuntimeError("scan kernel launch failed: "
-                           + lib.ciao_error_string(err).decode())
+    cuda_build.check_launch(lib, err, "scan")
     launches += 1
     return out[0], out[1]
 

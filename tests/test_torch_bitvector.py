@@ -49,6 +49,8 @@ def test_reductions_match_jax(shape):
         int(jbv.jnp_popcount(jnp.asarray(words)))
     assert np.array_equal(tbv.torch_and_many(tw).numpy(),
                           np.asarray(jbv.jnp_and_many(jnp.asarray(words))))
+    assert np.array_equal(tbv.torch_or_many(tw).numpy(),
+                          jbv.bv_or_many(words))
     assert np.array_equal(tbv.bv_and_many(words), jbv.bv_and_many(words))
     assert np.array_equal(tbv.popcount_rows(words), jbv.popcount_rows(words))
 

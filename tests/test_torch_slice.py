@@ -125,9 +125,18 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     assert not bad, bad
 
 
+def test_import_walk_covers_every_port_module():
+    walked = {p.relative_to(ROOT).as_posix() for p in _port_files()}
+    for mod in ("kernels/bitvector_ops.py", "kernels/substring_match.py",
+                "kernels/residual.py", "benchmarks/__init__.py",
+                "benchmarks/bench_kernels.py"):
+        assert f"src/repro_torch/{mod}" in walked, mod
+
+
 def test_kernel_sources_are_cuda_for_hopper():
     from repro_torch.kernels import cuda_build
     assert "arch=compute_90a,code=sm_90a" in cuda_build.NVCC_FLAGS
+    assert len(cuda_build.SOURCES) == 4
     for src in cuda_build.SOURCES.values():
         text = (cuda_build.CSRC / src).read_text()
         assert "__global__" in text and "src/repro/kernels/" in text
