@@ -26,6 +26,21 @@ split path, on the same chunks:
                                                   [kernels C, D, E]
       and every ScanResult equals the main path's.
 
+Then kernel F (flash attention, csrc/flash_attention.cu) against its plain
+version on the TPU test shapes, the serving shape, unmasked, Sq != Sk and
+ragged S, in f32 and bf16, and the model-serving path at full width:
+
+  repro_torch.launch.serve.main(["--arch", "qwen3-1.7b", "--batch", "8",
+                                 "--prompt-len", "512", "--gen", "32"])
+    -> 28 dense layers (d 2048, 16/8 heads of 128, d_ff 6144, V 151,936),
+       seeded random weights, eight ycsb records as prompts
+    -> prefill: every layer's attention on kernel F
+    -> 32 greedy decode steps (plain decode attention)
+
+checked by (i) layer 0's q, k, v captured from the serving prefill, F's
+output against the plain version, and (ii) in f32, forward logits at
+position S-1 against prefill(S-1) + one decode step (B=2, S=128).
+
 Any mismatch or fault raises (exit code != 0).
 
     python3 chip_smoke.py                  # one CUDA card, full size
@@ -50,6 +65,17 @@ SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "src")
 CHUNK = 8192
 SEED = 20240611
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM HBM3 (NVIDIA data sheet)
+BF16_FLOP_PER_S = 989e12        # H100 SXM dense bf16 tensor cores (same)
+SERVE_ARCH = "qwen3-1.7b"
+SERVE_ARGS = ["--arch", SERVE_ARCH, "--batch", "8", "--prompt-len", "512",
+              "--gen", "32"]
+# kernel F against its plain version: N(0, 1) inputs; f32 as the TPU
+# test's bound (the two sum in another order), bf16 about one bf16 step of
+# outputs of about unit size (both round once from f32)
+FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+# (ii): f32 logits of about unit size after 28 layers, forward (kernel F)
+# against prefill + decode (plain decode attention), TF32 off
+EXACT_TOL = 1e-3
 
 
 def _records_part(args):
@@ -540,9 +566,10 @@ def main_path(n_records: int, dev):
 
 def _zero_counters() -> None:
     from repro_torch.kernels import bitvector_ops, fused, scan_fused
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import substring_match as sm
     fused.launches = scan_fused.launches = bitvector_ops.launches = 0
-    sm.match_launches = sm.kv_launches = 0
+    sm.match_launches = sm.kv_launches = fa.launches = 0
 
 
 def _split_counters() -> dict:
@@ -717,6 +744,260 @@ def split_kernel_rows(run, split, dev) -> list[dict]:
     return rows
 
 
+def check_flash(dev) -> int:
+    """Kernel F against its plain version: the TPU test shapes, the
+    serving shape, unmasked, Sq != Sk, ragged S, f32 and bf16."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+
+    cases = [  # B, H, Hkv, Sq, Sk, d, causal
+        (2, 4, 2, 128, 128, 64, True), (1, 8, 8, 256, 256, 32, True),
+        (2, 4, 1, 64, 64, 128, False), (1, 2, 2, 96, 96, 16, True),
+        (1, 2, 2, 64, 64, 32, True),                  # the TPU bf16 test
+        (8, 16, 8, 512, 512, 128, True),              # the serving shape
+        (2, 16, 8, 512, 512, 128, False),
+        (2, 8, 4, 300, 700, 64, False), (2, 8, 4, 700, 300, 64, True),
+        (2, 16, 8, 1000, 1000, 128, True), (3, 4, 4, 77, 77, 16, False),
+    ]
+    worst = {}
+    for i, (B, H, Hkv, Sq, Sk, d, causal) in enumerate(cases):
+        rng = np.random.default_rng(100 + i)
+        base = [torch.from_numpy(rng.normal(size=(B, S, h, d)).astype(
+            np.float32)).to(dev) for S, h in ((Sq, H), (Sk, Hkv), (Sk, Hkv))]
+        for name, tol in FLASH_TOL.items():
+            # (B, S, heads, d) handed over transposed, as the model does
+            q, k, v = (a.to(getattr(torch, name)).transpose(1, 2)
+                       for a in base)
+            got = fa.flash_attention(q, k, v, causal=causal)
+            want = ref.flash_attention_ref(q, k, v, causal=causal)
+            torch.cuda.synchronize()
+            err = float((got.float() - want.float()).abs().max())
+            if not (err <= tol) or got.dtype != q.dtype:
+                raise AssertionError(
+                    f"flash kernel != plain version: {name} B={B} H={H} "
+                    f"Hkv={Hkv} Sq={Sq} Sk={Sk} d={d} causal={causal}: "
+                    f"max abs err {err} > {tol}")
+            worst[name] = max(worst.get(name, 0.0), err)
+    print(f"  {len(cases)} shapes x (f32, bf16): max abs err f32 "
+          f"{worst['float32']:.3g} (tol {FLASH_TOL['float32']}), bf16 "
+          f"{worst['bfloat16']:.3g} (tol {FLASH_TOL['bfloat16']})")
+    return 2 * len(cases)
+
+
+def serve_path(dev) -> dict:
+    """The serve entry point at full width; layer 0's q, k, v and F's output
+    are captured from the first prefill (check (i))."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    from repro_torch.launch import serve
+    from repro_torch.models.model import build_model
+
+    cfg = get_config(SERVE_ARCH)
+    n_params = build_model(cfg).param_count()
+    print(f"  {SERVE_ARCH}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+          f"{cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.hd()}, d_ff "
+          f"{cfg.d_ff}, vocab {cfg.vocab_size}, qk_norm {cfg.qk_norm}, tied "
+          f"{cfg.tied_embeddings}; param_count {n_params:,}")
+    if abs(n_params - 1.7e9) / 1.7e9 >= 0.06:
+        raise AssertionError(f"param_count {n_params} not within 6% of 1.7e9")
+
+    captured = {}
+    launch = fa.flash_attention
+
+    def capture(q, k, v, *, causal=True):
+        out = launch(q, k, v, causal=causal)
+        if not captured:
+            captured.update(q=q.clone(), k=k.clone(), v=v.clone(),
+                            out=out.clone(), causal=causal)
+        return out
+
+    # ---- the serve path: counters at 0 just before, read just after ----
+    torch.cuda.synchronize()
+    _zero_counters()
+    torch.cuda.reset_peak_memory_stats(dev)
+    fa.flash_attention = capture
+    try:
+        res = serve.main(SERVE_ARGS)
+    finally:
+        fa.flash_attention = launch
+    torch.cuda.synchronize()
+    launches = fa.launches
+    # -----------------------------------------------------------------------
+    peak = torch.cuda.max_memory_allocated(dev)
+    per_prefill = launches / res["prefill_calls"]
+    print(f"  prefill {res['prefill_ms']:.3f} ms (warm), decode "
+          f"{res['decode_ms_per_step']:.3f} ms/step, "
+          f"{res['tokens_per_s']:.1f} tokens/s over {res['wall_s']:.3f} s "
+          f"(batch {res['batch']}, {res['generated']} tokens each; host "
+          f"clock, device synchronised around each step); peak "
+          f"max_memory_allocated {peak / 2**30:.2f} GiB")
+    print(f"  kernel F launches: {launches} in {res['prefill_calls']} "
+          f"prefills ({per_prefill:g} per prefill, {cfg.n_layers} layers)")
+    if res["generated"] != 32 or per_prefill != cfg.n_layers:
+        raise AssertionError(f"serve path: {res}, F launches {launches}")
+
+    # (i) F on layer 0's captured inputs against the plain version
+    q, k, v = captured["q"], captured["k"], captured["v"]
+    want = ref.flash_attention_ref(q, k, v, causal=captured["causal"])
+    err = float((captured["out"].float() - want.float()).abs().max())
+    print(f"  (i) layer 0 of the serving prefill: q {tuple(q.shape)} k "
+          f"{tuple(k.shape)} {q.dtype}, causal; F vs plain max abs err "
+          f"{err:.3g} (tol {FLASH_TOL['bfloat16']})")
+    if not (err <= FLASH_TOL["bfloat16"]):
+        raise AssertionError(f"(i) F != plain on layer 0: {err}")
+    return {"result": res, "launches": launches, "peak_bytes": peak,
+            "param_count": n_params, "qkv": (q, k, v), "err": err}
+
+
+def serve_breakdown(dev) -> dict:
+    """Where one prefill and one decode step of the serve path spend their
+    time: device kernel time by kind (profiler) against the host clock."""
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import build_model
+    from repro_torch.serve.engine import make_serve_fns
+
+    cfg = get_config(SERVE_ARCH)
+    model = build_model(cfg)
+    params = model.compute_params(model.init(SEED, device=dev))
+    B, S = 8, 512
+    toks = torch.from_numpy(np.random.default_rng(SEED).integers(
+        0, cfg.vocab_size, size=(B, S)).astype(np.int32)).to(dev)
+    fns = make_serve_fns(model, batch=B, seq_len=S + 32 + 128)
+    logits, cache = fns["prefill"](params, {"tokens": toks})
+    tok = torch.argmax(logits, dim=-1).to(torch.int32)
+    fns["decode"](params, cache, tok, S)
+    steps = {"prefill": lambda: fns["prefill"](params, {"tokens": toks}),
+             "decode": lambda: fns["decode"](params, cache, tok, S + 1)}
+    kinds = (("kernel F", ("flash_kernel",)),
+             ("matmul", ("gemm", "nvjet", "xmma", "cutlass", "gemv")))
+    out = {}
+    for name, fn in steps.items():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(3):
+            fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) / 3 * 1e3
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        rows = [(e.key, e.self_device_time_total / 1e3, e.count)
+                for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA
+                and e.self_device_time_total > 0]
+        busy = sum(ms for _, ms, _ in rows)
+        by_kind = {k: sum(ms for key, ms, _ in rows
+                          if any(m in key for m in marks))
+                   for k, marks in kinds}
+        by_kind["other"] = busy - sum(by_kind.values())
+        launches = sum(n for _, _, n in rows)
+        ops = sum(1 for e in prof.events()
+                  if e.device_type == DeviceType.CPU and e.cpu_parent is None
+                  and e.name.startswith("aten::"))
+        out[name] = {"wall_ms": wall, "device_ms": busy,
+                     "idle_share": 1 - busy / wall, "kernels": launches,
+                     "eager_ops": ops, "by_kind_ms": by_kind}
+        top = sorted(rows, key=lambda r: -r[1])[:6]
+        print(f"  {name}: {wall:.3f} ms host clock, {ops} eager ops "
+              f"({ops / cfg.n_layers:.1f} per layer), {busy:.3f} ms of "
+              f"kernels ({launches} launches; device idle "
+              f"{1 - busy / wall:.1%}); by kind "
+              + ", ".join(f"{k} {v:.3f} ms" for k, v in by_kind.items()))
+        for key, ms, n in top:
+            print(f"      {ms:8.3f} ms  x{n:<4d} {key[:90]}")
+    return out
+
+
+def exactness_f32(dev) -> float:
+    """(ii) forward logits at S-1 against prefill(S-1) + decode, in f32."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import cache_alloc_len, get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import transformer
+    from repro_torch.models.model import build_model
+
+    torch.backends.cuda.matmul.allow_tf32 = False      # PyTorch's default
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = dataclasses.replace(get_config(SERVE_ARCH), compute_dtype="float32")
+    model = build_model(cfg)
+    params = model.init(SEED, device=dev)
+    B, S = 2, 128
+    toks = torch.from_numpy(np.random.default_rng(SEED).integers(
+        0, cfg.vocab_size, size=(B, S)).astype(np.int32)).to(dev)
+    fa.launches = 0
+    full, _ = transformer.forward(params, cfg, toks)
+    last, cache = model.prefill(params, {"tokens": toks[:, :S - 1]},
+                                s_alloc=cache_alloc_len(S),
+                                cache_dtype=torch.float32)
+    dec, _ = model.decode(params, cache, toks[:, S - 1], S - 1)
+    torch.cuda.synchronize()
+    err = float((full[:, S - 1] - dec).abs().max())
+    err_pre = float((full[:, S - 2] - last).abs().max())
+    scale = float(full[:, S - 1].abs().max())
+    print(f"  (ii) f32, TF32 off, B={B} S={S}: forward (kernel F, "
+          f"{fa.launches} launches with the prefill) vs prefill(S-1) + "
+          f"decode (plain decode attention): max abs err {err:.3g} at S-1, "
+          f"{err_pre:.3g} at S-2 (prefill), logits up to {scale:.3g}; tol "
+          f"{EXACT_TOL}: f32 sums in another order over 28 layers")
+    if not (err <= EXACT_TOL and err_pre <= EXACT_TOL):
+        raise AssertionError(f"(ii) forward != prefill + decode: {err}, "
+                             f"{err_pre}")
+    if not torch.isfinite(full).all():
+        raise AssertionError("(ii) non-finite logits")
+    return err
+
+
+def flash_row(serve) -> dict:
+    """Kernel F at the serving shape (layer 0's captured q, k, v)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+
+    q, k, v = serve["qkv"]
+    B, H, S, d = q.shape
+    Hkv = k.shape[1]
+    ms, src = kernel_ms(lambda: fa.flash_attention(q, k, v), 20,
+                        "flash_kernel")
+    nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+    flops = 2 * B * H * S * S * d
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    flops_ms = flops / BF16_FLOP_PER_S * 1e3
+    lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+        q, k, v, is_causal=True, enable_gqa=True), 20)
+    return {
+        "name": "flash_attention", "route": "cuda",
+        "source": "src/repro_torch/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:78",
+        "launches": serve["launches"], "max_abs_err": serve["err"],
+        "ms": ms, "plain_ms": cuda_ms(
+            lambda: ref.flash_attention_ref(q, k, v), 3),
+        "bound_ms": max(bytes_ms, flops_ms),
+        "bound_by": "bytes" if bytes_ms >= flops_ms else "operations",
+        "library_ms": lib_ms,
+        "library_note": "scaled_dot_product_attention(is_causal=True, "
+                        "enable_gqa=True), timed only",
+        "ms_from": src, "wrapper_call_ms": cuda_ms(
+            lambda: fa.flash_attention(q, k, v), 20),
+        "launches_per_prefill": serve["launches"]
+        // serve["result"]["prefill_calls"],
+        "shape": f"B={B} H={H} Hkv={Hkv} S={S} d={d} {q.dtype} causal",
+        "bound_bytes_ms": bytes_ms, "bound_ops_ms": flops_ms,
+    }
+
+
 def kernel_table(run, dev) -> list[dict]:
     """Time each kernel at the main path's shapes beside its plain version."""
     import numpy as np
@@ -844,14 +1125,25 @@ def main(argv=None) -> int:
     check_split_kernels(dev)
     phase("split path: (a) split vs fused, (b) split ingest + hooked scan")
     split = split_path(run, dev)
+    phase("kernel F: flash attention vs plain version")
+    check_flash(dev)
+    phase(f"serve path: {' '.join(SERVE_ARGS)}")
+    serve = serve_path(dev)
+    phase("serve path breakdown: one prefill, one decode step (profiler)")
+    serve_breakdown(dev)
+    phase("exactness at full width: forward vs prefill + decode (f32)")
+    exactness_f32(dev)
     phase("kernels at main-path shapes")
-    rows = kernel_table(run, dev) + split_kernel_rows(run, split, dev)
+    rows = (kernel_table(run, dev) + split_kernel_rows(run, split, dev)
+            + [flash_row(serve)])
     for r in rows:
+        lib = "" if r["library_ms"] is None else \
+            f"; library {r['library_ms']:.4f} ms"
         print(f"  {r['name']}: {r['ms']:.4f} ms ({r['ms_from']}; whole "
               f"wrapper call {r['wrapper_call_ms']:.4f} ms; plain "
               f"{r['plain_ms']:.3f} ms; bound {r['bound_ms']:.5f} ms by "
-              f"{r['bound_by']}; {r['launches']} launches on the path) at "
-              f"{r['shape']}")
+              f"{r['bound_by']}{lib}; {r['launches']} launches on the path) "
+              f"at {r['shape']}")
     print(f"  total {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"kernels": rows}))

@@ -11,8 +11,10 @@ their plain PyTorch versions and their wrappers.
   * substring_match — the split path's matchers: a pattern set (kernel D)
     and one key-value predicate (kernel E) over a chunk
     (``csrc/substring_match.cu``)
+  * flash_attention — causal or unmasked GQA flash attention for the
+    model's prefill (kernel F, ``csrc/flash_attention.cu``)
   * residual        — the host scanner's ``and_reduce`` hook on kernel C
-  * ref             — plain versions of kernels A, C, D and E
+  * ref             — plain versions of kernels A, C, D, E and F
   * ops             — backend dispatch (``"cuda"`` kernel / ``"torch"``
     plain)
   * cuda_build      — nvcc build at first use, ctypes loading

@@ -23,7 +23,8 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
 #: library name -> CUDA source in ``csrc/``
 SOURCES = {"pushdown": "pushdown.cu", "scan": "scan.cu",
            "bitvector_reduce": "bitvector_reduce.cu",
-           "substring_match": "substring_match.cu"}
+           "substring_match": "substring_match.cu",
+           "flash_attention": "flash_attention.cu"}
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

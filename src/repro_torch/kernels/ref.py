@@ -11,7 +11,10 @@ comparison in ``chip_smoke.py``; no path calls them on a card.
     :mod:`repro_torch.kernels.substring_match`);
   * ``bitvector_reduce_ref`` — AND/OR/popcount over packed rows
     (``csrc/bitvector_reduce.cu``, wrapper
-    :mod:`repro_torch.kernels.bitvector_ops`).
+    :mod:`repro_torch.kernels.bitvector_ops`);
+  * ``flash_attention_ref`` — causal or unmasked GQA attention
+    (``csrc/flash_attention.cu``, wrapper
+    :mod:`repro_torch.kernels.flash_attention`).
 
 The plain version of the scan kernel is
 :func:`repro_torch.kernels.scan_fused.scan_core`.
@@ -166,3 +169,22 @@ def bitvector_reduce_ref(bitvecs: torch.Tensor):
     count = torch.tensor(bitvector.torch_popcount(and_w), dtype=torch.int32,
                          device=bitvecs.device)
     return and_w, bitvector.torch_or_many(bitvecs), count
+
+
+def flash_attention_ref(q, k, v, *, causal: bool = True):
+    """Plain version of kernel F in its ``(B, H, S, d)`` layout.
+
+    The model's chunked attention
+    (:func:`repro_torch.models.attention.flash_attention_plain`) over
+    positions 0..S-1, through transposes, with mask ``causal`` or
+    ``none``.
+    """
+    from repro_torch.models import attention   # the model imports kernels
+
+    Sq, Sk = q.shape[2], k.shape[2]
+    out = attention.flash_attention_plain(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+        q_positions=torch.arange(Sq, dtype=torch.int32, device=q.device),
+        k_positions=torch.arange(Sk, dtype=torch.int32, device=q.device),
+        mask_mode="causal" if causal else "none")
+    return out.transpose(1, 2)

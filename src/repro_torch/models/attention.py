@@ -1,0 +1,281 @@
+"""Attention: GQA / MQA / qk-norm / QKV bias, flash attention and decode.
+
+The port of the GQA and MHA parts of ``repro.models.attention``; MLA
+(``_mla_qkv``, ``attend_mla``, ``decode_attention_mla``) and cross
+attention come with their model families (ROADMAP.md Queue 5).
+
+  * :func:`flash_attention` — self-attention over a whole sequence.  On a
+    CPU tensor it runs :func:`flash_attention_plain`, the chunked
+    online-softmax version of the JAX package's jnp path, with every mask
+    mode (causal, local, none) and ``-1``-padded positions.  On a CUDA
+    tensor it launches kernel F (``csrc/flash_attention.cu``, wrapper
+    :mod:`repro_torch.kernels.flash_attention`) where F's domain covers
+    the call, and raises ``NotImplementedError`` where it does not: it
+    never runs the plain version on a card.
+  * :func:`decode_attention_gqa` — one new token over the cache, returning
+    partial softmax stats (o, m, l); :func:`combine_partials` normalises
+    them.  Plain PyTorch on every device: the JAX package has no kernel
+    for it either.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from repro_torch.kernels import flash_attention as fa_kernel
+
+from .layers import RopeTables, Spec, rmsnorm, rope_tables, rotate
+
+NEG_INF = -1e30
+
+#: where the calls kernel F does not cover are planned (ROADMAP.md)
+_ROADMAP_LOCAL = "ROADMAP.md Queue 5, item 'local and hybrid'"
+_ROADMAP_MLA = "ROADMAP.md Queue 5, item 'MLA'"
+_ROADMAP_SHARDED = "ROADMAP.md Queue 1, item 8 (sharded plane)"
+
+
+# ---------------------------------------------------------------------------
+# init
+# ---------------------------------------------------------------------------
+
+def init_attention(cfg) -> dict:
+    """Parameter specs of one GQA attention block."""
+    d, H, Hkv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd()
+    p = {
+        "wq": Spec((d, H, hd)),
+        "wk": Spec((d, Hkv, hd)),
+        "wv": Spec((d, Hkv, hd)),
+        "wo": Spec((H, hd, d)),
+    }
+    if cfg.qkv_bias:
+        p["bq"] = Spec((H, hd), "zeros")
+        p["bk"] = Spec((Hkv, hd), "zeros")
+        p["bv"] = Spec((Hkv, hd), "zeros")
+    if cfg.qk_norm:
+        p["q_norm"] = Spec((hd,), "zeros")
+        p["k_norm"] = Spec((hd,), "zeros")
+    return p
+
+
+# ---------------------------------------------------------------------------
+# qkv projection
+# ---------------------------------------------------------------------------
+
+def _proj(x, w):
+    """``einsum("bsd,dhk->bshk", x, w)`` as one matrix product."""
+    d, heads, hd = w.shape
+    y = x @ w.to(x.dtype).reshape(d, heads * hd)
+    return y.view(*x.shape[:-1], heads, hd)
+
+
+def _project_qkv(p, x, cfg, rope: RopeTables | None):
+    """q, k, v of x; rotated by ``rope`` (the tables at x's positions,
+    :func:`~repro_torch.models.layers.rope_tables`) unless it is None."""
+    q, k, v = _proj(x, p["wq"]), _proj(x, p["wk"]), _proj(x, p["wv"])
+    if "bq" in p:
+        q = q + p["bq"].to(x.dtype)
+        k = k + p["bk"].to(x.dtype)
+        v = v + p["bv"].to(x.dtype)
+    if "q_norm" in p:
+        q = rmsnorm(q, p["q_norm"], cfg.norm_eps)
+        k = rmsnorm(k, p["k_norm"], cfg.norm_eps)
+    if rope is not None:
+        q, k = rotate(q, rope), rotate(k, rope)
+    return q, k, v
+
+
+def _out_proj(a, wo):
+    """``einsum("bshk,hkd->bsd", a, wo)`` as one matrix product."""
+    H, hd, d = wo.shape
+    return a.reshape(*a.shape[:-2], H * hd) @ wo.to(a.dtype).reshape(H * hd, d)
+
+
+# ---------------------------------------------------------------------------
+# flash attention
+# ---------------------------------------------------------------------------
+
+def _pad_to(x, size: int, dim: int):
+    pad = size - x.shape[dim]
+    if pad <= 0:
+        return x
+    shape = list(x.shape)
+    shape[dim] = pad
+    return torch.cat([x, x.new_zeros(shape)], dim=dim)
+
+
+def flash_attention_plain(q, k, v, *, q_positions, k_positions,
+                          mask_mode: str = "causal", window: int = 0,
+                          q_chunk: int = 1024, k_chunk: int = 1024,
+                          scale: float | None = None):
+    """Chunked online-softmax attention, on any device.
+
+    q: (B, Sq, H, qkd); k: (B, Sk, Hkv, qkd); v: (B, Sk, Hkv, vd).
+    positions: int (Sq,) / (Sk,) absolute positions (mask + validity:
+    negative k_position == padding).  Scores, stats and the accumulator
+    are f32; the result is in q's type.
+    """
+    if mask_mode not in ("causal", "local", "none"):
+        raise ValueError(f"unknown mask_mode {mask_mode!r}")
+    B, Sq, H, qkd = q.shape
+    Sk, Hkv, vd = k.shape[1], k.shape[2], v.shape[-1]
+    G = H // Hkv
+    scale = scale if scale is not None else qkd ** -0.5
+
+    qc = min(q_chunk, Sq)
+    kc = min(k_chunk, Sk)
+    nq = -(-Sq // qc)
+    nk = -(-Sk // kc)
+
+    qr = _pad_to(q, nq * qc, 1).reshape(B, nq, qc, Hkv, G, qkd)
+    kr = _pad_to(k, nk * kc, 1).reshape(B, nk, kc, Hkv, qkd)
+    vr = _pad_to(v, nk * kc, 1).reshape(B, nk, kc, Hkv, vd)
+    qpos = _pad_to(q_positions, nq * qc, 0).reshape(nq, qc)
+    kpos = (_pad_to(k_positions + 1, nk * kc, 0) - 1).reshape(nk, kc)
+
+    outs = []
+    for qi in range(nq):
+        q_blk = qr[:, qi].float()             # (B, qc, Hkv, G, qkd)
+        qp = qpos[qi]                         # (qc,)
+        o = torch.zeros((B, Hkv, G, qc, vd), dtype=torch.float32,
+                        device=q.device)
+        m = torch.full((B, Hkv, G, qc), NEG_INF, dtype=torch.float32,
+                       device=q.device)
+        l_ = torch.zeros((B, Hkv, G, qc), dtype=torch.float32,
+                         device=q.device)
+        for ki in range(nk):
+            k_blk = kr[:, ki].float()         # (B, kc, Hkv, qkd)
+            v_blk = vr[:, ki].float()         # (B, kc, Hkv, vd)
+            kp = kpos[ki]                     # (kc,)
+            s = torch.einsum("bqhgd,bkhd->bhgqk", q_blk, k_blk) * scale
+            valid = (kp >= 0)[None, :]
+            if mask_mode == "causal":
+                valid = valid & (qp[:, None] >= kp[None, :])
+            elif mask_mode == "local":
+                diff = qp[:, None] - kp[None, :]
+                valid = valid & (diff >= 0) & (diff < window)
+            s = torch.where(valid, s, NEG_INF)
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            # guard: fully-masked rows keep m at NEG_INF; exp(NEG_INF -
+            # NEG_INF) would be 1, so clamp the shift argument.
+            shift = torch.where(m_new <= NEG_INF / 2, 0.0, m_new)
+            p_ = torch.exp(s - shift[..., None])
+            p_ = torch.where(valid, p_, 0.0)
+            alpha = torch.exp(torch.where(m <= NEG_INF / 2, NEG_INF,
+                                          m - shift))
+            o = o * alpha[..., None] + torch.einsum(
+                "bhgqk,bkhd->bhgqd", p_, v_blk)
+            l_ = l_ * alpha + p_.sum(dim=-1)
+            m = m_new
+        out = o / torch.clamp(l_, min=1e-30)[..., None]
+        # (B, Hkv, G, qc, vd) -> (B, qc, H, vd)
+        outs.append(out.permute(0, 3, 1, 2, 4).reshape(B, qc, H, vd)
+                    .to(q.dtype))
+    return torch.cat(outs, dim=1)[:, :Sq]
+
+
+def _is_iota(pos, n: int) -> bool:
+    """``pos`` is exactly 0..n-1 (a device sync unless pos is on the CPU)."""
+    if pos.dim() != 1 or pos.shape[0] != n:
+        return False
+    return bool(torch.equal(pos, torch.arange(n, dtype=pos.dtype,
+                                              device=pos.device)))
+
+
+def flash_attention(q, k, v, *, q_positions, k_positions,
+                    mask_mode: str = "causal", window: int = 0,
+                    q_chunk: int = 1024, k_chunk: int = 1024,
+                    scale: float | None = None):
+    """Chunked online-softmax attention (layouts as
+    :func:`flash_attention_plain`).
+
+    On a CPU tensor this is :func:`flash_attention_plain`.  On a CUDA
+    tensor it launches kernel F, which covers mask ``causal`` or
+    ``none``, the default scale, equal qk and v head dims and positions
+    0..S-1 (what ``transformer.forward``/``prefill`` pass, on the CPU, so
+    the check costs no device sync); the chunk sizes are the jnp path's
+    tiling and do not change the result.  Any other call on a card raises
+    ``NotImplementedError``.
+    """
+    if q.device.type == "cpu":
+        return flash_attention_plain(
+            q, k, v, q_positions=q_positions, k_positions=k_positions,
+            mask_mode=mask_mode, window=window, q_chunk=q_chunk,
+            k_chunk=k_chunk, scale=scale)
+    Sq, qkd, Sk, vd = q.shape[1], q.shape[-1], k.shape[1], v.shape[-1]
+    if mask_mode not in ("causal", "none"):
+        raise NotImplementedError(
+            f"mask {mask_mode!r} on {q.device}: kernel F covers causal and "
+            f"unmasked attention; local windows come with {_ROADMAP_LOCAL}")
+    if qkd != vd or (scale is not None and scale != qkd ** -0.5):
+        raise NotImplementedError(
+            f"qk head dim {qkd}, v head dim {vd}, scale {scale} on "
+            f"{q.device}: kernel F takes equal head dims and the default "
+            f"scale; MLA comes with {_ROADMAP_MLA}")
+    if not (_is_iota(q_positions, Sq) and _is_iota(k_positions, Sk)):
+        raise NotImplementedError(
+            f"positions other than 0..S-1 on {q.device}: kernel F masks by "
+            f"row and column index; offset or padded positions come with "
+            f"{_ROADMAP_LOCAL}")
+    out = fa_kernel.flash_attention(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+        causal=mask_mode == "causal")
+    return out.transpose(1, 2)
+
+
+def attend_full(p, x, cfg, positions, *, mask_mode=None):
+    """Self-attention (prefill path) for GQA-family configs."""
+    q, k, v = _project_qkv(p, x, cfg,
+                           rope_tables(positions, cfg.hd(), cfg.rope_theta))
+    mode = mask_mode or ("local" if cfg.attention == "local" else "causal")
+    out = flash_attention(
+        q, k, v,
+        q_positions=positions, k_positions=positions,
+        mask_mode=mode, window=cfg.window,
+        q_chunk=cfg.attn_q_chunk, k_chunk=cfg.attn_k_chunk,
+    )
+    return _out_proj(out, p["wo"])
+
+
+# ---------------------------------------------------------------------------
+# decode: partial-softmax attention over the cache
+# ---------------------------------------------------------------------------
+
+class Partial(NamedTuple):
+    o: torch.Tensor  # (B, H, vd) fp32, exp-weighted un-normalized
+    m: torch.Tensor  # (B, H) fp32 local max
+    l: torch.Tensor  # (B, H) fp32 local sum
+
+
+def combine_partials(parts: Partial, axis_name: str | None = None):
+    """Normalise partial softmax stats.  Merging across a mesh axis comes
+    with the sharded plane."""
+    if axis_name is not None:
+        raise NotImplementedError(
+            f"combining across mesh axis {axis_name!r} comes with "
+            f"{_ROADMAP_SHARDED}")
+    return parts.o / torch.clamp(parts.l, min=1e-30)[..., None]
+
+
+def decode_attention_gqa(q, k_cache, v_cache, k_positions, *, window: int = 0,
+                         q_position=None, scale=None) -> Partial:
+    """q: (B, H, hd); caches: (B, S, Hkv, hd); k_positions: (S,) with -1
+    for empty slots.  Returns partial stats (f32)."""
+    B, H, hd = q.shape
+    Hkv = k_cache.shape[2]
+    G = H // Hkv
+    scale = scale if scale is not None else hd ** -0.5
+    qg = q.reshape(B, Hkv, G, hd).float()
+    s = torch.einsum("bhgd,bshd->bhgs", qg, k_cache.float()) * scale
+    valid = k_positions >= 0
+    if window and q_position is not None:
+        valid = valid & (q_position - k_positions < window)
+    s = torch.where(valid, s, NEG_INF)
+    m = s.amax(dim=-1)
+    shift = torch.where(m <= NEG_INF / 2, 0.0, m)
+    p_ = torch.exp(s - shift[..., None])
+    p_ = torch.where(valid, p_, 0.0)
+    o = torch.einsum("bhgs,bshd->bhgd", p_, v_cache.float())
+    l_ = p_.sum(dim=-1)
+    return Partial(o=o.reshape(B, H, -1), m=m.reshape(B, H),
+                   l=l_.reshape(B, H))

@@ -1,0 +1,192 @@
+"""Shared layers: parameter specs, norms, RoPE, MLPs, embeddings.
+
+The port of ``repro.models.layers``.  Parameters are plain nested dicts of
+tensors with the JAX package's names and layouts.  An init function
+returns a tree of :class:`Spec` leaves (shape and distribution), which
+:func:`materialize` draws from an explicit ``torch.Generator`` on an
+explicit device, so a parameter count (:func:`count`) never allocates.
+The distributions are those of ``mk``: normal times ``fan_in ** -0.5``
+(``fan_in`` the product of all but the last dim of one layer's shape, the
+first dim of a vector), embeddings times 0.02, norms and biases zero.
+``torch.Generator`` cannot give ``jax.random``'s numbers; tests that
+compare the two packages convert the JAX package's parameters
+(:mod:`repro_torch.models.convert`).
+
+The JAX package's ``Leaf`` and logical axes exist only for its sharding
+rules and have no counterpart here.
+"""
+from __future__ import annotations
+
+import math
+from typing import NamedTuple
+
+import torch
+import torch.nn.functional as F
+
+
+class Spec(NamedTuple):
+    shape: tuple[int, ...]
+    init: str = "normal"               # normal | zeros
+    scale: float | None = None         # None -> fan_in ** -0.5
+
+
+def resolve_device(device) -> torch.device:
+    """``device`` as a ``torch.device``; a CUDA device raises without a card."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {dev} needs a CUDA device and none is "
+                           "available (pass device='cpu' to run on the CPU)")
+    return dev
+
+
+def torch_dtype(name: str) -> torch.dtype:
+    """``"bfloat16"`` -> ``torch.bfloat16`` (the configs name dtypes)."""
+    dt = getattr(torch, name, None)
+    if not isinstance(dt, torch.dtype):
+        raise ValueError(f"unknown dtype {name!r}")
+    return dt
+
+
+def tree_map(fn, tree):
+    """``fn`` over the leaves of a nested dict."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def tree_leaves(tree) -> list:
+    if isinstance(tree, dict):
+        return [leaf for v in tree.values() for leaf in tree_leaves(v)]
+    return [tree]
+
+
+def materialize(specs, generator: torch.Generator, device, dtype,
+                n_layers: int | None = None):
+    """Draw every leaf of ``specs``; ``n_layers`` stacks a leading layers
+    axis (each layer drawn from the per-layer spec, as the JAX package's
+    ``vmap`` over ``mk``)."""
+    lead = () if n_layers is None else (n_layers,)
+
+    def draw(s: Spec) -> torch.Tensor:
+        shape = lead + tuple(s.shape)
+        if s.init == "zeros":
+            return torch.zeros(shape, dtype=dtype, device=device)
+        if s.init != "normal":
+            raise ValueError(f"unknown init {s.init!r}")
+        fan_in = (s.shape[0] if len(s.shape) == 1
+                  else math.prod(s.shape[:-1]))
+        scale = s.scale if s.scale is not None else \
+            1.0 / max(float(fan_in), 1.0) ** 0.5
+        out = torch.randn(shape, generator=generator, dtype=dtype,
+                          device=device)
+        return out.mul_(scale)
+
+    return tree_map(draw, specs)
+
+
+def count(specs, n_layers: int = 1) -> int:
+    """Number of parameters in ``specs`` (times ``n_layers``)."""
+    return n_layers * sum(math.prod(s.shape) for s in tree_leaves(specs))
+
+
+# ---------------------------------------------------------------------------
+# norms
+# ---------------------------------------------------------------------------
+
+def rmsnorm(x, scale, eps: float = 1e-6):
+    dtype = x.dtype
+    x = x.float()
+    var = x.square().mean(dim=-1, keepdim=True)
+    y = x * torch.rsqrt(var + eps)
+    return (y * (1.0 + scale.float())).to(dtype)
+
+
+# ---------------------------------------------------------------------------
+# rotary embeddings
+# ---------------------------------------------------------------------------
+
+def rope_frequencies(head_dim: int, theta: float, device=None):
+    return theta ** (-torch.arange(0, head_dim, 2, dtype=torch.float32,
+                                   device=device) / head_dim)
+
+
+class RopeTables(NamedTuple):
+    """cos and sin of the rotary angles at some positions, (..., S, 1, hd):
+    ``cos`` is cos twice, ``sin`` is -sin then sin."""
+    cos: torch.Tensor
+    sin: torch.Tensor
+
+
+def rope_tables(positions, head_dim: int, theta: float) -> RopeTables:
+    """The tables of :func:`apply_rope`, computed once for every layer that
+    rotates at the same positions."""
+    freqs = rope_frequencies(head_dim, theta, positions.device)  # (hd/2,)
+    angles = positions[..., None].float() * freqs             # (..., S, hd/2)
+    cos, sin = torch.cos(angles), torch.sin(angles)
+    return RopeTables(torch.cat([cos, cos], dim=-1)[..., None, :],
+                      torch.cat([-sin, sin], dim=-1)[..., None, :])
+
+
+def rotate(x, tables: RopeTables):
+    """``[x1 cos - x2 sin, x2 cos + x1 sin]`` in f32, in x's type: the
+    same products and sums as the JAX package's ``apply_rope``, so the
+    same bits."""
+    x32 = x.float()
+    swapped = torch.roll(x32, x.shape[-1] // 2, dims=-1)        # [x2, x1]
+    return (x32 * tables.cos + swapped * tables.sin).to(x.dtype)
+
+
+def apply_rope(x, positions, theta: float):
+    """x: (..., S, H, hd); positions: broadcastable to (..., S)."""
+    return rotate(x, rope_tables(positions, x.shape[-1], theta))
+
+
+# ---------------------------------------------------------------------------
+# MLPs
+# ---------------------------------------------------------------------------
+
+def init_mlp(d_model: int, d_ff: int, act: str = "silu") -> dict:
+    p = {"wi": Spec((d_model, d_ff)), "wo": Spec((d_ff, d_model))}
+    if act in ("silu", "swiglu", "geglu"):
+        p["wg"] = Spec((d_model, d_ff))
+    return p
+
+
+def silu(x):
+    """``jax.nn.silu`` as the JAX package computes it: ``x * 1 / (1 +
+    exp(-x))``, rounded to x's type after each step (``F.silu`` rounds
+    once, and differs in bf16)."""
+    return x * (1.0 / (1.0 + torch.exp(-x)))
+
+
+def apply_mlp(p, x, act: str = "silu"):
+    h = x @ p["wi"].to(x.dtype)
+    if "wg" in p:
+        g = x @ p["wg"].to(x.dtype)
+        # jax.nn.gelu is the tanh approximation by default
+        gate = silu(g) if act != "geglu" else F.gelu(g, approximate="tanh")
+        h = h * gate
+    else:
+        h = F.gelu(h, approximate="tanh")
+    return h @ p["wo"].to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# embeddings / unembedding
+# ---------------------------------------------------------------------------
+
+def init_embeddings(cfg) -> dict:
+    p = {"tok": Spec((cfg.vocab_size, cfg.d_model), scale=0.02)}
+    if not cfg.tied_embeddings:
+        p["unembed"] = Spec((cfg.d_model, cfg.vocab_size))
+    return p
+
+
+def embed_tokens(p, tokens, compute_dtype):
+    # gather, then cast: the same values as casting the whole table first
+    return p["tok"][tokens].to(compute_dtype)
+
+
+def unembed(p, x, tied: bool):
+    w = p["tok"].T if tied else p["unembed"]
+    return x @ w.to(x.dtype)

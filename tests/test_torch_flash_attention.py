@@ -1,0 +1,187 @@
+"""Kernel F's wrapper and the port's attention against the JAX package.
+
+On the CPU the wrapper ``repro_torch.kernels.flash_attention.
+flash_attention`` runs its plain version; it is held against the TPU
+kernel ``flash_attention_tpu`` in interpret mode on the shapes of
+``tests/test_kernels.py``, and against the JAX package's jnp
+``flash_attention`` on shapes the TPU kernel refuses (S not a multiple of
+its block).  The port's plain chunked attention and its decode attention
+are held against their JAX counterparts in every mask mode.  Inputs are
+N(0, 1) from numpy seeds.  Tolerances: 2e-5 in f32 (the TPU test's bound:
+both sides sum in f32 in another order), 0.05 in bf16 (the TPU test's
+bound: a few bf16 steps of outputs of about unit size).
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+# small tensors: one intra-op thread, so parallel test workers share cores
+torch.set_num_threads(1)
+
+from repro.kernels.flash_attention import flash_attention_tpu  # noqa: E402
+from repro.models import attention as j_attn  # noqa: E402
+from repro_torch.kernels import flash_attention as fa  # noqa: E402
+from repro_torch.kernels import ref  # noqa: E402
+from repro_torch.models import attention as t_attn  # noqa: E402
+
+F32_TOL = 2e-5
+BF16_TOL = 0.05
+
+
+def _normal(rng, shape):
+    return rng.normal(size=shape).astype(np.float32)
+
+
+def _err(a, b) -> float:
+    a = np.asarray(a.float() if isinstance(a, torch.Tensor) else
+                   jnp.asarray(a, jnp.float32))
+    b = np.asarray(b.float() if isinstance(b, torch.Tensor) else
+                   jnp.asarray(b, jnp.float32))
+    assert a.shape == b.shape
+    return float(np.abs(a - b).max())
+
+
+@pytest.mark.parametrize("shape", [
+    (2, 4, 2, 128, 64, True, 64),
+    (1, 8, 8, 256, 32, True, 128),
+    (2, 4, 1, 64, 128, False, 32),
+    (1, 2, 2, 96, 16, True, 32),   # non-power-of-two S
+])
+def test_wrapper_matches_tpu_kernel_f32(shape):
+    B, H, Hkv, S, d, causal, qb = shape
+    rng = np.random.default_rng(B * S + d)
+    q, k, v = (_normal(rng, (B, H, S, d)), _normal(rng, (B, Hkv, S, d)),
+               _normal(rng, (B, Hkv, S, d)))
+    want = flash_attention_tpu(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                               causal=causal, q_block=qb, k_block=qb,
+                               interpret=True)
+    got = fa.flash_attention(torch.from_numpy(q), torch.from_numpy(k),
+                             torch.from_numpy(v), causal=causal)
+    assert got.dtype == torch.float32 and got.shape == (B, H, S, d)
+    assert _err(got, want) < F32_TOL
+
+
+def test_wrapper_matches_tpu_kernel_bf16():
+    rng = np.random.default_rng(5)
+    B, H, S, d = 1, 2, 64, 32
+    q, k, v = (_normal(rng, (B, H, S, d)) for _ in range(3))
+    jq, jk, jv = (jnp.asarray(a, jnp.bfloat16) for a in (q, k, v))
+    want = flash_attention_tpu(jq, jk, jv, causal=True, q_block=32,
+                               k_block=32, interpret=True)
+    tq, tk, tv = (torch.from_numpy(a).to(torch.bfloat16) for a in (q, k, v))
+    got = fa.flash_attention(tq, tk, tv, causal=True)
+    assert got.dtype == torch.bfloat16
+    assert _err(got, want) < BF16_TOL
+
+
+@pytest.mark.parametrize("sq,sk,causal", [(100, 100, True), (37, 90, False),
+                                          (70, 70, False)])
+def test_wrapper_ragged_s_matches_jnp_flash(sq, sk, causal):
+    """Shapes the TPU kernel refuses: S not a multiple of any block."""
+    B, H, Hkv, d = 2, 4, 2, 32
+    rng = np.random.default_rng(sq * sk)
+    q = _normal(rng, (B, H, sq, d))
+    k, v = _normal(rng, (B, Hkv, sk, d)), _normal(rng, (B, Hkv, sk, d))
+    want = j_attn.flash_attention(
+        jnp.asarray(q).transpose(0, 2, 1, 3), jnp.asarray(k).transpose(0, 2, 1, 3),
+        jnp.asarray(v).transpose(0, 2, 1, 3), q_positions=jnp.arange(sq),
+        k_positions=jnp.arange(sk), mask_mode="causal" if causal else "none",
+        q_chunk=32, k_chunk=32).transpose(0, 2, 1, 3)
+    got = fa.flash_attention(torch.from_numpy(q), torch.from_numpy(k),
+                             torch.from_numpy(v), causal=causal)
+    assert _err(got, want) < F32_TOL
+
+
+def test_wrapper_reads_strided_views():
+    """(B, S, H, d) tensors handed over transposed: same result, and the
+    output keeps q's memory layout."""
+    rng = np.random.default_rng(3)
+    q = torch.from_numpy(_normal(rng, (2, 48, 4, 16)))
+    k = torch.from_numpy(_normal(rng, (2, 48, 2, 16)))
+    v = torch.from_numpy(_normal(rng, (2, 48, 2, 16)))
+    got = fa.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                             v.transpose(1, 2))
+    want = ref.flash_attention_ref(q.transpose(1, 2).contiguous(),
+                                   k.transpose(1, 2).contiguous(),
+                                   v.transpose(1, 2).contiguous())
+    assert torch.equal(got, want)
+    assert got.transpose(1, 2).is_contiguous()
+
+
+@pytest.mark.parametrize("q, k, v, what", [
+    ((1, 2, 8, 16), (1, 2, 8, 16), (1, 2, 8, 16), "dtype"),
+    ((1, 3, 8, 16), (1, 2, 8, 16), (1, 2, 8, 16), "heads"),
+    ((1, 2, 8, 24), (1, 2, 8, 24), (1, 2, 8, 24), "head dim"),
+    ((1, 2, 8, 16), (1, 2, 0, 16), (1, 2, 0, 16), "keys"),
+])
+def test_wrapper_refuses_what_the_kernel_does_not_take(q, k, v, what):
+    args = [torch.zeros(s) for s in (q, k, v)]
+    if what == "dtype":
+        args[1] = args[1].to(torch.bfloat16)
+    with pytest.raises(ValueError):
+        fa.flash_attention(*args)
+
+
+@pytest.mark.parametrize("mode,window,qkd,vd,pad", [
+    ("causal", 0, 16, 16, 0),
+    ("causal", 0, 16, 16, 5),
+    ("local", 8, 16, 16, 0),
+    ("local", 12, 16, 16, 3),
+    ("none", 0, 16, 16, 0),
+    ("none", 0, 16, 16, 7),
+    ("causal", 0, 24, 16, 2),      # distinct qk and v head dims (MLA)
+])
+def test_plain_flash_attention_matches_jax(mode, window, qkd, vd, pad):
+    """Every mask mode, ``-1``-padded k positions, several chunks."""
+    B, S, H, Hkv = 2, 40, 4, 2
+    rng = np.random.default_rng(S + qkd + vd + pad + window)
+    q = _normal(rng, (B, S, H, qkd))
+    k, v = _normal(rng, (B, S, Hkv, qkd)), _normal(rng, (B, S, Hkv, vd))
+    kpos = np.arange(S, dtype=np.int32)
+    if pad:
+        kpos[-pad:] = -1
+    qpos = np.arange(S, dtype=np.int32)
+    scale = None if qkd == vd else 0.3
+    kw = dict(mask_mode=mode, window=window, q_chunk=16, k_chunk=16,
+              scale=scale)
+    want = j_attn.flash_attention(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+        q_positions=jnp.asarray(qpos), k_positions=jnp.asarray(kpos), **kw)
+    got = t_attn.flash_attention(
+        torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+        q_positions=torch.from_numpy(qpos), k_positions=torch.from_numpy(kpos),
+        **kw)
+    assert _err(got, want) < F32_TOL
+
+
+@pytest.mark.parametrize("window,n_empty,dtype", [
+    (0, 0, "float32"), (0, 6, "float32"), (9, 4, "float32"),
+    (0, 3, "bfloat16"),
+])
+def test_decode_attention_matches_jax(window, n_empty, dtype):
+    """decode_attention_gqa + combine_partials against the JAX pair, with
+    empty cache slots (position -1) and a local window."""
+    B, S, H, Hkv, hd = 3, 24, 8, 2, 16
+    rng = np.random.default_rng(window * 31 + n_empty)
+    q = _normal(rng, (B, H, hd))
+    kc, vc = _normal(rng, (B, S, Hkv, hd)), _normal(rng, (B, S, Hkv, hd))
+    pos = np.arange(S, dtype=np.int32)
+    if n_empty:
+        pos[-n_empty:] = -1
+    cur = S - n_empty
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    jpart = j_attn.decode_attention_gqa(
+        jnp.asarray(q, jdt), jnp.asarray(kc, jdt), jnp.asarray(vc, jdt),
+        jnp.asarray(pos), window=window, q_position=cur)
+    tpart = t_attn.decode_attention_gqa(
+        torch.from_numpy(q).to(tdt), torch.from_numpy(kc).to(tdt),
+        torch.from_numpy(vc).to(tdt), torch.from_numpy(pos), window=window,
+        q_position=cur)
+    for a, b in zip(tpart, jpart):
+        assert a.dtype == torch.float32
+        assert _err(a, b) < 1e-4 * max(1.0, float(np.abs(np.asarray(b)).max()))
+    assert _err(t_attn.combine_partials(tpart, None),
+                j_attn.combine_partials(jpart, None)) < F32_TOL
+    with pytest.raises(NotImplementedError):
+        t_attn.combine_partials(tpart, "model")

@@ -129,14 +129,20 @@ def test_import_walk_covers_every_port_module():
     walked = {p.relative_to(ROOT).as_posix() for p in _port_files()}
     for mod in ("kernels/bitvector_ops.py", "kernels/substring_match.py",
                 "kernels/residual.py", "benchmarks/__init__.py",
-                "benchmarks/bench_kernels.py"):
+                "benchmarks/bench_kernels.py", "kernels/flash_attention.py",
+                "configs/__init__.py", "configs/base.py",
+                "configs/qwen3_1_7b.py", "configs/deepseek_v3_671b.py",
+                "data/tokenizer.py", "models/__init__.py", "models/layers.py",
+                "models/attention.py", "models/transformer.py",
+                "models/model.py", "models/convert.py", "serve/__init__.py",
+                "serve/engine.py", "launch/__init__.py", "launch/serve.py"):
         assert f"src/repro_torch/{mod}" in walked, mod
 
 
 def test_kernel_sources_are_cuda_for_hopper():
     from repro_torch.kernels import cuda_build
     assert "arch=compute_90a,code=sm_90a" in cuda_build.NVCC_FLAGS
-    assert len(cuda_build.SOURCES) == 4
+    assert len(cuda_build.SOURCES) == 5
     for src in cuda_build.SOURCES.values():
         text = (cuda_build.CSRC / src).read_text()
         assert "__global__" in text and "src/repro/kernels/" in text
@@ -156,3 +162,19 @@ def test_cuda_backends_raise_without_a_card(monkeypatch):
         DeviceScanner(store)
     with pytest.raises(ValueError):
         KernelEngine("cuda", device="cpu")
+    # kernel F: the path a CUDA tensor takes builds the kernel first
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import cuda_build
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import serve
+    from repro_torch.models.model import build_model
+    if not cuda_build.lib_path("flash_attention").exists():
+        with pytest.raises(RuntimeError, match="CUDA"):
+            fa._lib()
+    model = build_model(get_config("qwen3-1.7b").reduced())
+    with pytest.raises(RuntimeError, match="CUDA"):
+        model.init(0)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        model.init_cache(1, 8)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve.main(["--reduced"])
