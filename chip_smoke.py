@@ -28,7 +28,9 @@ split path, on the same chunks:
 
 Then kernel F (flash attention, csrc/flash_attention.cu) against its plain
 version on the TPU test shapes, the serving shape, unmasked, Sq != Sk and
-ragged S, in f32 and bf16, and the model-serving path at full width:
+ragged S, in f32 (the SIMT route) and bf16 (the tensor-core route, also
+against its own numerics, ref.flash_attention_ref_bf16p), and the
+model-serving path at full width:
 
   repro_torch.launch.serve.main(["--arch", "qwen3-1.7b", "--batch", "8",
                                  "--prompt-len", "512", "--gen", "32"])
@@ -70,9 +72,18 @@ SERVE_ARCH = "qwen3-1.7b"
 SERVE_ARGS = ["--arch", SERVE_ARCH, "--batch", "8", "--prompt-len", "512",
               "--gen", "32"]
 # kernel F against its plain version: N(0, 1) inputs; f32 as the TPU
-# test's bound (the two sum in another order), bf16 about one bf16 step of
-# outputs of about unit size (both round once from f32)
+# test's bound (the two sum in another order); bf16: the output rounds
+# once (half a step, up to 2^-7 at |o| < 4) and the tensor-core route
+# rounds p to bf16 for P.V, which moves o by at most 2^-9 |v| per unit
+# of the other keys' weight (2^-9 * 4.5 = 8.8e-3 at the largest |v| of
+# these draws; far less where many keys share the weight)
 FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+# kernel F's bf16 route against its own numerics
+# (ref.flash_attention_ref_bf16p): max |got - want| / max(1, |want|).
+# Both round p and o to bf16 at the same places and differ only in the
+# order of f32 sums, so where that flips a rounding they are one bf16
+# step apart: 2^-7 at unit size, scaled with |o| above it
+FLASH_BF16P_TOL = 2.0 ** -7
 # (ii): f32 logits of about unit size after 28 layers, forward (kernel F)
 # against prefill + decode (plain decode attention), TF32 off
 EXACT_TOL = 1e-3
@@ -175,9 +186,12 @@ def build() -> None:
     print(f"built {sorted(cuda_build.SOURCES.values())} in {secs:.2f} s "
           f"(one nvcc per source, in parallel)")
     for name, log in sorted(cuda_build.build_logs.items()):
+        entry = ""
         for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  ptxas[{name}]: {line.strip()}")
+            if "Compiling entry function" in line:
+                entry = line.split("'")[1] if "'" in line else ""
+            elif "registers" in line or "spill" in line:
+                print(f"  ptxas[{name}] {entry}: {line.strip()}")
 
 
 def check_pushdown(dev) -> int:
@@ -745,8 +759,10 @@ def split_kernel_rows(run, split, dev) -> list[dict]:
 
 
 def check_flash(dev) -> int:
-    """Kernel F against its plain version: the TPU test shapes, the
-    serving shape, unmasked, Sq != Sk, ragged S, f32 and bf16."""
+    """Kernel F against its plain versions: the TPU test shapes, the
+    serving shape, unmasked, Sq != Sk, ragged S; f32 (SIMT route) and
+    bf16 (tensor-core route, also against its own numerics); and the bf16
+    route's refusal of rows that are not 16-byte aligned."""
     import numpy as np
     import torch
     from repro_torch.kernels import flash_attention as fa
@@ -761,11 +777,13 @@ def check_flash(dev) -> int:
         (2, 8, 4, 300, 700, 64, False), (2, 8, 4, 700, 300, 64, True),
         (2, 16, 8, 1000, 1000, 128, True), (3, 4, 4, 77, 77, 16, False),
     ]
-    worst = {}
+    worst = {"bf16p": 0.0}
     for i, (B, H, Hkv, Sq, Sk, d, causal) in enumerate(cases):
         rng = np.random.default_rng(100 + i)
         base = [torch.from_numpy(rng.normal(size=(B, S, h, d)).astype(
             np.float32)).to(dev) for S, h in ((Sq, H), (Sk, Hkv), (Sk, Hkv))]
+        shape = (f"B={B} H={H} Hkv={Hkv} Sq={Sq} Sk={Sk} d={d} "
+                 f"causal={causal}")
         for name, tol in FLASH_TOL.items():
             # (B, S, heads, d) handed over transposed, as the model does
             q, k, v = (a.to(getattr(torch, name)).transpose(1, 2)
@@ -776,13 +794,33 @@ def check_flash(dev) -> int:
             err = float((got.float() - want.float()).abs().max())
             if not (err <= tol) or got.dtype != q.dtype:
                 raise AssertionError(
-                    f"flash kernel != plain version: {name} B={B} H={H} "
-                    f"Hkv={Hkv} Sq={Sq} Sk={Sk} d={d} causal={causal}: "
-                    f"max abs err {err} > {tol}")
+                    f"flash kernel != plain version: {name} {shape}: max "
+                    f"abs err {err} > {tol}")
             worst[name] = max(worst.get(name, 0.0), err)
-    print(f"  {len(cases)} shapes x (f32, bf16): max abs err f32 "
+            if name == "bfloat16":
+                want = ref.flash_attention_ref_bf16p(q, k, v, causal=causal)
+                rel = float(((got.float() - want.float()).abs()
+                             / want.float().abs().clamp(min=1.0)).max())
+                if not (rel <= FLASH_BF16P_TOL):
+                    raise AssertionError(
+                        f"flash kernel != its bf16 numerics: {shape}: "
+                        f"{rel} > {FLASH_BF16P_TOL}")
+                worst["bf16p"] = max(worst["bf16p"], rel)
+    print(f"  {len(cases)} shapes: max abs err vs plain f32 "
           f"{worst['float32']:.3g} (tol {FLASH_TOL['float32']}), bf16 "
-          f"{worst['bfloat16']:.3g} (tol {FLASH_TOL['bfloat16']})")
+          f"{worst['bfloat16']:.3g} (tol {FLASH_TOL['bfloat16']}); bf16 vs "
+          f"ref.flash_attention_ref_bf16p {worst['bf16p']:.3g} of "
+          f"max(1, |o|) (tol {FLASH_BF16P_TOL:.3g})")
+    # a q whose rows start 2 bytes off a 16-byte boundary is refused
+    q = torch.zeros(1, 64 * 32 + 1, dtype=torch.bfloat16, device=dev)
+    q = q[:, 1:].view(1, 1, 64, 32)
+    k = torch.zeros(1, 1, 64, 32, dtype=torch.bfloat16, device=dev)
+    try:
+        fa.flash_attention(q, k, k)
+    except ValueError as e:
+        print(f"  misaligned bf16 rows refused: {str(e)[:70]}...")
+    else:
+        raise AssertionError("flash kernel took misaligned bf16 rows")
     return 2 * len(cases)
 
 
@@ -899,6 +937,9 @@ def serve_breakdown(dev) -> dict:
                           if any(m in key for m in marks))
                    for k, marks in kinds}
         by_kind["other"] = busy - sum(by_kind.values())
+        if name == "prefill" and not by_kind["kernel F"] > 0:
+            raise AssertionError("the profiler found no kernel F in a "
+                                 "prefill: its name marks no longer match")
         launches = sum(n for _, _, n in rows)
         ops = sum(1 for e in prof.events()
                   if e.device_type == DeviceType.CPU and e.cpu_parent is None
@@ -977,6 +1018,8 @@ def flash_row(serve) -> dict:
     flops_ms = flops / BF16_FLOP_PER_S * 1e3
     lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
         q, k, v, is_causal=True, enable_gqa=True), 20)
+    if src != "profiler":
+        raise AssertionError("the profiler found no flash_kernel launch")
     return {
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/csrc/flash_attention.cu",
@@ -995,6 +1038,9 @@ def flash_row(serve) -> dict:
         // serve["result"]["prefill_calls"],
         "shape": f"B={B} H={H} Hkv={Hkv} S={S} d={d} {q.dtype} causal",
         "bound_bytes_ms": bytes_ms, "bound_ops_ms": flops_ms,
+        "tflop_per_s": flops / (ms * 1e-3) / 1e12,
+        "bound_share": max(bytes_ms, flops_ms) / ms,
+        "ms_over_library": ms / lib_ms,
     }
 
 
@@ -1139,6 +1185,9 @@ def main(argv=None) -> int:
     for r in rows:
         lib = "" if r["library_ms"] is None else \
             f"; library {r['library_ms']:.4f} ms"
+        if "tflop_per_s" in r:
+            lib += (f" ({r['ms_over_library']:.2f}x); {r['tflop_per_s']:.1f} "
+                    f"TFLOP/s, {r['bound_share']:.1%} of the bound")
         print(f"  {r['name']}: {r['ms']:.4f} ms ({r['ms_from']}; whole "
               f"wrapper call {r['wrapper_call_ms']:.4f} ms; plain "
               f"{r['plain_ms']:.3f} ms; bound {r['bound_ms']:.5f} ms by "

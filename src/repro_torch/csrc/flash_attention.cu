@@ -6,8 +6,39 @@
 // (B, H, nq, nk) carried m, l and the accumulator in VMEM scratch across
 // its sequential kv steps.  Here blocks run in parallel and in no order,
 // so one block owns one 64-row q tile of one (b, h) and walks the K/V
-// tiles in a loop, keeping the running stats in registers:
+// tiles in a loop, keeping the running stats in registers.  Two routes,
+// chosen by dtype in ciao_flash_attention:
 //
+// bf16: flash_kernel_mma, on the tensor cores (FlashAttention-2's shape).
+//  * 128 threads, 4 warps of 16 q rows.  Q is loaded once; K and V tiles
+//    of 64 keys go through a two-stage ring of cp.async 16-byte copies
+//    (tile t+1 is in flight while tile t is multiplied).  Tiles stay
+//    bf16 in shared memory, rows padded by 16 bytes so that the eight
+//    row addresses of an ldmatrix land on eight distinct bank groups.
+//    Rows past Sq or Sk are zero-filled (src-size 0).
+//  * S = Q K^T by mma.sync m16n8k16 (bf16 in, f32 accumulate); Q's
+//    fragments come from ldmatrix once and stay in registers, K's from
+//    ldmatrix per tile.  A thread holds parts of rows g and g + 8 of its
+//    warp's 16, so a row max is two xor shuffles within a quad; the row
+//    sums stay per thread and are reduced the same way once, at the end.
+//  * The causal mask is applied only on tiles that cross the diagonal,
+//    the key-past-Sk mask only on the last tile.
+//  * P.V: the f32 scores become p in registers, are packed to bf16x2 and
+//    serve directly as the A operand of the next mma (no shared-memory
+//    round trip); V's fragments come from ldmatrix.trans.  O accumulates
+//    in f32 and is rescaled by alpha per tile.
+//  * Numerics: p is rounded to bf16 for P.V (l sums the f32 p), which
+//    the JAX kernel does not do (its P.V is f32).  The plain version of
+//    exactly this is repro_torch.kernels.ref.flash_attention_ref_bf16p.
+//  * Bound on this card: at the serving shape (B 8, H 16, Hkv 8, S 512,
+//    d 128, causal) the bytes (q, k, v, o once: 50 MB, 0.015 ms at
+//    3.35 TB/s) bound it, the 8.6 GFLOP at the bf16 tensor-core rate
+//    taking 0.009 ms.  mma.sync reaches a part of that rate; each warp
+//    also reads the whole K and V tile from shared memory, which sets
+//    the pace next.  wgmma, TMA and warp specialisation are the next
+//    redesign's work.
+//
+// f32: flash_kernel, on the CUDA cores, exact to f32 (no TF32).
 //  * 256 threads as a 16 x 16 grid.  Thread (ty, tx) owns q rows
 //    ty + 16 i (i < 4) and, for each 64-key tile, keys tx + 16 j (j < 4):
 //    a 4 x 4 register tile of the scores, from Q and K tiles staged in
@@ -18,27 +49,21 @@
 //    its four rows, so d = 128 needs 32 f32 accumulators per thread, not
 //    128 in one.  p is broadcast from its owner by a half-warp shuffle;
 //    V rows are read from shared memory.
+//  * Scores, stats, p and the accumulator are f32, as the reference
+//    computes them.
+//
+// Both routes:
 //  * m, l, alpha and p follow _kernel: the NEG_INF / 2 guards, p = 0 where
 //    masked, alpha = 0 while a row has seen no key, and the final divide
 //    by max(l, 1e-30).  Keys past Sk and rows past Sq are masked, so any
-//    Sq and Sk work; the TPU kernel required S to divide its blocks.
+//    Sq and Sk work; the TPU kernel required S to divide its blocks.  The
+//    output is rounded once to the input type.
 //  * Causal: a block stops at the K tile past its last row.  On such a
 //    tile _kernel leaves m, l and acc unchanged (alpha = 1, p = 0), so
 //    the skip is exact.  The heaviest q tiles are launched first.
 //  * GQA: q head h reads kv head h / G, the (Hkv, G) grouping of the
 //    JAX package.  q, k, v and o are read and written through strides
 //    (last dim contiguous), so (B, S, H, d) tensors need no copy.
-//
-// Precision: q, k and v are converted to f32 on load; scores, stats,
-// p and the accumulator are f32, as the reference computes them; the
-// output is rounded once to the input type (f32 or bf16).
-//
-// Bound on this card: at the serving shape (B 8, H 16, Hkv 8, S 512,
-// d 128, bf16, causal) the bytes (q, k, v, o once: 50 MB, 0.015 ms at
-// 3.35 TB/s) bound it, the 8.6 GFLOP at the bf16 tensor-core rate taking
-// 0.009 ms.  This kernel uses the f32 CUDA cores (67 TFLOP/s), so it is
-// bound by operations far above either; tensor cores (mma / wgmma), TMA
-// and a bf16 P.V are the redesign's work.
 
 #include <cstdint>
 #include <cuda_bf16.h>
@@ -52,30 +77,25 @@ constexpr int kThreads = 256;
 constexpr float kNegInf = -1e30f;
 constexpr unsigned kFull = 0xFFFFFFFFu;
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16_rn(x);
-}
-
 // Element strides of a (B, heads, S, d) operand; its last dim is dense.
 struct Strides {
   long long b, h, s;
 };
+
+// ---------------------------------------------------------------------------
+// f32 route: CUDA cores
+// ---------------------------------------------------------------------------
 
 template <int D>
 constexpr int smem_floats() {
   return kBM * (D + 4) + kBN * (D + 1) + kBN * D;
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads)
-flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
-             const T* __restrict__ v, T* __restrict__ o, int G, int Sq,
-             int Sk, Strides qs, Strides ks, Strides vs, Strides os,
+flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
+             const float* __restrict__ v, float* __restrict__ o, int G,
+             int Sq, int Sk, Strides qs, Strides ks, Strides vs, Strides os,
              float scale, bool causal) {
   constexpr int QP = D + 4;           // Q row pitch: rows ty, ty+1 apart
   constexpr int KP = D + 1;           // K row pitch: 16 rows on 16 banks
@@ -91,14 +111,13 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int q0 = (gridDim.x - 1 - blockIdx.x) * kBM;   // heavy tiles first
   const int h = blockIdx.y;
   const int b = blockIdx.z;
-  const T* qb = q + b * qs.b + h * qs.h;
-  const T* kb = k + b * ks.b + (h / G) * ks.h;
-  const T* vb = v + b * vs.b + (h / G) * vs.h;
+  const float* qb = q + b * qs.b + h * qs.h;
+  const float* kb = k + b * ks.b + (h / G) * ks.h;
+  const float* vb = v + b * vs.b + (h / G) * vs.h;
 
   for (int i = tid; i < kBM * D; i += kThreads) {
     const int r = i / D, c = i % D;
-    Qs[r * QP + c] =
-        q0 + r < Sq ? to_f32(qb[(long long)(q0 + r) * qs.s + c]) : 0.f;
+    Qs[r * QP + c] = q0 + r < Sq ? qb[(long long)(q0 + r) * qs.s + c] : 0.f;
   }
 
   float acc[4][CJ];
@@ -118,8 +137,8 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int r = i / D, c = i % D;
       const bool in = k0 + r < Sk;
       const long long row = k0 + r;
-      Ks[r * KP + c] = in ? to_f32(kb[row * ks.s + c]) : 0.f;
-      Vs[r * D + c] = in ? to_f32(vb[row * vs.s + c]) : 0.f;
+      Ks[r * KP + c] = in ? kb[row * ks.s + c] : 0.f;
+      Vs[r * D + c] = in ? vb[row * vs.s + c] : 0.f;
     }
     __syncthreads();
 
@@ -199,40 +218,348 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int qp = q0 + ty + 16 * i;
     if (qp >= Sq) continue;
     const float denom = fmaxf(l[i], 1e-30f);
-    T* orow = o + b * os.b + h * os.h + (long long)qp * os.s + tx;
+    float* orow = o + b * os.b + h * os.h + (long long)qp * os.s + tx;
 #pragma unroll
-    for (int c = 0; c < CJ; ++c) store(orow + 16 * c, acc[i][c] / denom);
+    for (int c = 0; c < CJ; ++c) orow[16 * c] = acc[i][c] / denom;
   }
 }
 
-template <typename T, int D>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   int B, int H, int G, int Sq, int Sk, Strides qs,
-                   Strides ks, Strides vs, Strides os, float scale,
-                   bool causal, cudaStream_t stream) {
+template <int D>
+cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o,
+                       int B, int H, int G, int Sq, int Sk, Strides qs,
+                       Strides ks, Strides vs, Strides os, float scale,
+                       bool causal, cudaStream_t stream) {
   const int smem = smem_floats<D>() * (int)sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
-      flash_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      flash_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((Sq + kBM - 1) / kBM, H, B);
-  flash_kernel<T, D><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), G, Sq, Sk, qs, ks, vs,
-      os, scale, causal);
+  flash_kernel<D><<<grid, kThreads, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o), G, Sq, Sk, qs,
+      ks, vs, os, scale, causal);
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t dispatch_d(int d, const void* q, const void* k, const void* v,
-                       void* o, int B, int H, int G, int Sq, int Sk,
-                       Strides qs, Strides ks, Strides vs, Strides os,
-                       float scale, bool causal, cudaStream_t stream) {
-  switch (d) {
-    case 16: return launch<T, 16>(q, k, v, o, B, H, G, Sq, Sk, qs, ks, vs, os, scale, causal, stream);
-    case 32: return launch<T, 32>(q, k, v, o, B, H, G, Sq, Sk, qs, ks, vs, os, scale, causal, stream);
-    case 64: return launch<T, 64>(q, k, v, o, B, H, G, Sq, Sk, qs, ks, vs, os, scale, causal, stream);
-    case 128: return launch<T, 128>(q, k, v, o, B, H, G, Sq, Sk, qs, ks, vs, os, scale, causal, stream);
-    default: return cudaErrorInvalidValue;
+// ---------------------------------------------------------------------------
+// bf16 route: tensor cores (mma.sync, ldmatrix, cp.async in inline PTX)
+// ---------------------------------------------------------------------------
+
+constexpr int kWarpsMma = kBM / 16;          // 16 q rows per warp
+constexpr int kThreadsMma = 32 * kWarpsMma;  // 128
+constexpr int kStages = 2;                   // K/V ring depth
+constexpr float kLog2e = 1.4426950408889634f;
+
+// Row pitch in bf16 elements: 16 bytes of padding, so 8 consecutive rows
+// start on 8 distinct 16-byte bank groups for every d in {16, 32, 64, 128}
+template <int D>
+__host__ __device__ constexpr int pitch() { return D + 8; }
+
+template <int D>
+constexpr int smem_bytes_mma() {
+  return (kBM + 2 * kStages * kBN) * pitch<D>() * 2;
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16-byte global -> shared copy; src_bytes 0 fills the 16 bytes with zeros
+__device__ __forceinline__ void cp_async_16(uint32_t dst, const void* src,
+                                            int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(src_bytes));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+// wait until at most N committed groups of this thread are in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t a) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(a));
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
+                                                  uint32_t a) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(a));
+}
+
+// c[16 x 8] += a[16 x 16] . b[16 x 8], bf16 operands, f32 accumulators
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// two f32 -> bf16x2, lo in the low half (the lower column of a fragment)
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// Copy rows [r0, r0 + 64) of a (rows, D) bf16 operand (row stride `ld`
+// elements) into a padded shared tile; rows >= n_rows are zero-filled.
+template <int D>
+__device__ __forceinline__ void load_tile(uint32_t dst,
+                                          const __nv_bfloat16* src,
+                                          long long ld, int r0, int n_rows,
+                                          int tid) {
+  constexpr int kChunks = D / 8;              // 16-byte chunks per row
+  static_assert(kBM == kBN && kBN * kChunks % kThreadsMma == 0,
+                "Q and K/V tiles share this loader");
+#pragma unroll
+  for (int it = 0; it < kBN * kChunks / kThreadsMma; ++it) {
+    const int i = tid + it * kThreadsMma;
+    const int r = i / kChunks, c = i % kChunks;
+    const bool in = r0 + r < n_rows;
+    const __nv_bfloat16* g = in ? src + (long long)(r0 + r) * ld + c * 8 : src;
+    cp_async_16(dst + (r * pitch<D>() + c * 8) * 2, g, in ? 16 : 0);
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreadsMma)
+flash_kernel_mma(const __nv_bfloat16* __restrict__ q,
+                 const __nv_bfloat16* __restrict__ k,
+                 const __nv_bfloat16* __restrict__ v,
+                 __nv_bfloat16* __restrict__ o, int G, int Sq, int Sk,
+                 Strides qs, Strides ks, Strides vs, Strides os,
+                 float scale_log2, bool causal) {
+  constexpr int P = pitch<D>();
+  constexpr int KS = D / 16;          // k-steps of QK^T
+  constexpr int NT = kBN / 8;         // n8 tiles of a score row block
+  constexpr int DT = D / 8;           // n8 tiles of the output
+  extern __shared__ __align__(128) unsigned char smem_mma[];
+  const uint32_t sQ = smem_addr(smem_mma);                 // [kBM][P]
+  const uint32_t sK = sQ + kBM * P * 2;                    // [kStages][kBN][P]
+  const uint32_t sV = sK + kStages * kBN * P * 2;          // [kStages][kBN][P]
+  constexpr uint32_t kTileBytes = kBN * P * 2;
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int g = lane >> 2;            // fragment row (and row + 8)
+  const int tig = lane & 3;           // fragment column pair
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kBM;   // heavy tiles first
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const __nv_bfloat16* qb = q + b * qs.b + h * qs.h;
+  const __nv_bfloat16* kb = k + b * ks.b + (h / G) * ks.h;
+  const __nv_bfloat16* vb = v + b * vs.b + (h / G) * vs.h;
+
+  const int k_end = causal ? min(Sk, q0 + kBM) : Sk;
+  const int n_tiles = (k_end + kBN - 1) / kBN;
+
+  load_tile<D>(sQ, qb, qs.s, q0, Sq, tid);
+  cp_async_commit();
+  load_tile<D>(sK, kb, ks.s, 0, Sk, tid);
+  load_tile<D>(sV, vb, vs.s, 0, Sk, tid);
+  cp_async_commit();
+
+  // ldmatrix row addresses of this lane.  A (Q): rows lane % 16, column
+  // half lane / 16.  B from K (keys x d, non-transposed): key lane % 8 of
+  // the 8-key half (lane / 16), column half (lane / 8) % 2.  B from V
+  // (keys x d, transposed): key lane % 8 of the half (lane / 8) % 2,
+  // column half lane / 16.
+  const int a_row = warp * 16 + (lane & 15);
+  const int a_col = (lane >> 4) * 8;
+  const int k_row = ((lane >> 4) << 3) + (lane & 7);
+  const int k_col = ((lane >> 3) & 1) * 8;
+  const int v_row = (((lane >> 3) & 1) << 3) + (lane & 7);
+  const int v_col = (lane >> 4) * 8;
+
+  cp_async_wait<1>();                 // Q has landed
+  __syncthreads();
+  uint32_t qf[KS][4];
+#pragma unroll
+  for (int ks_ = 0; ks_ < KS; ++ks_)
+    ldmatrix_x4(qf[ks_], sQ + (a_row * P + ks_ * 16 + a_col) * 2);
+
+  float acc[DT][4];
+#pragma unroll
+  for (int j = 0; j < DT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+  float m[2] = {kNegInf, kNegInf};    // rows g, g + 8 (log2 domain)
+  float l[2] = {0.f, 0.f};            // this thread's part of the row sums
+
+  const int row0 = q0 + warp * 16 + g;   // this thread's rows: row0, row0+8
+
+  for (int t = 0; t < n_tiles; ++t) {
+    const int k0 = t * kBN;
+    const uint32_t stage = (t & 1) * kTileBytes;
+    if (t + 1 < n_tiles) {            // prefetch the next tile
+      const uint32_t next = ((t + 1) & 1) * kTileBytes;
+      load_tile<D>(sK + next, kb, ks.s, k0 + kBN, Sk, tid);
+      load_tile<D>(sV + next, vb, vs.s, k0 + kBN, Sk, tid);
+    }
+    cp_async_commit();                // (empty on the last tile)
+    cp_async_wait<1>();               // this tile has landed
+    __syncthreads();
+
+    // ---- S = Q K^T (raw dot products) ----
+    float s[NT][4];
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+#pragma unroll
+    for (int ks_ = 0; ks_ < KS; ++ks_) {
+#pragma unroll
+      for (int np = 0; np < NT / 2; ++np) {
+        uint32_t kf[4];
+        ldmatrix_x4(kf, sK + stage +
+                            ((np * 16 + k_row) * P + ks_ * 16 + k_col) * 2);
+        mma_bf16(s[2 * np], qf[ks_], kf[0], kf[1]);
+        mma_bf16(s[2 * np + 1], qf[ks_], kf[2], kf[3]);
+      }
+    }
+
+    // ---- scale to the log2 domain; mask only where a tile needs it ----
+    const bool mask = (causal && k0 + kBN - 1 > q0 + warp * 16) ||
+                      k0 + kBN > Sk;
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] *= scale_log2;
+    if (mask) {
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int key = k0 + j * 8 + 2 * tig + (e & 1);
+          const int row = row0 + (e >> 1) * 8;
+          if (key >= Sk || (causal && key > row)) s[j][e] = kNegInf;
+        }
+    }
+
+    // ---- online softmax on the fragments ----
+    float alpha[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float mx = kNegInf;
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+        mx = fmaxf(mx, fmaxf(s[j][2 * r], s[j][2 * r + 1]));
+      mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, 2));
+      const float m_new = fmaxf(m[r], mx);
+      const float shift = m_new <= kNegInf / 2 ? 0.f : m_new;
+      alpha[r] = m[r] <= kNegInf / 2 ? 0.f : exp2f(m[r] - shift);
+      float rsum = 0.f;
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int e = 2 * r; e < 2 * r + 2; ++e) {
+          const float x = s[j][e];
+          // p = 0 where masked (masked scores were set to NEG_INF)
+          s[j][e] = mask && x <= kNegInf / 2 ? 0.f : exp2f(x - shift);
+          rsum += s[j][e];
+        }
+      l[r] = l[r] * alpha[r] + rsum;
+      m[r] = m_new;
+    }
+#pragma unroll
+    for (int j = 0; j < DT; ++j) {
+      acc[j][0] *= alpha[0];
+      acc[j][1] *= alpha[0];
+      acc[j][2] *= alpha[1];
+      acc[j][3] *= alpha[1];
+    }
+
+    // ---- O += P V: p packed to bf16 as the A operand, V by ldmatrix.trans
+#pragma unroll
+    for (int kk = 0; kk < kBN / 16; ++kk) {
+      const uint32_t pa[4] = {
+          pack_bf16(s[2 * kk][0], s[2 * kk][1]),
+          pack_bf16(s[2 * kk][2], s[2 * kk][3]),
+          pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
+          pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+#pragma unroll
+      for (int dp = 0; dp < DT / 2; ++dp) {
+        uint32_t vf[4];
+        ldmatrix_x4_trans(vf, sV + stage +
+                                  ((kk * 16 + v_row) * P + dp * 16 + v_col) *
+                                      2);
+        mma_bf16(acc[2 * dp], pa, vf[0], vf[1]);
+        mma_bf16(acc[2 * dp + 1], pa, vf[2], vf[3]);
+      }
+    }
+    __syncthreads();                  // this stage is refilled next round
+  }
+
+  // ---- out = acc / max(l, 1e-30), rounded once to bf16 ----
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(kFull, l[r], 1);
+    l[r] += __shfl_xor_sync(kFull, l[r], 2);
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + r * 8;
+    if (row >= Sq) continue;
+    const float inv = 1.f / fmaxf(l[r], 1e-30f);
+    __nv_bfloat16* orow =
+        o + b * os.b + h * os.h + (long long)row * os.s + 2 * tig;
+#pragma unroll
+    for (int j = 0; j < DT; ++j)
+      *reinterpret_cast<uint32_t*>(orow + j * 8) =
+          pack_bf16(acc[j][2 * r] * inv, acc[j][2 * r + 1] * inv);
+  }
+}
+
+template <int D>
+cudaError_t launch_mma(const void* q, const void* k, const void* v, void* o,
+                       int B, int H, int G, int Sq, int Sk, Strides qs,
+                       Strides ks, Strides vs, Strides os, float scale,
+                       bool causal, cudaStream_t stream) {
+  constexpr int smem = smem_bytes_mma<D>();
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_kernel_mma<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((Sq + kBM - 1) / kBM, H, B);
+  flash_kernel_mma<D><<<grid, kThreadsMma, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(q),
+      static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
+      G, Sq, Sk, qs, ks, vs, os, scale * kLog2e, causal);
+  return cudaGetLastError();
+}
+
+using Launch = cudaError_t (*)(const void*, const void*, const void*, void*,
+                               int, int, int, int, int, Strides, Strides,
+                               Strides, Strides, float, bool, cudaStream_t);
+
+// the instance for (dtype, d): 0 = f32 on the CUDA cores, 1 = bf16 on the
+// tensor cores; nullptr where there is none
+Launch pick(int dtype, int d) {
+  switch (dtype * 1000 + d) {
+    case 16: return launch_f32<16>;
+    case 32: return launch_f32<32>;
+    case 64: return launch_f32<64>;
+    case 128: return launch_f32<128>;
+    case 1016: return launch_mma<16>;
+    case 1032: return launch_mma<32>;
+    case 1064: return launch_mma<64>;
+    case 1128: return launch_mma<128>;
+    default: return nullptr;
   }
 }
 
@@ -242,9 +569,10 @@ extern "C" {
 
 // o[b, h, :Sq, :d] = attention of q[b, h] over k[b, h / G], v[b, h / G]
 // with G = H / Hkv.  dtype 0 = f32, 1 = bf16 (q, k, v and o alike); d one
-// of 16, 32, 64, 128; strides in elements, the last dim contiguous.
-// `device` is the CUDA ordinal the tensors and `stream` belong to.
-// Returns the cudaError_t of the launch.
+// of 16, 32, 64, 128; strides in elements, the last dim contiguous.  bf16
+// needs 16-byte aligned rows (base addresses and strides), which the
+// wrapper checks.  `device` is the CUDA ordinal the tensors and `stream`
+// belong to.  Returns the cudaError_t of the launch.
 int ciao_flash_attention(int device, int dtype, int d, const void* q,
                          const void* k, const void* v, void* o, int B,
                          int H, int Hkv, int Sq, int Sk, long long qsb,
@@ -255,19 +583,14 @@ int ciao_flash_attention(int device, int dtype, int d, const void* q,
                          int causal, void* stream) {
   if (B == 0 || H == 0 || Sq == 0) return 0;
   if (Hkv <= 0 || H % Hkv) return cudaErrorInvalidValue;
+  const Launch launch = pick(dtype, d);
+  if (launch == nullptr) return cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   const Strides qs{qsb, qsh, qss}, ks{ksb, ksh, kss}, vs{vsb, vsh, vss},
       os{osb, osh, oss};
-  const int G = H / Hkv;
-  const cudaStream_t st = (cudaStream_t)stream;
-  if (dtype == 0)
-    return dispatch_d<float>(d, q, k, v, o, B, H, G, Sq, Sk, qs, ks, vs, os,
-                             scale, causal != 0, st);
-  if (dtype == 1)
-    return dispatch_d<__nv_bfloat16>(d, q, k, v, o, B, H, G, Sq, Sk, qs, ks,
-                                     vs, os, scale, causal != 0, st);
-  return cudaErrorInvalidValue;
+  return launch(q, k, v, o, B, H, H / Hkv, Sq, Sk, qs, ks, vs, os, scale,
+                causal != 0, (cudaStream_t)stream);
 }
 
 const char* ciao_error_string(int err) {

@@ -6,6 +6,13 @@ flash_attention_tpu``.  On a CUDA tensor it launches the kernel (or
 raises); on a CPU tensor it runs the plain version,
 :func:`repro_torch.kernels.ref.flash_attention_ref`.
 
+The kernel has two routes, chosen by dtype: bf16 runs on the tensor
+cores (``mma.sync``, p rounded to bf16 for P.V; its plain version is
+:func:`repro_torch.kernels.ref.flash_attention_ref_bf16p`), f32 on the
+CUDA cores in full f32.  The bf16 route copies rows with 16-byte
+``cp.async``, so on a card it refuses (``ValueError``) tensors whose
+base address or strides are not multiples of 16 bytes.
+
 The TPU kernel's ``q_block``/``k_block`` are its tiling, and it raises
 when S does not divide them.  The port takes any ``Sq`` and ``Sk`` and
 masks the ragged tile, so on every shape where the TPU kernel is defined
@@ -62,6 +69,21 @@ def _check(q, k, v) -> None:
         raise ValueError("q, k and v must be on one device")
 
 
+def _check_rows_aligned(**tensors: torch.Tensor) -> None:
+    """Raise unless every row of each tensor starts on a 16-byte boundary:
+    its base address and the strides of its leading dims (those longer
+    than 1) are multiples of 16 bytes."""
+    for name, t in tensors.items():
+        es = t.element_size()
+        if t.data_ptr() % 16 or any(
+                st * es % 16 for n, st in zip(t.shape[:-1], t.stride()[:-1])
+                if n > 1):
+            raise ValueError(
+                f"{name}: the bf16 route copies 16-byte rows, but the base "
+                f"address {t.data_ptr():#x} or strides {list(t.stride())} "
+                f"({t.dtype}) are not all multiples of 16 bytes")
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True) -> torch.Tensor:
     """Attention of ``q (B, H, Sq, d)`` over ``k, v (B, Hkv, Sk, d)``.
@@ -69,9 +91,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     Query head ``h`` reads kv head ``h // (H // Hkv)``; the scale is
     ``d ** -0.5``; ``causal`` masks key ``j > i`` for query ``i``
     (positions 0..S-1).  f32 or bf16, q, k and v alike; scores, stats and
-    the accumulator in f32; the result ``(B, H, Sq, d)`` in q's type,
-    laid out in memory as q is (views whose last dim is contiguous are
-    read through their strides, without a copy).
+    the accumulator in f32 (on a card, bf16 rounds p to bf16 for P.V);
+    the result ``(B, H, Sq, d)`` in q's type, laid out in memory as q is
+    (views whose last dim is contiguous are read through their strides,
+    without a copy).
     """
     _check(q, k, v)
     if q.device.type == "cpu":
@@ -88,6 +111,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     out = torch.empty_like(q)     # q's strides where q is dense
     if out.numel() == 0:
         return out
+    if q.dtype == torch.bfloat16:
+        _check_rows_aligned(q=q, k=k, v=v, out=out)
     dev = q.device
     lib = _lib()
     err = lib.ciao_flash_attention(

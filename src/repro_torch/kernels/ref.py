@@ -14,7 +14,9 @@ comparison in ``chip_smoke.py``; no path calls them on a card.
     :mod:`repro_torch.kernels.bitvector_ops`);
   * ``flash_attention_ref`` — causal or unmasked GQA attention
     (``csrc/flash_attention.cu``, wrapper
-    :mod:`repro_torch.kernels.flash_attention`).
+    :mod:`repro_torch.kernels.flash_attention`), and
+    ``flash_attention_ref_bf16p``, the numerics of that kernel's bf16
+    route (an oracle for the card; the CPU path keeps the former).
 
 The plain version of the scan kernel is
 :func:`repro_torch.kernels.scan_fused.scan_core`.
@@ -187,4 +189,25 @@ def flash_attention_ref(q, k, v, *, causal: bool = True):
         q_positions=torch.arange(Sq, dtype=torch.int32, device=q.device),
         k_positions=torch.arange(Sk, dtype=torch.int32, device=q.device),
         mask_mode="causal" if causal else "none")
+    return out.transpose(1, 2)
+
+
+#: keys per K/V tile of kernel F's bf16 route (kBN in the source)
+FLASH_KEY_TILE = 64
+
+
+def flash_attention_ref_bf16p(q, k, v, *, causal: bool = True):
+    """Plain version of kernel F's bf16 route: :func:`flash_attention_ref`
+    over the kernel's 64-key tiles, with p rounded to bf16 before each
+    tile's P.V, where the tensor-core kernel rounds it (l sums the f32 p).
+    """
+    from repro_torch.models import attention
+
+    Sq, Sk = q.shape[2], k.shape[2]
+    out = attention.flash_attention_plain(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+        q_positions=torch.arange(Sq, dtype=torch.int32, device=q.device),
+        k_positions=torch.arange(Sk, dtype=torch.int32, device=q.device),
+        mask_mode="causal" if causal else "none", k_chunk=FLASH_KEY_TILE,
+        p_dtype=torch.bfloat16)
     return out.transpose(1, 2)

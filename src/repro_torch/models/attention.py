@@ -107,13 +107,16 @@ def _pad_to(x, size: int, dim: int):
 def flash_attention_plain(q, k, v, *, q_positions, k_positions,
                           mask_mode: str = "causal", window: int = 0,
                           q_chunk: int = 1024, k_chunk: int = 1024,
-                          scale: float | None = None):
+                          scale: float | None = None,
+                          p_dtype: torch.dtype | None = None):
     """Chunked online-softmax attention, on any device.
 
     q: (B, Sq, H, qkd); k: (B, Sk, Hkv, qkd); v: (B, Sk, Hkv, vd).
     positions: int (Sq,) / (Sk,) absolute positions (mask + validity:
     negative k_position == padding).  Scores, stats and the accumulator
-    are f32; the result is in q's type.
+    are f32; the result is in q's type.  ``p_dtype`` rounds p to that
+    type before each chunk's P.V (l still sums the f32 p), as kernel F's
+    bf16 route does with 64-key chunks.
     """
     if mask_mode not in ("causal", "local", "none"):
         raise ValueError(f"unknown mask_mode {mask_mode!r}")
@@ -163,8 +166,9 @@ def flash_attention_plain(q, k, v, *, q_positions, k_positions,
             p_ = torch.where(valid, p_, 0.0)
             alpha = torch.exp(torch.where(m <= NEG_INF / 2, NEG_INF,
                                           m - shift))
+            pv = p_ if p_dtype is None else p_.to(p_dtype).float()
             o = o * alpha[..., None] + torch.einsum(
-                "bhgqk,bkhd->bhgqd", p_, v_blk)
+                "bhgqk,bkhd->bhgqd", pv, v_blk)
             l_ = l_ * alpha + p_.sum(dim=-1)
             m = m_new
         out = o / torch.clamp(l_, min=1e-30)[..., None]

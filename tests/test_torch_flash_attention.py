@@ -10,7 +10,17 @@ are held against their JAX counterparts in every mask mode.  Inputs are
 N(0, 1) from numpy seeds.  Tolerances: 2e-5 in f32 (the TPU test's bound:
 both sides sum in f32 in another order), 0.05 in bf16 (the TPU test's
 bound: a few bf16 steps of outputs of about unit size).
+
+On a card, bf16 runs the tensor-core route, which rounds p to bf16 for
+P.V.  Its plain numerics, ``ref.flash_attention_ref_bf16p``, are held
+against the TPU kernel (0.05) and against the f32 plain version within
+the bound ``chip_smoke.py`` holds the kernel to (2e-2: the output's
+rounding, up to 2^-7 at |o| < 4, plus p's, at most 2^-9 |v| per unit of
+the other keys' weight).
 """
+import re
+from pathlib import Path
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -27,6 +37,7 @@ from repro_torch.models import attention as t_attn  # noqa: E402
 
 F32_TOL = 2e-5
 BF16_TOL = 0.05
+BF16P_TOL = 2e-2     # the bf16 route against the f32 plain version
 
 
 def _normal(rng, shape):
@@ -185,3 +196,98 @@ def test_decode_attention_matches_jax(window, n_empty, dtype):
                 j_attn.combine_partials(jpart, None)) < F32_TOL
     with pytest.raises(NotImplementedError):
         t_attn.combine_partials(tpart, "model")
+
+
+@pytest.mark.parametrize("shape", [
+    (1, 2, 2, 64, 32, True, 32),    # the bf16 test above
+    (2, 4, 2, 128, 64, True, 64),
+    (1, 4, 1, 128, 128, False, 128),
+    (1, 2, 2, 96, 16, True, 32),
+])
+def test_bf16p_oracle_matches_tpu_kernel_bf16(shape):
+    """The bf16 route's numerics against the TPU kernel's (f32 P.V)."""
+    B, H, Hkv, S, d, causal, qb = shape
+    rng = np.random.default_rng(7 * S + d)
+    q, k, v = (_normal(rng, (B, H, S, d)), _normal(rng, (B, Hkv, S, d)),
+               _normal(rng, (B, Hkv, S, d)))
+    jq, jk, jv = (jnp.asarray(a, jnp.bfloat16) for a in (q, k, v))
+    want = flash_attention_tpu(jq, jk, jv, causal=causal, q_block=qb,
+                               k_block=qb, interpret=True)
+    tq, tk, tv = (torch.from_numpy(a).to(torch.bfloat16) for a in (q, k, v))
+    got = ref.flash_attention_ref_bf16p(tq, tk, tv, causal=causal)
+    assert got.dtype == torch.bfloat16 and got.shape == (B, H, S, d)
+    assert _err(got, want) < BF16_TOL
+
+
+@pytest.mark.parametrize("shape", [
+    (1, 2, 1, 512, 512, 128, True),    # the serving head dim and length
+    (2, 4, 2, 128, 128, 64, True),
+    (1, 4, 2, 100, 300, 32, False),    # ragged tiles, Sq != Sk
+    (2, 2, 2, 300, 100, 16, True),
+])
+def test_bf16p_oracle_within_bf16_tolerance_of_plain(shape):
+    """On the same bf16 inputs, p rounded to bf16 stays within the stated
+    bound of the f32 plain version, and does round: the two differ."""
+    B, H, Hkv, Sq, Sk, d, causal = shape
+    rng = np.random.default_rng(Sq + Sk + d)
+    q, k, v = (torch.from_numpy(_normal(rng, (B, h, S, d))).to(torch.bfloat16)
+               for h, S in ((H, Sq), (Hkv, Sk), (Hkv, Sk)))
+    got = ref.flash_attention_ref_bf16p(q, k, v, causal=causal)
+    want = ref.flash_attention_ref(q, k, v, causal=causal)
+    assert got.dtype == torch.bfloat16 and got.shape == want.shape
+    assert 0 < _err(got, want) < BF16P_TOL
+
+
+@pytest.mark.parametrize("sk", [1, 40, 64])
+def test_bf16p_oracle_rounds_p_before_pv(sk):
+    """One 64-key tile, worked by hand: o = sum(bf16(p) v) / sum(p)."""
+    rng = np.random.default_rng(sk)
+    q, k, v = (_normal(rng, (1, 1, n, 16)) for n in (1, sk, sk))
+    s = (q[0, 0] @ k[0, 0].T)[0].astype(np.float32) * np.float32(0.25)
+    p = torch.exp(torch.from_numpy(s - s.max()))
+    pb = p.to(torch.bfloat16).double().numpy()
+    want = (pb @ v[0, 0].astype(np.float64)) / p.sum().item()
+    got = ref.flash_attention_ref_bf16p(
+        *(torch.from_numpy(a) for a in (q, k, v)), causal=False)
+    assert got.dtype == torch.float32
+    assert float(np.abs(got[0, 0, 0].numpy() - want).max()) < 1e-5
+
+
+def test_kernel_source_runs_bf16_on_the_tensor_cores():
+    """Kernel F's bf16 route is hand-written PTX in its one source:
+    mma.sync (bf16 in, f32 accumulate) fed by ldmatrix from a cp.async
+    ring; no header of its own and no library."""
+    from repro_torch.kernels import cuda_build
+    text = (cuda_build.CSRC / cuda_build.SOURCES["flash_attention"]
+            ).read_text()
+    for needle in ("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32",
+                   "ldmatrix.sync.aligned.m8n8.x4.shared.b16",
+                   "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16",
+                   "cp.async.cg.shared.global", "cp.async.commit_group",
+                   "cp.async.wait_group", "flash_kernel_mma",
+                   "src/repro/kernels/"):
+        assert needle in text, needle
+    includes = re.findall(r"#include\s*[<\"]([^>\"]+)", text)
+    assert includes == ["cstdint", "cuda_bf16.h", "cuda_runtime.h"]
+    assert not re.search(r"cutlass|cublas|cudnn|wmma", text, re.I)
+    assert not list(Path(cuda_build.CSRC).glob("*.cuh"))
+
+
+def test_bf16_route_refuses_rows_off_16_byte_boundaries():
+    """cp.async copies 16-byte rows: misaligned bases or strides raise;
+    (B, S, H, d) views of dense tensors and odd strides of size-1 dims
+    pass.  On the CPU the plain version takes any layout."""
+    check = fa._check_rows_aligned
+    dense = torch.zeros(2, 48, 4, 32, dtype=torch.bfloat16)
+    check(q=dense.transpose(1, 2), out=dense)
+    flat = torch.zeros(64 * 32 + 8, dtype=torch.bfloat16)
+    check(q=flat[8:].view(1, 1, 64, 32))
+    with pytest.raises(ValueError, match="16-byte"):
+        check(q=flat[1:64 * 32 + 1].view(1, 1, 64, 32))
+    wide = torch.zeros(1, 1, 64, 36, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="16-byte"):
+        check(k=wide[..., :32])                  # rows 72 bytes apart
+    check(v=torch.zeros(1, 1, 1, 32, dtype=torch.bfloat16)[..., :16])
+    q = flat[1:64 * 32 + 1].view(1, 1, 64, 32)
+    got = fa.flash_attention(q, q, q)            # the CPU path: no refusal
+    assert got.shape == q.shape
