@@ -19,7 +19,8 @@ split path, on the same chunks:
   (a) the bench's 12-clause mixed plan: seed_split_eval (one match_any
       launch, one match_key_value launch per key-value pair, host OR and
       pack, one reduce launch for the load mask) == eval_fused, every chunk
-                              [kernels D, E: csrc/substring_match.cu;
+                              [kernel D: csrc/substring_match.cu;
+                               kernel E: csrc/key_value.cu;
                                kernel C: csrc/bitvector_reduce.cu]
   (b) the main plan: seed_split_eval -> a second CiaoStore
       -> DataSkippingScanner(and_reduce=residual.bv_and_many_cuda)
@@ -117,13 +118,10 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
     return start.elapsed_time(stop) / reps
 
 
-def kernel_ms(fn, reps: int, name: str) -> tuple[float, str]:
-    """Device milliseconds per launch of the kernel ``name`` inside ``fn``.
-
-    Read from the profiler's CUDA activity (kernel time alone); where the
-    profiler records no device time for it, CUDA events around the whole
-    call are used instead, and the second value says which.
-    """
+def kernel_ms(fn, reps: int, name: str) -> float:
+    """Device milliseconds per launch of the kernel ``name`` inside ``fn``,
+    from the profiler's CUDA activity (kernel time alone).  Raises when the
+    profiler records no launch of it."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -134,9 +132,9 @@ def kernel_ms(fn, reps: int, name: str) -> tuple[float, str]:
         torch.cuda.synchronize()
     us = [e.device_time_total / e.count for e in prof.key_averages()
           if name in e.key and e.count]
-    if us and us[0] > 0:
-        return us[0] / 1e3, "profiler"
-    return cuda_ms(fn, reps), "events"
+    if not us or us[0] <= 0:
+        raise AssertionError(f"the profiler found no {name} launch")
+    return us[0] / 1e3
 
 
 def same_bits(a, b) -> int:
@@ -156,6 +154,47 @@ def accounting(r) -> tuple:
             tuple(sorted((k, (g.count, g.rows_scanned, g.rows_skipped,
                               g.raw_parsed, g.segments_pruned))
                          for k, g in r.groups.items())))
+
+
+def straddling_rows(L: int, key: bytes, val: bytes):
+    """uint8[R, L] over an ``x`` filler: ``key`` and ``val`` placed across
+    positions 31/32, 127/128 and L - 1 (a 32-position word, a lane's 4-byte
+    word, the stride end): the value exactly at the key end, a delimiter
+    exactly at the key end, the value two bytes on, two key hits of which
+    only the second reaches its value, and a value ending at L."""
+    import numpy as np
+    mk, mv = len(key), len(val)
+    rows = []
+
+    def row(*parts):
+        r = bytearray(b"x" * (L + 64))
+        for pos, b in parts:
+            r[pos:pos + len(b)] = b
+        rows.append(bytes(r[:L]))
+
+    for edge in (32, 128, L - 1):
+        for s in range(max(0, edge - mk - mv - 3), min(L, edge + 2)):
+            e = s + mk
+            row((s, key), (e, val))
+            row((s, key), (e, b","), (e + 1, val))
+            row((s, key), (e, b"}" + val))
+            row((s, key), (e + 2, val))
+            row((s, key + b"0," + key + val))
+            row((max(0, s - mk - 3), key + b"9,"), (s, key), (e, val))
+    row((L - mv - mk, key + val))
+    row((L - mv - mk - 1, key + b" " + val))
+    return np.frombuffer(b"".join(rows), np.uint8).reshape(-1, L).copy()
+
+
+def unaligned(a, dev):
+    """``a`` on ``dev`` as a contiguous view one byte past its allocation
+    (rows off every 4- and 16-byte boundary)."""
+    import torch
+    R, L = a.shape
+    buf = torch.empty(R * L + 1, dtype=torch.uint8, device=dev)
+    out = buf[1:].view(R, L)
+    out.copy_(torch.from_numpy(a))
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -209,10 +248,11 @@ def check_pushdown(dev) -> int:
     from repro_torch.kernels.plan import compile_plan, tier_view
 
     def compare(data_np, plan, n_valid=None) -> int:
-        data = torch.from_numpy(np.ascontiguousarray(data_np)).to(dev)
+        data = data_np if isinstance(data_np, torch.Tensor) else \
+            torch.from_numpy(np.ascontiguousarray(data_np)).to(dev)
         R = data.shape[0]
         n_valid = R if n_valid is None else n_valid
-        flat = ops.plan_tensors(plan, ops.FLAT_FIELDS, dev)
+        flat = ops.plan_tensors(plan, ops.KERNEL_FIELDS, dev)
         uniq = ops.plan_tensors(plan, ops.UNIQUE_FIELDS, dev)
         got = fused.clause_bitvectors_fused(data, flat, n_valid,
                                             n_simple=plan.n_simple)
@@ -264,9 +304,38 @@ def check_pushdown(dev) -> int:
         compare(chunk.data, plan, n_valid=n_valid)
     wide = encode_chunk([b'{"pad":"' + b"x" * 9000 + b'","age":7}',
                          b'{"age":8}'] * 20)   # stride too wide to stage
+    if 32 * (wide.stride + 16) <= fused.MAX_SMEM:
+        raise AssertionError("the wide chunk would still be staged")
     compare(wide.data, compile_plan((clause(key_value("age", 7)),)))
     n_checks += len(cls) + 6
-    print(f"  edge cases: bit-identical ({n_checks} comparisons in all)")
+    # keys and values across positions 31/32, 127/128 and L - 1, a value
+    # and a delimiter exactly at the key end, several key hits per record;
+    # strides that are not 16-byte multiples, and rows one byte past their
+    # allocation (the 4- and 1-byte staging routes)
+    kv_plan = compile_plan(tuple(cls) + (
+        clause(key_value("age", 57)), clause(key_value("age", 12)),
+        clause(key_value("age", "57"), exact("name", "par"))))
+    n_edge = 0
+    for L in (100, 257, 384, 1000):
+        rows = np.concatenate([straddling_rows(L, b'"age"', b"57"),
+                               straddling_rows(L, b'"age"', b":5")])
+        for n in (3, kv_plan.n_clauses):
+            compare(rows, tier_view(kv_plan, n))
+        compare(unaligned(rows, dev), kv_plan)
+        compare(unaligned(rows, dev), kv_plan, n_valid=len(rows) - 7)
+        n_checks += 4
+        n_edge += len(rows)
+    for ds in ("ycsb", "yelp", "winlog"):       # pools at an odd stride
+        recs = generate_records(ds, 300, seed=12)
+        stride = max(len(r) for r in recs) + 3
+        compare(encode_chunk(recs, stride=stride).data,
+                compile_plan(tuple(predicate_pool(ds))))
+        compare(unaligned(encode_chunk(recs).data, dev),
+                compile_plan(tuple(predicate_pool(ds))))
+        n_checks += 2
+    print(f"  edge cases: bit-identical ({n_checks} comparisons in all; "
+          f"{n_edge} straddling rows at strides 100, 257, 384, 1000, "
+          "aligned and one byte off)")
     return n_checks
 
 
@@ -331,7 +400,7 @@ def check_split_kernels(dev) -> int:
             check_e(data, k, v)
         plan = compile_plan(tuple(pool))
         words = fused.clause_bitvectors_fused(
-            data, ops.plan_tensors(plan, ops.FLAT_FIELDS, dev), 1000,
+            data, ops.plan_tensors(plan, ops.KERNEL_FIELDS, dev), 1000,
             n_simple=plan.n_simple)[0]
         every7 = words.view(torch.int32)[::7].contiguous().view(torch.uint32)
         for rows in (words, words[:1], words[:3], every7):
@@ -374,6 +443,30 @@ def check_split_kernels(dev) -> int:
                 n += 1
                 continue
             raise AssertionError(f"{fn.__name__} took an empty pattern")
+    # E: keys and values across 31/32, 127/128 and L - 1 at strides that
+    # are not 16-byte multiples, aligned and one byte off
+    for L in (100, 257, 384, 1000):
+        rows = straddling_rows(L, b'"age":', b"57")
+        for d in (on_dev(rows), unaligned(rows, dev)):
+            for k, v in ((b'"age":', b"57"), (b'"age":', b"5"),
+                         (b'"age":', b"7,"), (b"x", b"5")):
+                check_e(d, k, v)
+    # E: 200 seeded random (key, value, records) triples over a small
+    # alphabet with the delimiters and a zero byte in it
+    rng = np.random.default_rng(15)
+    alphabet = np.frombuffer(b"ab,}\x00", np.uint8)
+    for i in range(200):
+        L = int(rng.integers(1, 300))
+        d = on_dev(alphabet[rng.integers(0, 5, (int(rng.integers(1, 70)), L))])
+        k = alphabet[rng.integers(0, 5, int(rng.integers(1, 6)))].tobytes()
+        v = alphabet[rng.integers(0, 5, int(rng.integers(1, 4)))].tobytes()
+        n += 1
+        args = (d, on_dev(np.frombuffer(bytearray(k), np.uint8)),
+                on_dev(np.frombuffer(bytearray(v), np.uint8)), bool(i % 2))
+        if same_bits(sm.key_value_match(*args),
+                     ref.key_value_match_ref(*args)):
+            raise AssertionError(f"key-value kernel != plain version on "
+                                 f"random triple {i} ({k!r}, {v!r}, L={L})")
     # a stride too wide for 8 records to fit in shared memory: read in place
     wide = on_dev(encode_chunk([b'{"pad":"' + b"x" * 30000 + b'","age":7}',
                                 b'{"age":8,"a":"xx"}'] * 20).data)
@@ -727,7 +820,7 @@ def split_kernel_rows(run, split, dev) -> list[dict]:
          R * L + pats.nbytes + plens.nbytes + len(simple) * R,
          f"R={R} L={L} P={len(simple)} M={pats.shape[1]}",
          "no PyTorch call searches bytes for substrings"),
-        ("key_value_match", "src/repro_torch/csrc/substring_match.cu",
+        ("key_value_match", "src/repro_torch/csrc/key_value.cu",
          "src/repro/kernels/substring_match.py:201", "key_value",
          "key_value_kernel", lambda: sm.key_value_match(*e_args),
          lambda: ref.key_value_match_ref(*e_args),
@@ -744,7 +837,7 @@ def split_kernel_rows(run, split, dev) -> list[dict]:
         err = max(same_bits(g, w) for g, w in zip(got, want))
         if err:
             raise AssertionError(f"{name} != plain version at main shape")
-        ms, src = kernel_ms(kern, 50, kname)
+        ms = kernel_ms(kern, 50, kname)
         rows.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": split["b"][counter],
@@ -752,7 +845,7 @@ def split_kernel_rows(run, split, dev) -> list[dict]:
             "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
             "library_ms": None, "library_note": why,
             "launches_phase_a": split["a"][counter],
-            "ms_from": src, "wrapper_call_ms": cuda_ms(kern, 50),
+            "ms_from": "profiler", "wrapper_call_ms": cuda_ms(kern, 50),
             "shape": shape,
         })
     return rows
@@ -1010,16 +1103,13 @@ def flash_row(serve) -> dict:
     q, k, v = serve["qkv"]
     B, H, S, d = q.shape
     Hkv = k.shape[1]
-    ms, src = kernel_ms(lambda: fa.flash_attention(q, k, v), 20,
-                        "flash_kernel")
+    ms = kernel_ms(lambda: fa.flash_attention(q, k, v), 20, "flash_kernel")
     nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
     flops = 2 * B * H * S * S * d
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     flops_ms = flops / BF16_FLOP_PER_S * 1e3
     lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
         q, k, v, is_causal=True, enable_gqa=True), 20)
-    if src != "profiler":
-        raise AssertionError("the profiler found no flash_kernel launch")
     return {
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/csrc/flash_attention.cu",
@@ -1032,7 +1122,7 @@ def flash_row(serve) -> dict:
         "library_ms": lib_ms,
         "library_note": "scaled_dot_product_attention(is_causal=True, "
                         "enable_gqa=True), timed only",
-        "ms_from": src, "wrapper_call_ms": cuda_ms(
+        "ms_from": "profiler", "wrapper_call_ms": cuda_ms(
             lambda: fa.flash_attention(q, k, v), 20),
         "launches_per_prefill": serve["launches"]
         // serve["result"]["prefill_calls"],
@@ -1049,6 +1139,7 @@ def kernel_table(run, dev) -> list[dict]:
     import numpy as np
     import torch
     from repro_torch.kernels import fused, ops, ref, scan_fused
+    from repro_torch.kernels import plan as kplan
     from repro_torch.kernels.plan import compile_plan
 
     rows = []
@@ -1056,7 +1147,7 @@ def kernel_table(run, dev) -> list[dict]:
     plan = compile_plan(tuple(run["plan"].clauses))
     data = torch.from_numpy(run["chunks"][0].data).to(dev)
     R, L = data.shape
-    flat = ops.plan_tensors(plan, ops.FLAT_FIELDS, dev)
+    flat = ops.plan_tensors(plan, ops.KERNEL_FIELDS, dev)
     uniq = ops.plan_tensors(plan, ops.UNIQUE_FIELDS, dev)
 
     def kern():
@@ -1072,12 +1163,55 @@ def kernel_table(run, dev) -> list[dict]:
     err = max(same_bits(g, w) for g, w in zip(kern(), plain()))
     if err:
         raise AssertionError("pushdown kernel != plain version at main shape")
-    ms, src = kernel_ms(kern, 50, "pushdown_kernel")
+    ms = kernel_ms(kern, 50, "pushdown_kernel")
     call_ms, plain_ms = cuda_ms(kern, 50), cuda_ms(plain, 5)
-    C, W = plan.n_clauses, (R + 31) // 32
-    nbytes = (data.numel() + sum(t.numel() * t.element_size()
-                                 for t in flat.values())
-              + C * W * 4 + W * 4 + C * 4)
+    C = plan.n_clauses
+
+    def pushdown_bytes(d, table, C):
+        """chunk and plan table read once, words, mask and counts written"""
+        W = (d.shape[0] + 31) // 32
+        return d.numel() + table.numel() * 4 + C * W * 4 + W * 4 + C * 4
+
+    nbytes = pushdown_bytes(data, flat["kernel_table"], C)
+    # where A's time goes at this shape: a launch with no rows to evaluate
+    # (n_valid 0: table, clause bits, outputs), and one whose only
+    # predicate is an empty simple pattern (the rows staged, no search)
+    from repro_torch.core.predicates import clause, substring
+    bare = compile_plan((clause(substring("a", "")),))
+    bare_t = ops.plan_tensors(bare, ops.KERNEL_FIELDS, dev)
+    ms_no_rows = kernel_ms(lambda: fused.clause_bitvectors_fused(
+        data, flat, 0, n_simple=plan.n_simple), 50, "pushdown_kernel")
+    ms_staged = kernel_ms(lambda: fused.clause_bitvectors_fused(
+        data, bare_t, R, n_simple=1), 50, "pushdown_kernel")
+    print(f"  pushdown at R={R} L={L}: no rows evaluated {ms_no_rows:.4f} "
+          f"ms; rows staged, no search {ms_staged:.4f} ms; the main plan "
+          f"{ms:.4f} ms")
+    # every predicate of each dataset's pool on an 8,192-record chunk: how
+    # the kernel scales with the plan (not the main path's plan; no launch
+    # counted)
+    from repro_torch.core.client import encode_chunk
+    from repro_torch.data.datasets import generate_records, predicate_pool
+    whole = {}
+    for ds in ("ycsb", "yelp", "winlog"):
+        d = data if ds == "ycsb" else torch.from_numpy(encode_chunk(
+            generate_records(ds, CHUNK, seed=SEED)).data).to(dev)
+        big = compile_plan(tuple(predicate_pool(ds)))
+        big_t = ops.plan_tensors(big, ops.KERNEL_FIELDS, dev)
+        big_ms = kernel_ms(lambda: fused.clause_bitvectors_fused(
+            d, big_t, d.shape[0], n_simple=big.n_simple), 10,
+            "pushdown_kernel")
+        table = big.kernel_table
+        searches = int(table[kplan.TABLE_N_SIMPLE] + table[kplan.TABLE_N_GROUPS])
+        whole[ds] = {
+            "ms": big_ms, "R": d.shape[0], "L": d.shape[1],
+            "P": big.n_preds, "C": big.n_clauses, "searches": searches,
+            "bound_ms": pushdown_bytes(d, big_t["kernel_table"],
+                                       big.n_clauses)
+            / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes"}
+        print(f"  pushdown, the whole {ds} pool at R={d.shape[0]} "
+              f"L={d.shape[1]} (P={big.n_preds}, C={big.n_clauses}, "
+              f"{searches} pattern and key searches): {big_ms:.4f} ms "
+              f"(bound {whole[ds]['bound_ms']:.5f} ms)")
     rows.append({
         "name": "pushdown (clause_bitvectors_fused)", "route": "cuda",
         "source": "src/repro_torch/csrc/pushdown.cu",
@@ -1086,19 +1220,12 @@ def kernel_table(run, dev) -> list[dict]:
         "ms": ms, "plain_ms": plain_ms,
         "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
         "library_ms": None,
-        "ms_from": src, "wrapper_call_ms": call_ms,
+        "ms_from": "profiler", "wrapper_call_ms": call_ms,
         "shape": f"R={R} L={L} P={plan.n_preds} C={C}",
         "chunk_GB_per_s": data.numel() / (ms * 1e-3) / 1e9,
+        "ms_whole_pool": whole, "ms_no_rows": ms_no_rows,
+        "ms_rows_staged_no_search": ms_staged,
     })
-    # the same chunk under every predicate of the pool: how the kernel
-    # scales with the plan (not the main path's plan; no launch counted)
-    from repro_torch.data.datasets import predicate_pool
-    big = compile_plan(tuple(predicate_pool("ycsb")))
-    big_t = ops.plan_tensors(big, ops.FLAT_FIELDS, dev)
-    big_ms, _ = kernel_ms(lambda: fused.clause_bitvectors_fused(
-        data, big_t, R, n_simple=big.n_simple), 10, "pushdown_kernel")
-    print(f"  pushdown at R={R} L={L} with the whole ycsb pool "
-          f"(P={big.n_preds}, C={big.n_clauses}): {big_ms:.4f} ms")
 
     # kernel B: the plane and the first batch's parameter tables
     scanner = run["scanner"]
@@ -1107,8 +1234,8 @@ def kernel_table(run, dev) -> list[dict]:
     params = prep.params
     err = check_scan(scanner, run["batches"][0])
     staged = scan_fused.stage_params(params, dev)
-    ms, src = kernel_ms(lambda: scan_fused.launch_scan(plane, staged), 50,
-                        "scan_kernel")
+    ms = kernel_ms(lambda: scan_fused.launch_scan(plane, staged), 50,
+                   "scan_kernel")
     call_ms = cuda_ms(lambda: scan_fused.scan_core_cuda(plane, params), 50)
     plain_ms = cuda_ms(lambda: scan_fused.scan_core(plane, params), 5)
     n = scanner.cache._n_used
@@ -1130,7 +1257,7 @@ def kernel_table(run, dev) -> list[dict]:
         "ms": ms, "plain_ms": plain_ms,
         "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
         "library_ms": None,
-        "ms_from": src, "wrapper_call_ms": call_ms,
+        "ms_from": "profiler", "wrapper_call_ms": call_ms,
         "shape": (f"N={n} of {plane.pres.shape[1]} K={plane.pres.shape[0]} "
                   f"T={params.kinds.shape[0]} C={params.membership.shape[0]} "
                   f"Q={Q} S1={S1}"),

@@ -1,29 +1,21 @@
-// The split pushdown path's two matchers: one pattern set over a chunk
-// (kernel D) and one key-value predicate over a chunk (kernel E).
+// The split pushdown path's pattern-set matcher: one pattern set over a
+// chunk (kernel D).  The key-value matcher, kernel E, is key_value.cu.
 //
-// Replace the TPU kernels src/repro/kernels/substring_match.py::
-// multi_match_any (body _multi_match_kernel) and ::key_value_match (body
-// _key_value_kernel).  Same functions, other shape:
+// Replaces the TPU kernel src/repro/kernels/substring_match.py::
+// multi_match_any (body _multi_match_kernel).  Same function, other shape:
 //
 //  * one warp per record, kWarps records per block, each record staged in
 //    shared memory (read in place when kWarps rows of the stride do not
 //    fit); the lanes stride over window start positions and __any_sync
 //    reduces the verdict, so a window is a direct compare at j, not the
 //    TPU's chain of static shifts;
-//  * D keeps the pattern table in shared memory; the first pattern byte
-//    rejects almost every start, as the TPU's block-level prefilter did;
-//  * E walks from the end of each key window to the nearest value window
-//    and stops at ',' or '}', instead of the TPU's flip + segmented
-//    associative scan; the key and value lengths and the unbounded flag
-//    are runtime arguments, not compile-time ones.  The walk is the one of
-//    the pushdown kernel (pushdown.cu), written out again: shared with it
-//    through one inline function, it slowed that kernel down (PERF.md).
+//  * the pattern table sits in shared memory; the first pattern byte
+//    rejects almost every start, as the TPU's block-level prefilter did.
 //
-// Bound on this card: each reads the chunk once (R*L bytes) and writes one
-// byte per (pattern, record), a few microseconds at 3.35 TB/s for a
-// 3 MB chunk.  The compares, not the bytes, set the time: every start
-// position of every record is tested, which staging keeps on shared
-// memory.
+// Bound on this card: it reads the chunk once (R*L bytes) and writes one
+// byte per (pattern, record), a few microseconds at 3.35 TB/s for a 3 MB
+// chunk.  The compares, not the bytes, set the time: every start position
+// of every record is tested, which staging keeps on shared memory.
 //
 // Semantics held to the JAX package: bytes past the stride read as zero;
 // the first pattern byte is always compared, so an empty pattern (length
@@ -31,6 +23,7 @@
 // than the table's width M is compared on its first M bytes.
 
 #include <cstdint>
+#include <mutex>
 #include <cuda_runtime.h>
 
 namespace {
@@ -48,10 +41,6 @@ __device__ __forceinline__ bool window_eq_fill(const uint8_t* rec, int L,
     if (b != pat[i]) return false;
   }
   return true;
-}
-
-__device__ __forceinline__ bool is_delim(uint8_t b) {
-  return b == ',' || b == '}';
 }
 
 __host__ __device__ constexpr int align4(int n) { return (n + 3) & ~3; }
@@ -94,59 +83,36 @@ multi_match_kernel(const uint8_t* __restrict__ data, int R, int L,
   }
 }
 
-__global__ void __launch_bounds__(kWarps * 32)
-key_value_kernel(const uint8_t* __restrict__ data, int R, int L,
-                 const uint8_t* __restrict__ key, int mk,
-                 const uint8_t* __restrict__ val, int mv, bool unbounded,
-                 uint8_t* __restrict__ out, bool staged) {
-  extern __shared__ __align__(16) uint8_t smem[];
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int r = blockIdx.x * kWarps + warp;
-  const bool valid = r < R;                               // warp-uniform
+constexpr int kMaxDevices = 64;
+std::mutex g_mutex;
+int g_limit[kMaxDevices];           // opt-in shared memory per block
+int g_opted[kMaxDevices];           // dynamic shared memory opted in so far
 
-  const uint8_t* rec = data + (size_t)r * L;
-  if (staged) {
-    uint8_t* dst = smem + (size_t)warp * L;
-    if (valid)
-      for (int i = lane; i < L; i += 32) dst[i] = rec[i];
-    rec = dst;
-  }
-  __syncthreads();
-  if (!valid) return;
-
-  // a key window at j needs j + mk < L: its value region starts inside
-  bool mine = false;
-  for (int j = lane; j + mk < L && !mine; j += 32) {
-    if (!window_eq_fill(rec, L, j, key, mk)) continue;
-    for (int v = j + mk; v < L; ++v) {
-      if (!unbounded && is_delim(rec[v])) break;
-      if (window_eq_fill(rec, L, v, val, mv)) {
-        mine = true;
-        break;
-      }
-    }
-  }
-  mine = __any_sync(kFull, mine);
-  if (lane == 0) out[r] = mine;
-}
-
-// Opt in to `smem` bytes of dynamic shared memory for `kernel` and say
-// whether kWarps records of the stride fit beside `fixed` bytes.
-template <typename K>
-cudaError_t prepare(K kernel, int device, int fixed, int L, int* smem,
-                    bool* staged) {
-  int limit = 0;
-  cudaError_t err = cudaSetDevice(device);
+// Make `device` current, opt in to `smem` bytes of dynamic shared memory
+// for kernel D (the limit is queried, and the attribute set, once per
+// device and larger size) and say whether kWarps records of the stride
+// fit beside `fixed` bytes.
+cudaError_t prepare(int device, int fixed, int L, int* smem, bool* staged) {
+  if (device < 0 || device >= kMaxDevices) return cudaErrorInvalidDevice;
+  int cur = -1;
+  cudaError_t err = cudaGetDevice(&cur);
+  if (err == cudaSuccess && cur != device) err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
-  err = cudaDeviceGetAttribute(&limit, cudaDevAttrMaxSharedMemoryPerBlockOptin,
-                               device);
-  if (err != cudaSuccess) return err;
+  std::lock_guard<std::mutex> lock(g_mutex);
+  if (!g_limit[device]) {
+    err = cudaDeviceGetAttribute(
+        &g_limit[device], cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+    if (err != cudaSuccess) return err;
+  }
+  const int limit = g_limit[device];
   if (fixed > limit) return cudaErrorInvalidValue;
   *staged = (long long)fixed + (long long)kWarps * L <= limit;
   *smem = fixed + (*staged ? kWarps * L : 0);
-  return cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, *smem);
+  if (*smem <= g_opted[device]) return cudaSuccess;
+  err = cudaFuncSetAttribute(
+      multi_match_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, *smem);
+  if (err == cudaSuccess) g_opted[device] = *smem;
+  return err;
 }
 
 }  // namespace
@@ -165,27 +131,12 @@ int ciao_multi_match(int device, const uint8_t* data, int R, int L,
   if (R == 0 || P == 0) return 0;
   int smem = 0;
   bool staged = false;
-  cudaError_t err = prepare(multi_match_kernel, device,
-                            ciao_match_smem_bytes(P, M), L, &smem, &staged);
+  cudaError_t err =
+      prepare(device, ciao_match_smem_bytes(P, M), L, &smem, &staged);
   if (err != cudaSuccess) return err;
   multi_match_kernel<<<(R + kWarps - 1) / kWarps, kWarps * 32, smem,
                        (cudaStream_t)stream>>>(data, R, L, patterns, M, plens,
                                                P, out, staged);
-  return cudaGetLastError();
-}
-
-// out uint8[R]; mk, mv >= 1 (the wrapper refuses empty patterns).
-int ciao_key_value(int device, const uint8_t* data, int R, int L,
-                   const uint8_t* key, int mk, const uint8_t* val, int mv,
-                   int unbounded, uint8_t* out, void* stream) {
-  if (R == 0) return 0;
-  int smem = 0;
-  bool staged = false;
-  cudaError_t err = prepare(key_value_kernel, device, 0, L, &smem, &staged);
-  if (err != cudaSuccess) return err;
-  key_value_kernel<<<(R + kWarps - 1) / kWarps, kWarps * 32, smem,
-                     (cudaStream_t)stream>>>(data, R, L, key, mk, val, mv,
-                                             unbounded != 0, out, staged);
   return cudaGetLastError();
 }
 

@@ -8,9 +8,9 @@ their plain PyTorch versions and their wrappers.
     device-resident segment plane (kernel B, ``csrc/scan.cu``)
   * bitvector_ops   — AND / OR / popcount over packed rows (kernel C,
     ``csrc/bitvector_reduce.cu``)
-  * substring_match — the split path's matchers: a pattern set (kernel D)
-    and one key-value predicate (kernel E) over a chunk
-    (``csrc/substring_match.cu``)
+  * substring_match — the split path's matchers: a pattern set (kernel D,
+    ``csrc/substring_match.cu``) and one key-value predicate (kernel E,
+    ``csrc/key_value.cu``) over a chunk
   * flash_attention — causal or unmasked GQA flash attention for the
     model's prefill (kernel F, ``csrc/flash_attention.cu``)
   * residual        — the host scanner's ``and_reduce`` hook on kernel C

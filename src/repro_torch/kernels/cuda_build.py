@@ -24,6 +24,7 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
 SOURCES = {"pushdown": "pushdown.cu", "scan": "scan.cu",
            "bitvector_reduce": "bitvector_reduce.cu",
            "substring_match": "substring_match.cu",
+           "key_value": "key_value.cu",
            "flash_attention": "flash_attention.cu"}
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

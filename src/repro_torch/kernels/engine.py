@@ -32,8 +32,9 @@ class KernelEngine:
         self.r_blk = r_blk
         self.name = backend
         self._fields = (ops.UNIQUE_FIELDS if backend == "torch"
-                        else ops.FLAT_FIELDS)
-        # clause tuple -> (plan, its tables on the device)
+                        else ops.KERNEL_FIELDS)
+        # clause tuple -> (plan, its tables on the device; the kernel's
+        # packed table is built here, once per plan, not per chunk)
         self._plan_cache: dict[tuple[Clause, ...], tuple] = {}
         # (full clause tuple, tier size) -> neutralized subset view; the
         # views share the full plan's shapes

@@ -8,7 +8,9 @@ per-clause words, the OR'd load mask and the per-clause popcounts.
 On a CUDA tensor the wrapper launches the kernel (or raises); on a CPU
 tensor it runs the plain version,
 :func:`repro_torch.kernels.ref.clause_bitvectors_ref`, which reads the
-plan's unique tables where the kernel reads its flat per-predicate rows.
+plan's unique tables where the kernel reads its packed table
+(:func:`repro_torch.kernels.plan.kernel_table`).  Any stride and any row
+alignment run in the kernel.
 """
 from __future__ import annotations
 
@@ -33,10 +35,9 @@ def _lib() -> ctypes.CDLL:
     lib = cuda_build.load("pushdown")
     if not getattr(lib, "_typed", False):
         lib.ciao_pushdown.argtypes = [
-            _I, _P, _I, _I, _I, _P, _I, _P, _P, _I, _P, _P, _P, _P, _I, _I,
-            _P, _P, _P, _P]
+            _I, _P, _I, _I, _I, _P, _I, _I, _P, _P, _P, _P]
         lib.ciao_pushdown.restype = _I
-        lib.ciao_pushdown_smem_bytes.argtypes = [_I]
+        lib.ciao_pushdown_smem_bytes.argtypes = [_I, _I]
         lib.ciao_pushdown_smem_bytes.restype = _I
         lib._typed = True
     return lib
@@ -47,7 +48,8 @@ def clause_bitvectors_fused(data: torch.Tensor, plan: dict,
     """(words uint32[C, W], or_words uint32[W], counts int32[C]).
 
     ``data uint8[R, L]``; ``plan`` maps :class:`CompiledPlan` field names
-    to tensors on ``data``'s device (see ``ops.clause_bitvectors``).
+    to tensors on ``data``'s device: ``ops.KERNEL_FIELDS`` for the kernel,
+    ``ops.UNIQUE_FIELDS`` for the plain version (``ops.plan_tensors``).
     ``W = ceil(R / 32)``; rows ``>= n_valid`` are zero.
     """
     if data.device.type == "cpu":
@@ -60,32 +62,29 @@ def clause_bitvectors_fused(data: torch.Tensor, plan: dict,
     global launches
     dev = data.device
     R, L = data.shape
-    P, Mk = plan["keys"].shape
-    Mv = plan["vals"].shape[1]
-    C = plan["membership"].shape[0]
+    C, P = plan["membership"].shape
+    table = plan["kernel_table"]
     check(data, "data", torch.uint8, (R, L), dev)
-    check(plan["keys"], "keys", torch.uint8, (P, Mk), dev)
-    check(plan["vals"], "vals", torch.uint8, (P, Mv), dev)
-    for name in ("klens", "vlens", "kinds", "unbounded"):
-        check(plan[name], name, torch.int32, (P,), dev)
-    check(plan["membership"], "membership", torch.uint8, (C, P), dev)
+    check(table, "kernel_table", torch.uint32, (table.numel(),), dev)
+    if table.numel() % 4 or table.data_ptr() % 16:
+        raise ValueError("kernel_table must be whole 16-byte units on a "
+                         "16-byte boundary (plan.kernel_table)")
     lib = _lib()
-    smem = lib.ciao_pushdown_smem_bytes(C)
+    smem = lib.ciao_pushdown_smem_bytes(table.numel() // 4, C)
     if smem > MAX_SMEM:
-        raise ValueError(f"{C} clauses need {smem} B of shared memory per "
-                         f"block (limit {MAX_SMEM})")
+        raise ValueError(f"a plan of {P} predicates and {C} clauses needs "
+                         f"{smem} B of shared memory per block "
+                         f"(limit {MAX_SMEM})")
     W = (R + WORD_BITS - 1) // WORD_BITS
-    words = torch.empty((C, W), dtype=torch.uint32, device=dev)
-    or_words = torch.empty((W,), dtype=torch.uint32, device=dev)
-    counts = torch.zeros((C,), dtype=torch.int32, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
+    # one zeroed buffer: the kernel writes every word, counts accumulate
+    out = torch.zeros((C * W + W + C,), dtype=torch.int32, device=dev)
+    words = out[:C * W].view(torch.uint32).view(C, W)
+    or_words = out[C * W:C * W + W].view(torch.uint32)
+    counts = out[C * W + W:]
     err = lib.ciao_pushdown(
-        dev.index, data.data_ptr(), R, L, int(n_valid),
-        plan["keys"].data_ptr(), Mk, plan["klens"].data_ptr(),
-        plan["vals"].data_ptr(), Mv, plan["vlens"].data_ptr(),
-        plan["kinds"].data_ptr(), plan["unbounded"].data_ptr(),
-        plan["membership"].data_ptr(), C, P,
-        words.data_ptr(), or_words.data_ptr(), counts.data_ptr(), stream)
+        dev.index, data.data_ptr(), R, L, int(n_valid), table.data_ptr(),
+        table.numel() // 4, C, words.data_ptr(), or_words.data_ptr(),
+        counts.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     cuda_build.check_launch(lib, err, "pushdown")
     launches += 1
     return words, or_words, counts

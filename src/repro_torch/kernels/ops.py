@@ -26,10 +26,9 @@ from .substring_match import key_value_match, multi_match_any
 
 BACKENDS = ("cuda", "torch")
 
-#: CompiledPlan fields each side reads: the kernel reads the flat
-#: per-predicate rows, the plain version the unique tables
-FLAT_FIELDS = ("keys", "klens", "vals", "vlens", "kinds", "unbounded",
-               "membership")
+#: CompiledPlan fields each side reads: the kernel reads its packed table
+#: (``membership`` only for its shape), the plain version the unique tables
+KERNEL_FIELDS = ("kernel_table", "membership")
 UNIQUE_FIELDS = ("ukeys", "uklens", "uvals", "uvlens", "uunb", "key_ids",
                  "val_ids", "membership")
 
@@ -100,7 +99,7 @@ def clause_bitvectors(data, plan, *, backend: str = "cuda",
             t["uunb"], t["key_ids"], t["val_ids"], t["membership"], R,
             n_simple=plan.n_simple)
     else:
-        t = tensors or plan_tensors(plan, FLAT_FIELDS, dev)
+        t = tensors or plan_tensors(plan, KERNEL_FIELDS, dev)
         words, or_words, counts = clause_bitvectors_fused(
             padded, t, R, n_simple=plan.n_simple)
     W = (R + 31) // 32

@@ -13,9 +13,9 @@ repeat themselves:
     ``(value pattern, unbounded)``, so repeated values across fields share
     one scan.
 
-``CompiledPlan`` carries both representations: the unique tables + index
-vectors (consumed by the xla oracle) and the flat per-predicate arrays
-(consumed by the Pallas kernel, whose grid is per-predicate).  Predicates
+``CompiledPlan`` carries the unique tables + index vectors (read by the
+plain version), the flat per-predicate arrays, and the CUDA kernel's
+packed table built from them (:func:`kernel_table`).  Predicates
 are ordered simple-first so the simple/key-value boundary is a static
 split point.  Key and value patterns get SEPARATE padded widths — values
 are typically much shorter than quoted keys, so the value window loops
@@ -30,6 +30,7 @@ device batch compiler (``kernels.scan_fused.compile_scan_batch``).
 """
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 from typing import Sequence
 
@@ -51,7 +52,7 @@ def _bucket(n: int) -> int:
 class CompiledPlan:
     """Device-ready encoding of a clause list (see kernels.fused/ref)."""
 
-    # flat per-predicate arrays (Pallas kernel path), simple-first
+    # flat per-predicate arrays (kernel_table's source), simple-first
     keys: np.ndarray        # uint8[P, Mk]
     klens: np.ndarray       # int32[P]
     vals: np.ndarray        # uint8[P, Mv]
@@ -59,7 +60,7 @@ class CompiledPlan:
     kinds: np.ndarray       # int32[P]   0 = simple, 1 = key-value
     unbounded: np.ndarray   # int32[P]
     membership: np.ndarray  # uint8[C, P]
-    # unique tables + index vectors (xla oracle path)
+    # unique tables + index vectors (the plain version's)
     ukeys: np.ndarray       # uint8[Uk, Mk]
     uklens: np.ndarray      # int32[Uk]
     uvals: np.ndarray       # uint8[Uv, Mv]
@@ -79,6 +80,98 @@ class CompiledPlan:
     @property
     def n_clauses(self) -> int:
         return self.membership.shape[0]
+
+    @functools.cached_property
+    def kernel_table(self) -> np.ndarray:
+        """The pushdown kernel's table (:func:`kernel_table`), built once."""
+        return kernel_table(self)
+
+
+#: word offsets into :func:`kernel_table`'s header
+TABLE_N_SIMPLE, TABLE_N_GROUPS, TABLE_PRED, TABLE_GROUP, TABLE_CSR, \
+    TABLE_PAT = range(6)
+TABLE_HEADER_WORDS = 8
+
+
+def _round4(n: int) -> int:
+    return -(-n // 4) * 4
+
+
+def kernel_table(plan: CompiledPlan) -> np.ndarray:
+    """The plan as the CUDA pushdown kernel reads it: ``uint32`` words,
+    staged whole into shared memory (``csrc/pushdown.cu``).
+
+    * header: ``n_simple, n_groups`` and the word offsets of the four
+      sections below (each a multiple of 4, so rows are 16-byte aligned);
+    * predicate rows ``(pattern word, compare length, clause list begin,
+      end)``: the simple predicates first, their pattern the key (length
+      0 matches every row), then the key-value predicates grouped by key,
+      their pattern the value;
+    * group rows ``(key word, compare length, key shift, unbounded, first
+      predicate, end predicate, 0, 0)``: one per (key, unbounded);
+    * clause lists (CSR over the membership matrix): clause ids;
+    * patterns, 4 bytes to a little-endian word, zero-padded.
+
+    Lengths follow the plain version (``ref.clause_bitvectors_ref``): a
+    window compares ``max(1, min(len, width))`` bytes of its padded row and
+    a key ends ``klen`` bytes after its start.  Predicates that no clause
+    reads (a tier view's neutralised rows) are left out.
+    """
+    for name in ("klens", "vlens"):
+        if np.any(getattr(plan, name) < 0):
+            raise ValueError(f"negative pattern length in {name}")
+    mem = plan.membership.astype(bool)
+    live = mem.any(axis=0)
+    Mk, Mv = plan.keys.shape[1], plan.vals.shape[1]
+    pats: list[np.ndarray] = []
+    n_pat = 0
+
+    def pattern(row: np.ndarray) -> int:
+        nonlocal n_pat
+        buf = np.zeros(_round4(len(row)), np.uint8)
+        buf[:len(row)] = row
+        pats.append(buf.view("<u4"))
+        n_pat += len(pats[-1])
+        return n_pat - len(pats[-1])
+
+    preds: list[tuple[int, int, int, int]] = []
+    csr: list[int] = []
+
+    def predicate(row: np.ndarray, m: int, p: int) -> None:
+        ids = np.flatnonzero(mem[:, p])
+        preds.append((pattern(row[:m]), m, len(csr), len(csr) + len(ids)))
+        csr.extend(ids.tolist())
+
+    for p in np.flatnonzero(live & (plan.kinds == 0)):
+        predicate(plan.keys[p], min(int(plan.klens[p]), Mk), p)
+    n_simple = len(preds)
+    by_key: dict[tuple[bytes, int, int], list[int]] = {}
+    for p in np.flatnonzero(live & (plan.kinds != 0)):
+        klen = int(plan.klens[p])
+        key = plan.keys[p, :max(1, min(klen, Mk))].tobytes()
+        by_key.setdefault((key, klen, int(plan.unbounded[p] != 0)),
+                          []).append(p)
+    groups = []
+    for (key, klen, unb), members in by_key.items():
+        at = pattern(np.frombuffer(key, np.uint8))
+        first = len(preds)
+        for p in members:
+            predicate(plan.vals[p], max(1, min(int(plan.vlens[p]), Mv)), p)
+        groups.append((at, len(key), klen, unb, first, len(preds), 0, 0))
+
+    off_pred = TABLE_HEADER_WORDS
+    off_group = off_pred + 4 * len(preds)
+    off_csr = off_group + 8 * len(groups)
+    off_pat = off_csr + _round4(len(csr))
+    table = np.zeros(max(_round4(off_pat + n_pat), 4), np.uint32)
+    table[:6] = (n_simple, len(groups), off_pred, off_group, off_csr,
+                 off_pat)
+    table[off_pred:off_group] = np.asarray(preds, np.uint32).reshape(-1)
+    table[off_group:off_csr] = np.asarray(groups, np.uint32).reshape(-1)
+    table[off_csr:off_csr + len(csr)] = csr
+    if pats:
+        table[off_pat:off_pat + n_pat] = np.concatenate(pats)
+    return table
 
 
 #: fill byte for neutralized (out-of-tier) predicate patterns.  Records are

@@ -7,8 +7,8 @@ comparison in ``chip_smoke.py``; no path calls them on a card.
   * ``clause_bitvectors_ref`` — pushdown (``csrc/pushdown.cu``,
     wrapper :mod:`repro_torch.kernels.fused`);
   * ``multi_match_any_ref`` / ``key_value_match_ref`` — the split path's
-    matchers (``csrc/substring_match.cu``, wrapper
-    :mod:`repro_torch.kernels.substring_match`);
+    matchers (``csrc/substring_match.cu`` and ``csrc/key_value.cu``,
+    wrapper :mod:`repro_torch.kernels.substring_match`);
   * ``bitvector_reduce_ref`` — AND/OR/popcount over packed rows
     (``csrc/bitvector_reduce.cu``, wrapper
     :mod:`repro_torch.kernels.bitvector_ops`);

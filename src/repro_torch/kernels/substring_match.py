@@ -1,10 +1,10 @@
 """The split pushdown path's matchers: a pattern set, and one key-value
 predicate, over a dense chunk.
 
-Wrappers of the hand-written CUDA kernels in ``csrc/substring_match.cu``,
-the ports of the TPU kernels ``repro.kernels.substring_match.
-multi_match_any`` (kernel D) and ``key_value_match`` (kernel E).  Each
-keeps its own launch counter.
+Wrappers of the hand-written CUDA kernels ``csrc/substring_match.cu``
+(kernel D) and ``csrc/key_value.cu`` (kernel E), the ports of the TPU
+kernels ``repro.kernels.substring_match.multi_match_any`` and
+``key_value_match``.  Each keeps its own launch counter.
 
 On a CUDA tensor a wrapper launches its kernel (or raises); on a CPU
 tensor it runs the plain version in :mod:`repro_torch.kernels.ref`.
@@ -29,7 +29,7 @@ kv_launches = 0
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
 
-def _lib() -> ctypes.CDLL:
+def _match_lib() -> ctypes.CDLL:
     lib = cuda_build.load("substring_match")
     if not getattr(lib, "_typed", False):
         lib.ciao_multi_match.argtypes = [_I, _P, _I, _I, _P, _I, _P, _I, _P,
@@ -37,6 +37,13 @@ def _lib() -> ctypes.CDLL:
         lib.ciao_multi_match.restype = _I
         lib.ciao_match_smem_bytes.argtypes = [_I, _I]
         lib.ciao_match_smem_bytes.restype = _I
+        lib._typed = True
+    return lib
+
+
+def _kv_lib() -> ctypes.CDLL:
+    lib = cuda_build.load("key_value")
+    if not getattr(lib, "_typed", False):
         lib.ciao_key_value.argtypes = [_I, _P, _I, _I, _P, _I, _P, _I, _I,
                                        _P, _P]
         lib.ciao_key_value.restype = _I
@@ -75,7 +82,7 @@ def multi_match_any(data: torch.Tensor, patterns: torch.Tensor,
     out = torch.empty((P, R), dtype=torch.uint8, device=dev)
     if P == 0 or R == 0:
         return out
-    lib = _lib()
+    lib = _match_lib()
     smem = lib.ciao_match_smem_bytes(P, M)
     if smem > MAX_SMEM:
         raise ValueError(f"{P} patterns of width {M} need {smem} B of shared "
@@ -94,7 +101,8 @@ def key_value_match(data: torch.Tensor, key: torch.Tensor, val: torch.Tensor,
     """uint8[R]: the key-value predicate (``key``, ``val``) per record.
 
     ``key`` and ``val`` are non-empty ``uint8[m]``; ``unbounded`` drops
-    the stop at ``,``/``}`` (a value that holds a delimiter).
+    the stop at ``,``/``}`` (a value that holds a delimiter).  Any stride
+    and any row alignment run in the kernel.
     """
     if key.numel() == 0 or val.numel() == 0:
         raise ValueError("key and value patterns must be non-empty")
@@ -109,7 +117,7 @@ def key_value_match(data: torch.Tensor, key: torch.Tensor, val: torch.Tensor,
     out = torch.empty((R,), dtype=torch.uint8, device=dev)
     if R == 0:
         return out
-    lib = _lib()
+    lib = _kv_lib()
     err = lib.ciao_key_value(
         dev.index, data.data_ptr(), R, L, key.data_ptr(), key.numel(),
         val.data_ptr(), val.numel(), int(bool(unbounded)), out.data_ptr(),

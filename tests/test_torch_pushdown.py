@@ -149,7 +149,7 @@ def test_wrapper_runs_plain_version_on_cpu_tensors():
     plan = compile_plan(tuple(predicate_pool("winlog")[:40]))
     view = tier_view(plan, 20)
     data = torch.from_numpy(encode_chunk(recs).data)
-    tables = ops.plan_tensors(view, ops.FLAT_FIELDS + ops.UNIQUE_FIELDS, "cpu")
+    tables = ops.plan_tensors(view, ops.KERNEL_FIELDS + ops.UNIQUE_FIELDS, "cpu")
     before = fused.launches
     words, or_words, counts = fused.clause_bitvectors_fused(
         data, tables, 50, n_simple=view.n_simple)

@@ -142,7 +142,12 @@ def test_import_walk_covers_every_port_module():
 def test_kernel_sources_are_cuda_for_hopper():
     from repro_torch.kernels import cuda_build
     assert "arch=compute_90a,code=sm_90a" in cuda_build.NVCC_FLAGS
-    assert len(cuda_build.SOURCES) == 5
+    assert len(cuda_build.SOURCES) == 6
+    # kernel E has its own source and library, apart from kernel D's
+    assert cuda_build.SOURCES["key_value"] == "key_value.cu"
+    assert "key_value_kernel" in (cuda_build.CSRC / "key_value.cu").read_text()
+    assert "key_value_kernel" not in (
+        cuda_build.CSRC / "substring_match.cu").read_text()
     for src in cuda_build.SOURCES.values():
         text = (cuda_build.CSRC / src).read_text()
         assert "__global__" in text and "src/repro/kernels/" in text
