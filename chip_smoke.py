@@ -27,6 +27,11 @@ split path, on the same chunks:
                                                   [kernels C, D, E]
       and every ScanResult equals the main path's.
 
+Then a wide scan batch: 200 uniform ycsb queries in ONE
+DeviceScanner("cuda").scan_batch on the main path's 65,536-record prefix
+store (512 term and clause slots, 256 queries; kernel B), checked against
+the host scanner and FullScanBaseline.
+
 Then kernel F (flash attention, csrc/flash_attention.cu) against its plain
 version on the TPU test shapes, the serving shape, unmasked, Sq != Sk and
 ragged S, in f32 (the SIMT route) and bf16 (the tensor-core route, also
@@ -98,8 +103,11 @@ def _records_part(args):
     return generate_records(dataset, n, seed=seed)
 
 
+_T0 = time.perf_counter()
+
+
 def phase(name: str) -> None:
-    print(f"== {name}", flush=True)
+    print(f"== {name} (at {time.perf_counter() - _T0:.1f} s)", flush=True)
 
 
 def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
@@ -120,21 +128,23 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
 
 def kernel_ms(fn, reps: int, name: str) -> float:
     """Device milliseconds per launch of the kernel ``name`` inside ``fn``,
-    from the profiler's CUDA activity (kernel time alone).  Raises when the
-    profiler records no launch of it."""
+    from the profiler's CUDA activity (kernel time alone).  Raises when
+    three traces in a row record no launch of it."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    us = [e.device_time_total / e.count for e in prof.key_averages()
-          if name in e.key and e.count]
-    if not us or us[0] <= 0:
-        raise AssertionError(f"the profiler found no {name} launch")
-    return us[0] / 1e3
+    for _ in range(3):              # a trace now and then comes back empty
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        us = [e.device_time_total / e.count for e in prof.key_averages()
+              if name in e.key and e.count]
+        if us and us[0] > 0:
+            return us[0] / 1e3
+    raise AssertionError(f"the profiler found no {name} launch in three "
+                         "traces")
 
 
 def same_bits(a, b) -> int:
@@ -184,6 +194,33 @@ def straddling_rows(L: int, key: bytes, val: bytes):
     row((L - mv - mk, key + val))
     row((L - mv - mk - 1, key + b" " + val))
     return np.frombuffer(b"".join(rows), np.uint8).reshape(-1, L).copy()
+
+
+def needle_rows(L: int):
+    """37 records of stride L for kernel D: a needle at positions across
+    4-byte words, 128-position blocks and the stride end (cut there), a
+    row that fills the stride, one with zero bytes, a pair ending at L;
+    and a table of width 8: an empty pattern, the needle with and without
+    a zero byte after it, one longer than the width, the pair."""
+    import numpy as np
+    rng = np.random.default_rng(L)
+    data = rng.integers(1, 255, (37, L), dtype=np.uint8)
+    data[0, :] = ord("B")
+    data[1, L - 3:] = 0
+    needle = np.frombuffer(b"needle!", np.uint8)
+    for r, at in enumerate((0, 1, 2, 3, 29, 31, 124, 125, 126, 127, 128,
+                            L - 7, L - 6, L - 4, L - 1), start=2):
+        at = min(at, L - 1)
+        data[r, at:at + len(needle)] = needle[:L - at]
+    data[20, L - 2:] = ord("Z")
+    pats = np.zeros((8, 8), np.uint8)
+    plens = np.zeros((8,), np.int32)
+    for i, p in enumerate((b"", b"needle!", b"needle!\x00", b"needle!xy",
+                           b"ZZ", b"ZZ\x00", b"B" * 8, b"e")):
+        pats[i, :min(len(p), 8)] = np.frombuffer(p[:8], np.uint8)
+        plens[i] = len(p)
+    plens[3] = 12
+    return data, pats, plens
 
 
 def unaligned(a, dev):
@@ -357,10 +394,11 @@ def check_split_kernels(dev) -> int:
     def on_dev(a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
 
-    def check_d(data, patterns) -> None:
+    def check_d(data, patterns, plens=None) -> None:
         nonlocal n
         n += 1
-        pats, plens = encode_patterns(patterns)
+        pats, plens = encode_patterns(patterns) if plens is None else \
+            (patterns, plens)
         args = (data, on_dev(pats), on_dev(plens))
         if same_bits(sm.multi_match_any(*args), ref.multi_match_any_ref(*args)):
             raise AssertionError(f"match kernel != plain version "
@@ -419,6 +457,15 @@ def check_split_kernels(dev) -> int:
                                                  dtype=np.uint8)
     check_d(on_dev(edge), [b"", b"A", b"BB", b"A" * 8, b"A" * 9,
                            bytes(edge[9, 60:66])])
+    # D: needles across 4-byte words, 128-position blocks and the stride
+    # end at strides 100, 257 and 384, aligned and one byte off (the 16-,
+    # 4- and 1-byte staging routes); a table of width M = 7 (staged byte
+    # by byte), an empty pattern and one longer than M; 37 records
+    for L in (100, 257, 384):
+        rows, pats, plens = needle_rows(L)
+        for d in (on_dev(rows), unaligned(rows, dev)):
+            check_d(d, pats, plens)
+            check_d(d, pats[:, :7].copy(), plens)
     # E: unbounded values, delimiters after the key, a value ending at the
     # stride end, records cut by the stride
     kv_recs = [b'{"name":"par,is","age":7}', b'{"k":"a}b","z":1}',
@@ -470,7 +517,7 @@ def check_split_kernels(dev) -> int:
     # a stride too wide for 8 records to fit in shared memory: read in place
     wide = on_dev(encode_chunk([b'{"pad":"' + b"x" * 30000 + b'","age":7}',
                                 b'{"age":8,"a":"xx"}'] * 20).data)
-    if 8 * wide.shape[1] <= sm.MAX_SMEM:
+    if 8 * wide.shape[1] <= sm.MAX_SMEM:     # E stages 8 rows, D 32
         raise AssertionError("the wide chunk would still be staged")
     check_d(wide, [b'"age":7', b"xx", b"", b"zz"])
     for k, v in kv_pairs[4:7]:
@@ -532,21 +579,57 @@ def small_store():
     return store, qs
 
 
-def check_scan(scanner, queries) -> int:
-    """Kernel B against its plain version and the numpy reference."""
+def check_scan(plane, params, numpy: bool = True) -> int:
+    """Kernel B on ``params`` over ``plane`` against its plain version and
+    (with ``numpy``) the numpy reference, whose integer matrix products
+    take minutes at 512 terms over 65,536 rows."""
     from repro_torch.kernels import scan_fused
-    prep = scanner._prepare(queries)
-    plane = scanner.cache.plane
-    got = scan_fused.scan_core_cuda(plane, prep.params)
-    plain = scan_fused.scan_core(plane, prep.params)
-    host = scan_fused.scan_core_numpy(
-        *(a.cpu().numpy() for a in plane), prep.params)
+    got = scan_fused.scan_core_cuda(plane, params)
+    plain = scan_fused.scan_core(plane, params)
     err = max(same_bits(g, p) for g, p in zip(got, plain))
-    err_np = max(abs(g.cpu().numpy().astype("int64") - h).max()
-                 for g, h in zip(got, host))
-    if err or err_np:
+    if numpy:
+        host = scan_fused.scan_core_numpy(
+            *(a.cpu().numpy() for a in plane), params)
+        err = max(err, max(abs(g.cpu().numpy().astype("int64") - h).max()
+                           for g, h in zip(got, host)))
+    if err:
         raise AssertionError("scan kernel != plain version / numpy")
     return err
+
+
+def check_scan_routes(scanner, queries) -> None:
+    """Kernel B on the small store: as the wrapper launches it, with the
+    counters added into global memory directly (the route for counter
+    tables over LOCAL_ACC_BYTES), and split by query under a small
+    shared-memory limit (``MAX_SMEM`` lowered); each bit-identical to the
+    plain version."""
+    from repro_torch.kernels import scan_fused
+    params = scanner._prepare(queries).params
+    plane = scanner.cache.plane
+    check_scan(plane, params)
+    want = scan_fused.scan_core(plane, params)
+    limit, saved = 6_000, (scan_fused.LOCAL_ACC_BYTES, scan_fused.MAX_SMEM)
+    try:
+        scan_fused.LOCAL_ACC_BYTES = 0
+        table = scan_fused.scan_table(params)
+        if scan_fused.scan_layout(table, params.pushed_tbl.shape[1]).local_acc:
+            raise AssertionError("the counters would stay in shared memory")
+        got = scan_fused.scan_core_cuda(plane, params)
+        scan_fused.LOCAL_ACC_BYTES, scan_fused.MAX_SMEM = saved[0], limit
+        groups = scan_fused.query_groups(params)
+        before = scan_fused.launches
+        split = scan_fused.scan_core_cuda(plane, params)
+        n_split = scan_fused.launches - before
+    finally:
+        scan_fused.LOCAL_ACC_BYTES, scan_fused.MAX_SMEM = saved
+    for name, g in (("global counters", got), ("split by query", split)):
+        if max(same_bits(a, b) for a, b in zip(g, want)):
+            raise AssertionError(f"scan kernel ({name}) != plain version")
+    if len(groups) < 2 or n_split < 2:
+        raise AssertionError(f"the batch was not split: {len(groups)} groups")
+    print(f"  {len(queries)} queries: bit-identical (shared-memory counters, "
+          f"global counters, and split by query into {len(groups)} groups, "
+          f"{n_split} launches, under a {limit} B limit)")
 
 
 def main_path(n_records: int, dev):
@@ -668,7 +751,7 @@ def main_path(n_records: int, dev):
     return {"chunks": chunks, "plan": report.plan, "engine": engine,
             "scanner": scanner, "batches": batches, "launches": launches,
             "store": store, "bvs": bvs, "queries": queries,
-            "results": steady}
+            "results": steady, "prefix": (prefix, pscan, base)}
 
 
 def _zero_counters() -> None:
@@ -848,6 +931,39 @@ def split_kernel_rows(run, split, dev) -> list[dict]:
             "ms_from": "profiler", "wrapper_call_ms": cuda_ms(kern, 50),
             "shape": shape,
         })
+    # kernel D: two more timing calls at phase (b)'s shape (its time has
+    # read 0.0032 and 0.0065 ms in two runs of one build), and every simple
+    # pattern of each dataset's pool on an 8,192-record chunk (no launch
+    # counted)
+    from repro_torch.core.client import encode_chunk
+    from repro_torch.data.datasets import generate_records, predicate_pool
+    d_row = next(r for r in rows if r["name"] == "multi_match_any")
+    d_row["ms_calls"] = [d_row["ms"]] + [
+        kernel_ms(lambda: sm.multi_match_any(*d_args), 50,
+                  "multi_match_kernel") for _ in range(2)]
+    whole = {}
+    for ds in ("ycsb", "yelp", "winlog"):
+        d = data if ds == "ycsb" else torch.from_numpy(encode_chunk(
+            generate_records(ds, CHUNK, seed=SEED)).data).to(dev)
+        pool = list(dict.fromkeys(
+            t.patterns()[0] for c in predicate_pool(ds) for t in c.terms
+            if t.kind is not Kind.KEY_VALUE))
+        pp, pl = encode_patterns(pool)
+        args = (d, torch.from_numpy(pp).to(dev), torch.from_numpy(pl).to(dev))
+        ms = kernel_ms(lambda: sm.multi_match_any(*args), 10,
+                       "multi_match_kernel")
+        Rp, Lp = d.shape
+        nbytes = Rp * Lp + pp.nbytes + pl.nbytes + len(pool) * Rp
+        whole[ds] = {"ms": ms, "R": Rp, "L": Lp, "P": len(pool),
+                     "M": pp.shape[1],
+                     "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+                     "bound_by": "bytes"}
+        print(f"  match, the whole {ds} pool at R={Rp} L={Lp} (P={len(pool)}"
+              f", M={pp.shape[1]}): {ms:.4f} ms (bound "
+              f"{whole[ds]['bound_ms']:.5f} ms)")
+    d_row["ms_whole_pool"] = whole
+    print(f"  match at phase (b)'s shape, three profiler calls: "
+          f"{[round(x, 5) for x in d_row['ms_calls']]} ms")
     return rows
 
 
@@ -1134,11 +1250,10 @@ def flash_row(serve) -> dict:
     }
 
 
-def kernel_table(run, dev) -> list[dict]:
+def kernel_table(run, scan, dev) -> list[dict]:
     """Time each kernel at the main path's shapes beside its plain version."""
-    import numpy as np
     import torch
-    from repro_torch.kernels import fused, ops, ref, scan_fused
+    from repro_torch.kernels import fused, ops, ref
     from repro_torch.kernels import plan as kplan
     from repro_torch.kernels.plan import compile_plan
 
@@ -1227,17 +1342,50 @@ def kernel_table(run, dev) -> list[dict]:
         "ms_rows_staged_no_search": ms_staged,
     })
 
-    # kernel B: the plane and the first batch's parameter tables
-    scanner = run["scanner"]
-    prep = scanner._prepare(run["batches"][0])
+    # kernel B: timed in the wide-batch phase, at both shapes
+    b_main, b_wide = scan["main"], scan["wide"]
+    b_wide["launches"] = scan["launches"]
+    rows.append({
+        "name": "scan (scan_core_cuda)", "route": "cuda",
+        "source": "src/repro_torch/csrc/scan.cu",
+        "replaces": "src/repro/kernels/scan_fused.py:373",
+        "launches": run["launches"]["scan"], **b_main,
+        "bound_by": "bytes", "library_ms": None, "ms_from": "profiler",
+        "wide": b_wide,
+    })
+    return rows
+
+
+def host_ms(fn, reps: int) -> float:
+    """Mean host milliseconds per call of ``fn`` (no device work)."""
+    fn()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    return (time.perf_counter() - t0) / reps * 1e3
+
+
+def scan_timing(scanner, prep, dev, numpy: bool = True) -> dict:
+    """Kernel B on one prepared batch's tables over the scanner's plane:
+    checked against its plain version (and numpy), then timed beside it.
+    ``wrapper_call_ms`` is the call ``DeviceScanner`` makes (the batch's
+    ``scan_table`` built once, in ``_prepare``); ``table_ms`` is that
+    table's host time, and ``wrapper_building_table_ms`` the wrapper call
+    that builds it itself."""
+    import numpy as np
+    from repro_torch.kernels import scan_fused
+    params, table = prep.params, prep.table
     plane = scanner.cache.plane
-    params = prep.params
-    err = check_scan(scanner, run["batches"][0])
-    staged = scan_fused.stage_params(params, dev)
+    err = check_scan(plane, params, numpy)
+    staged = scan_fused.stage_params(params, dev, table)
     ms = kernel_ms(lambda: scan_fused.launch_scan(plane, staged), 50,
                    "scan_kernel")
-    call_ms = cuda_ms(lambda: scan_fused.scan_core_cuda(plane, params), 50)
-    plain_ms = cuda_ms(lambda: scan_fused.scan_core(plane, params), 5)
+    call_ms = cuda_ms(lambda: scan_fused.scan_core_cuda(plane, params, table),
+                      20)
+    call_table_ms = cuda_ms(
+        lambda: scan_fused.scan_core_cuda(plane, params), 20)
+    table_ms = host_ms(lambda: scan_fused.scan_table(params), 20)
+    plain_ms = cuda_ms(lambda: scan_fused.scan_core(plane, params), 3)
     n = scanner.cache._n_used
     need = {scan_fused.KIND_PRESENCE: (("notn", 1),),
             scan_fused.KIND_EXACT: (("scod", 4),),
@@ -1249,20 +1397,104 @@ def kernel_table(run, dev) -> list[dict]:
     Q, S1 = params.pushed_tbl.shape
     nbytes = (sum(size for _, (_, size) in cells) * n + 8 * n
               + sum(np.asarray(a).nbytes for a in params) + 2 * Q * S1 * 4)
-    rows.append({
-        "name": "scan (scan_core_cuda)", "route": "cuda",
-        "source": "src/repro_torch/csrc/scan.cu",
-        "replaces": "src/repro/kernels/scan_fused.py:373",
-        "launches": run["launches"]["scan"], "max_abs_err": err,
-        "ms": ms, "plain_ms": plain_ms,
-        "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
-        "library_ms": None,
-        "ms_from": "profiler", "wrapper_call_ms": call_ms,
+    return {
+        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+        "wrapper_call_ms": call_ms, "table_ms": table_ms,
+        "wrapper_building_table_ms": call_table_ms,
+        "smem_bytes": staged.layout.smem,
         "shape": (f"N={n} of {plane.pres.shape[1]} K={plane.pres.shape[0]} "
                   f"T={params.kinds.shape[0]} C={params.membership.shape[0]} "
-                  f"Q={Q} S1={S1}"),
-    })
-    return rows
+                  f"Q={Q} S1={S1} (live terms "
+                  f"{int(np.sum(params.kinds >= 0))})"),
+    }
+
+
+def unpromoted(scanner, queries):
+    """``scanner._prepare`` of ``queries`` with no raw promotion: the
+    tables of the whole batch over the plane as it stands (kernel B's
+    inputs at that shape; the rows still raw are in no table)."""
+    store = scanner.store
+    return scanner._prepare(
+        queries, pushed_maps=[store.pushed_by_epoch(q) for q in queries],
+        promoted=[{} for _ in queries],
+        jit_vis=[len(store.jit_blocks)] * len(queries))
+
+
+def wide_batch(run, dev) -> dict:
+    """Kernel B timed at the main path's batch shape; then 200 uniform
+    ycsb queries in ONE DeviceScanner.scan_batch (term and clause buckets
+    512, 256 queries: the kernel before this one refused them) on the main
+    path's 65,536-record prefix store, every ScanResult checked against
+    the host scanner and every count against FullScanBaseline.  The
+    uniform queries read clauses the plan did not push, so the batch first
+    promotes the store's raw rows, as the host scanner would (on the
+    1,048,576-record store that host work alone takes minutes).  B is
+    checked and timed at the wide tables on both planes: the main store's
+    (its resident rows, no promotion) and the prefix store's."""
+    import numpy as np
+    import torch
+    from repro_torch.core.server import DataSkippingScanner
+    from repro_torch.core.workload import generate_workload
+    from repro_torch.data.datasets import predicate_pool
+    from repro_torch.kernels import scan_fused
+
+    main_scanner = run["scanner"]
+    main = scan_timing(main_scanner, main_scanner._prepare(run["batches"][0]),
+                       dev)
+    store, scanner, base = run["prefix"]
+    wide = list(generate_workload(predicate_pool("ycsb"), n_queries=200,
+                                  distribution="uniform",
+                                  rng=np.random.default_rng(0)).queries)
+    # ---- the wide batch: counters at 0 just before, read just after ----
+    torch.cuda.synchronize()
+    _zero_counters()
+    t0 = time.perf_counter()
+    first = scanner.scan_batch(wide)
+    t_first = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    steady = scanner.scan_batch(wide)
+    t_steady = time.perf_counter() - t0
+    launches = scan_fused.launches
+    # -----------------------------------------------------------------------
+    prep = scanner._prepare(wide)
+    params = prep.params
+    print(f"  200 uniform queries in one scan_batch on the "
+          f"{store.stats.n_records}-record prefix store "
+          f"(T={params.kinds.shape[0]}"
+          f" C={params.membership.shape[0]} Q={params.pushed_tbl.shape[0]}): "
+          f"first {t_first:.3f} s (raw promotion included), steady "
+          f"{t_steady * 1e3:.3f} ms; {launches} scan launches; plane "
+          f"{scanner.cache.n_slots} segments, {scanner.cache._n_used} rows")
+    if launches < 1:
+        raise AssertionError("the wide batch did not launch the scan kernel")
+    host = DataSkippingScanner(store, log_queries=False)
+    t0 = time.perf_counter()
+    for q, a, b in zip(wide, first, steady):
+        h = host.scan(q)
+        if accounting(b) != accounting(h) or a.count != h.count:
+            raise AssertionError(f"wide batch: device != host scanner: "
+                                 f"{q.describe()}")
+        if b.count != base.scan(q).count:
+            raise AssertionError(f"wide batch: device != FullScanBaseline: "
+                                 f"{q.describe()}")
+    print(f"  {len(wide)} ScanResults identical to the host "
+          "DataSkippingScanner (full accounting) and their counts to "
+          f"FullScanBaseline (checked in {time.perf_counter() - t0:.1f} s)")
+    prefix = scan_timing(scanner, prep, dev, numpy=False)
+    out = scan_timing(main_scanner, unpromoted(main_scanner, wide), dev,
+                      numpy=False)
+    for name, r in (("main batch", main), ("wide batch, main plane", out),
+                    ("wide batch, prefix plane", prefix)):
+        print(f"  scan kernel, {name} ({r['shape']}): {r['ms']:.4f} ms; "
+              f"wrapper {r['wrapper_call_ms']:.4f} ms (its table, built "
+              f"once per batch: {r['table_ms']:.4f} ms; the wrapper "
+              f"building it: {r['wrapper_building_table_ms']:.4f} ms); "
+              f"plain {r['plain_ms']:.3f} ms; bound {r['bound_ms']:.5f} ms; "
+              f"{r['smem_bytes']} B of shared memory per block")
+    return {"main": main, "wide": dict(out, prefix_plane=prefix),
+            "launches": launches, "ms_first": t_first * 1e3,
+            "ms_steady": t_steady * 1e3}
 
 
 def main(argv=None) -> int:
@@ -1290,14 +1522,16 @@ def main(argv=None) -> int:
     phase("kernel B: scan vs plain version and numpy (small store)")
     from repro_torch.core.device_scan import DeviceScanner
     store, qs = small_store()
-    check_scan(DeviceScanner(store, backend="cuda", log_queries=False), qs)
-    print(f"  {len(qs)} queries: bit-identical")
+    check_scan_routes(DeviceScanner(store, backend="cuda", log_queries=False),
+                      qs)
     phase(f"main path: {args.records} records")
     run = main_path(args.records, dev)
     phase("kernels C/D/E: reduce, match, key-value vs plain versions")
     check_split_kernels(dev)
     phase("split path: (a) split vs fused, (b) split ingest + hooked scan")
     split = split_path(run, dev)
+    phase("wide scan batch: 200 uniform queries in one DeviceScanner batch")
+    scan = wide_batch(run, dev)
     phase("kernel F: flash attention vs plain version")
     check_flash(dev)
     phase(f"serve path: {' '.join(SERVE_ARGS)}")
@@ -1307,7 +1541,7 @@ def main(argv=None) -> int:
     phase("exactness at full width: forward vs prefill + decode (f32)")
     exactness_f32(dev)
     phase("kernels at main-path shapes")
-    rows = (kernel_table(run, dev) + split_kernel_rows(run, split, dev)
+    rows = (kernel_table(run, scan, dev) + split_kernel_rows(run, split, dev)
             + [flash_row(serve)])
     for r in rows:
         lib = "" if r["library_ms"] is None else \

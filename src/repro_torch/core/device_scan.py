@@ -48,6 +48,7 @@ from repro_torch.core.server import CiaoStore, DataSkippingScanner, ScanResult
 from repro_torch.kernels.ops import resolve_device
 from repro_torch.kernels.scan_fused import (
     ScanBatch, ScanParams, compile_scan_batch, scan_core_numpy, scan_counts,
+    scan_table,
 )
 
 
@@ -65,6 +66,7 @@ class _Prepared:
     active: np.ndarray        # uint8[Q, S]
     pruned: np.ndarray        # bool[Q, S] zone map refuted a clause
     params: ScanParams | None  # None when no device launch is needed
+    table: np.ndarray | None   # the kernel's scan_table of ``params``
 
 
 class DeviceScanner:
@@ -222,17 +224,19 @@ class DeviceScanner:
                     pruned[qi, si] = True
                     continue
                 active[qi, si] = 1
-        params = None
+        params = table = None
         if S and active.any():
             params = self.cache.build_params(
                 batch, pushed_bits=pushed_bits, active=active)
+            if self.backend != "numpy":
+                table = scan_table(params)
             self.cache.touch(
                 [si for si in range(S) if active[:, si].any()])
         return _Prepared(
             queries=queries, batch=batch, pushed_maps=pushed_maps,
             promoted=promoted, jit_vis=jit_vis, slots=slots,
             pushed_bits=pushed_bits, active=active, pruned=pruned,
-            params=params,
+            params=params, table=table,
         )
 
     def _launch(self, prep: _Prepared):
@@ -245,7 +249,8 @@ class DeviceScanner:
                 self._np_plane = tuple(a.cpu().numpy() for a in plane)
                 self._np_plane_src = plane.pres
             return scan_core_numpy(*self._np_plane, prep.params)
-        return scan_counts(plane, prep.params, backend=self.backend)
+        return scan_counts(plane, prep.params, backend=self.backend,
+                           table=prep.table)
 
     def _assemble(self, prep: _Prepared, counts, cands) -> list[ScanResult]:
         store = self.store

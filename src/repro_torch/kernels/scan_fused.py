@@ -19,7 +19,8 @@ A batch of queries compiles once (:func:`compile_scan_batch`) into
 per-scan parameter tables resolved on the host from the segment
 dictionaries (codes, substring LUTs, pushed-bit masks, zone-prune
 verdicts): O(terms x slots), never O(rows).  One launch then evaluates
-the whole batch: zone-prune mask -> pushed bitvector AND -> lowered
+the whole batch (several, grouped by query, only when its tables exceed a
+block's shared memory): zone-prune mask -> pushed bitvector AND -> lowered
 residual on dictionary codes -> per-(query, slot) popcount, bit-identical
 to ``core.columnar.query_mask`` because every ``eval_lowered`` branch has
 an exact integer form (see the JAX package's module for the derivation).
@@ -42,12 +43,12 @@ from typing import NamedTuple, Sequence
 import numpy as np
 import torch
 
-from repro_torch.core import bitvector
 from repro_torch.core.predicates import (
     Clause, Kind, Query, SimplePredicate, lowerable,
 )
 
 from . import cuda_build
+from .fused import MAX_SMEM
 from .plan import compile_query_batch
 
 KIND_PRESENCE = 0
@@ -222,7 +223,8 @@ def scan_core(plane: DevicePlaneArrays, params: ScanParams
                     torch.where(k == KIND_SUBSTRING, m_sub,
                                 (k == KIND_KV) & m_kv)))
     mem = p["membership"].bool()
-    cm = torch.stack([term[mem[c]].any(dim=0) for c in range(mem.shape[0])])
+    cm = torch.stack([term[mem[c]].any(dim=0) for c in range(mem.shape[0])]) \
+        if mem.shape[0] else term.new_zeros((0, term.shape[1]))
     qc = p["query_clause"].bool()
     qm = torch.stack([cm[qc[q]].all(dim=0) for q in range(qc.shape[0])])
     ptab = p["pushed_tbl"].view(torch.int32)[:, sid]
@@ -245,8 +247,30 @@ def scan_core(plane: DevicePlaneArrays, params: ScanParams
 
 #: launches of the CUDA kernel in this process (the main-path proof)
 launches = 0
-#: resident blocks per SM of the grid-stride launch
-_BLOCKS_PER_SM = 8
+#: blocks per SM of the launch (each takes a contiguous run of tiles)
+_BLOCKS_PER_SM = 4
+#: warps per block of a launch (each takes one tile of 32 rows at a time)
+KERNEL_WARPS = 8
+#: the per-block [2][Q][S1] counters stay in shared memory up to this size;
+#: above it the kernel adds into the global counts directly
+LOCAL_ACC_BYTES = 64 << 10
+
+#: plane fields a key group reads (``csrc/scan.cu``)
+FIELD_PRES, FIELD_NOTN, FIELD_ISB, FIELD_NUMV, FIELD_SCOD, FIELD_RCOD = (
+    1, 2, 4, 8, 16, 32)
+_KIND_FIELDS = np.array([
+    FIELD_NOTN,                                               # presence
+    FIELD_SCOD,                                               # exact
+    FIELD_SCOD,                                               # substring
+    FIELD_PRES | FIELD_NOTN | FIELD_ISB | FIELD_NUMV | FIELD_RCOD,  # kv
+], np.uint32)
+
+#: header words of :func:`scan_table` (``csrc/scan.cu``)
+(TABLE_N_LIVE, TABLE_N_GROUPS, TABLE_N_CLAUSES, TABLE_N_QUERIES,
+ TABLE_OFF_TERM, TABLE_OFF_GROUP, TABLE_OFF_CBEG, TABLE_OFF_CTERM,
+ TABLE_OFF_QBEG, TABLE_OFF_QCLAUSE, TABLE_PUSHED_MASK,
+ TABLE_SKIP_PADDING) = range(12)
+_TABLE_HEADER = 12
 
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 
@@ -255,12 +279,9 @@ def _lib() -> ctypes.CDLL:
     lib = cuda_build.load("scan")
     if not getattr(lib, "_typed", False):
         lib.ciao_scan.argtypes = (
-            [_I] + [_P] * 8 + [_LL] + [_P] * 6 + [_I] + [_P] * 6 + [_I] * 5
-            + [_P, _P, _P])
+            [_I] + [_P] * 8 + [_LL] + [_P] * 4 + [_I] + [_P] * 2 + [_I, _P]
+            + [_I] * 6 + [_P] * 3)
         lib.ciao_scan.restype = _I
-        lib.ciao_scan_max_words.restype = _I
-        lib.ciao_scan_smem_bytes.argtypes = [_I, _I, _I]
-        lib.ciao_scan_smem_bytes.restype = _I
         lib._typed = True
     return lib
 
@@ -276,30 +297,178 @@ def _check_plane(plane: DevicePlaneArrays) -> None:
                                 shape, plane.sid.device)
 
 
+def scan_table(params: ScanParams) -> np.ndarray:
+    """The batch's structure as the kernel reads it: one ``uint32`` table.
+
+    Header (``TABLE_*``), then sections starting on 16-byte boundaries:
+
+      * term records, one per live term (kinds 0-3; bucket padding and
+        kinds without a device code are inert and left out), sorted by
+        plane key, then kind: bits 0-15 the term's row of the (term, slot)
+        tables, 16-18 its kind, 19 value is null, 20 value is a bool;
+      * key groups of 8 words, ``(key, fields, first, exact, substring,
+        key_value, end, 0)``: the key's records are ``[first, end)``, its
+        presence terms start at ``first``, then each named kind's run, so
+        a row's plane cells of one key are read once for all its terms
+        and each kind runs its own loop;
+      * the clause -> term list (CSR over term record positions) for the
+        clauses the queries read, and the query -> clause list for the
+        queries up to the last one with an active slot (later ones add
+        nothing);
+      * the OR of every pushed word (the bits the kernel transposes), and
+        whether no query is active on the padding slot S1-1 (then tiles of
+        padding rows alone are skipped).
+    """
+    kinds = params.kinds.astype(np.int64)
+    live = np.flatnonzero((kinds >= KIND_PRESENCE) & (kinds <= KIND_KV))
+    # (key, kind) as one sortable number: kinds take the low 2 bits
+    key_kind = params.key_ids[live].astype(np.int64) << 2 | kinds[live]
+    sort = np.argsort(key_kind, kind="stable")
+    order, key_kind = live[sort], key_kind[sort]
+    n_live = order.size
+    recs = (order | (key_kind & 3) << 16
+            | (params.is_null[order] > 0).astype(np.int64) << 19
+            | (params.is_boolv[order] > 0).astype(np.int64) << 20)
+    keys = key_kind >> 2
+    groups = np.zeros((0, 8), np.int64)
+    if n_live:
+        first = np.flatnonzero(np.r_[True, keys[1:] != keys[:-1]])
+        end = np.r_[first[1:], n_live]
+        fields = np.bitwise_or.reduceat(_KIND_FIELDS[key_kind & 3], first)
+        # where each kind's run starts inside its key group
+        runs = np.searchsorted(key_kind, keys[first][:, None] << 2 | np.array(
+            [KIND_EXACT, KIND_SUBSTRING, KIND_KV]))
+        groups = np.column_stack(
+            [keys[first], fields.astype(np.int64), first, runs, end,
+             np.zeros(len(first), np.int64)])
+
+    queries = np.flatnonzero((params.active > 0).any(axis=1))
+    Q = int(queries[-1]) + 1 if queries.size else 0
+    qc = params.query_clause[:Q] > 0
+    used = np.flatnonzero(qc.any(axis=0))
+    C = int(used[-1]) + 1 if used.size else 0
+    # membership's columns in term record order: its nonzeros are the
+    # clause -> term list, each clause's terms in record order
+    c_rows, c_terms = np.divmod(
+        np.flatnonzero(params.membership[:C][:, order] > 0), max(n_live, 1))
+    cbeg = np.searchsorted(c_rows, np.arange(C + 1))
+    q_rows, q_clauses = np.divmod(np.flatnonzero(qc[:, :C]), max(C, 1))
+    qbeg = np.searchsorted(q_rows, np.arange(Q + 1))
+    pmask = int(np.bitwise_or.reduce(params.pushed_tbl[:Q].reshape(-1))) \
+        if Q else 0
+
+    sections = [recs, groups.reshape(-1), cbeg, c_terms, qbeg, q_clauses]
+    offsets, at = [], _TABLE_HEADER
+    for sec in sections:
+        offsets.append(at)
+        at += -(-sec.size // 4) * 4
+    table = np.zeros((at,), np.uint32)
+    skip = int(not (params.active[:, -1] > 0).any())
+    table[:_TABLE_HEADER] = [n_live, len(groups), C, Q, *offsets, pmask, skip]
+    for off, sec in zip(offsets, sections):
+        table[off:off + sec.size] = sec
+    return table
+
+
+class ScanLayout(NamedTuple):
+    """One launch's shared memory, as the kernel carves it."""
+
+    smem: int           # bytes per block
+    warp_words: int     # words of each warp's slice
+    local_acc: bool     # [2][Q][S1] counters in shared memory
+
+
+def _up4(n: int) -> int:
+    return -(-n // 4) * 4
+
+
+def scan_layout(table: np.ndarray, S1: int) -> ScanLayout:
+    """Shared memory of a launch over ``table`` (:func:`scan_table`): the
+    table, the block's counters when they fit ``LOCAL_ACC_BYTES``, and per
+    warp one slot's parameters (4 words a term, 2 a query), then the term,
+    clause and pushed-bit words of a tile."""
+    n_live, C, Q = (int(table[i]) for i in (
+        TABLE_N_LIVE, TABLE_N_CLAUSES, TABLE_N_QUERIES))
+    warp_words = _up4(4 * n_live + 2 * (Q + Q % 2) + n_live + C + 32)
+    acc = 4 * _up4(2 * Q * S1)
+    local = acc <= LOCAL_ACC_BYTES
+    smem = table.nbytes + (acc if local else 0) \
+        + KERNEL_WARPS * warp_words * 4
+    return ScanLayout(smem=smem, warp_words=warp_words, local_acc=local)
+
+
+def sub_params(params: ScanParams, queries: np.ndarray) -> ScanParams:
+    """The tables of ``queries`` alone: their clauses and those clauses'
+    terms, every slot; the same counts for those rows as the whole batch."""
+    qc = params.query_clause[queries]
+    clauses = np.flatnonzero((qc > 0).any(axis=0))
+    terms = np.flatnonzero((params.membership[clauses] > 0).any(axis=0))
+    return ScanParams(
+        key_ids=params.key_ids[terms], kinds=params.kinds[terms],
+        code_a=params.code_a[terms], num_codes=params.num_codes[terms],
+        lut_off=params.lut_off[terms], lut_flat=params.lut_flat,
+        is_null=params.is_null[terms], is_boolv=params.is_boolv[terms],
+        membership=params.membership[np.ix_(clauses, terms)],
+        query_clause=qc[:, clauses], pushed_tbl=params.pushed_tbl[queries],
+        active=params.active[queries])
+
+
+def query_groups(params: ScanParams, table: np.ndarray | None = None
+                 ) -> list[tuple[np.ndarray, ScanParams, np.ndarray]]:
+    """``(queries, their tables, their scan_table)`` per launch.
+
+    The whole batch when its launch fits ``MAX_SMEM`` bytes of shared
+    memory; else contiguous query groups, halved until each fits.  The
+    groups cover every query once.  Raises if one query alone does not fit.
+    ``table`` is the batch's :func:`scan_table`, built here when not given.
+    """
+    Q, S1 = params.pushed_tbl.shape
+    table = scan_table(params) if table is None else table
+    if scan_layout(table, S1).smem <= MAX_SMEM:
+        return [(np.arange(Q), params, table)]
+    k = 2
+    while True:
+        groups = []
+        for idx in np.array_split(np.arange(Q), min(k, Q)):
+            sub = sub_params(params, idx)
+            t = scan_table(sub)
+            if scan_layout(t, S1).smem > MAX_SMEM:
+                if idx.size == 1:
+                    raise ValueError(
+                        f"query {int(idx[0])} alone needs "
+                        f"{scan_layout(t, S1).smem} B of shared memory per "
+                        f"block (limit {MAX_SMEM})")
+                break
+            groups.append((idx, sub, t))
+        else:
+            return groups
+        k *= 2
+
+
 class StagedParams(NamedTuple):
     """One launch's parameter tables in a single device buffer."""
 
     buf: torch.Tensor               # uint8, every table 16-byte aligned
     offsets: dict                   # table name -> byte offset in ``buf``
-    dims: tuple                     # (T, C, Q, S1, lut length)
+    dims: tuple                     # (Q, S1, lut length)
+    layout: ScanLayout
+    table_vec: int                  # 16-byte units of the scan table
 
 
-#: the tables the kernel reads, in buffer order; membership and
-#: query_clause travel as little-endian bit masks over their rows
-_STAGED = ("key_ids", "kinds", "code_a", "num_codes", "lut_off", "lut_flat",
-           "is_null", "is_boolv", "membership", "query_clause", "pushed_tbl",
-           "active")
+#: the tables the kernel reads, in buffer order
+_STAGED = ("code_a", "num_codes", "lut_off", "lut_flat", "pushed_tbl",
+           "active", "table")
 
 
-def pack_params(params: ScanParams) -> tuple[np.ndarray, dict]:
+def pack_params(params: ScanParams, table: np.ndarray | None = None
+                ) -> tuple[np.ndarray, dict]:
     """All tables the kernel reads in one uint8 buffer, 16-byte aligned.
 
-    Returns ``(buffer, offsets)``; membership and query_clause are packed
-    into little-endian uint32 bit masks over their rows first.
+    Returns ``(buffer, offsets)``; ``table`` is :func:`scan_table`, built
+    here when not given.
     """
-    tables = params._replace(
-        membership=bitvector.pack(params.membership > 0),
-        query_clause=bitvector.pack(params.query_clause > 0))._asdict()
+    tables = params._asdict()
+    tables["table"] = scan_table(params) if table is None else table
     offsets, at = {}, 0
     for name in _STAGED:
         offsets[name] = at
@@ -311,24 +480,24 @@ def pack_params(params: ScanParams) -> tuple[np.ndarray, dict]:
     return host, offsets
 
 
-def stage_params(params: ScanParams, device) -> StagedParams:
-    """Pack one launch's tables into one buffer: ONE host->device copy."""
-    T = params.kinds.shape[0]
-    C, Q = params.membership.shape[0], params.query_clause.shape[0]
-    S1 = params.pushed_tbl.shape[1]
-    lib = _lib()
-    limit = 32 * lib.ciao_scan_max_words()
-    if T > limit or C > limit:
-        raise ValueError(f"scan batch has {T} term and {C} clause slots; "
-                         f"the kernel holds at most {limit} of each")
-    smem = lib.ciao_scan_smem_bytes(T, C, Q)
-    if smem > 232_448:
-        raise ValueError(f"scan batch of {Q} queries needs {smem} B of "
-                         "shared memory per block (limit 232448)")
-    host, offsets = pack_params(params)
+def stage_params(params: ScanParams, device,
+                 table: np.ndarray | None = None) -> StagedParams:
+    """Pack one launch's tables into one buffer: ONE host->device copy.
+
+    Raises if the launch needs more shared memory than a block may use
+    (:func:`query_groups` splits such a batch first).
+    """
+    table = scan_table(params) if table is None else table
+    Q, S1 = params.pushed_tbl.shape
+    layout = scan_layout(table, S1)
+    if layout.smem > MAX_SMEM:
+        raise ValueError(f"scan launch needs {layout.smem} B of shared "
+                         f"memory per block (limit {MAX_SMEM})")
+    host, offsets = pack_params(params, table)
     return StagedParams(buf=torch.from_numpy(host).to(device),
                         offsets=offsets,
-                        dims=(T, C, Q, S1, params.lut_flat.shape[0]))
+                        dims=(Q, S1, params.lut_flat.shape[0]),
+                        layout=layout, table_vec=table.size // 4)
 
 
 def launch_scan(plane: DevicePlaneArrays, staged: StagedParams
@@ -340,18 +509,19 @@ def launch_scan(plane: DevicePlaneArrays, staged: StagedParams
         raise ValueError(f"plane and tables must be on one CUDA device, "
                          f"not {dev} and {staged.buf.device}")
     _check_plane(plane)
-    T, C, Q, S1, L = staged.dims
+    Q, S1, L = staged.dims
     out = torch.zeros((2, Q, S1), dtype=torch.int32, device=dev)
     base = staged.buf.data_ptr()
     ptr = {name: base + off for name, off in staged.offsets.items()}
     n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    lay = staged.layout
     lib = _lib()
     err = lib.ciao_scan(
         dev.index, *(t.data_ptr() for t in plane), plane.sid.shape[0],
-        ptr["key_ids"], ptr["kinds"], ptr["code_a"], ptr["num_codes"],
-        ptr["lut_off"], ptr["lut_flat"], L, ptr["is_null"], ptr["is_boolv"],
-        ptr["membership"], ptr["query_clause"], ptr["pushed_tbl"],
-        ptr["active"], T, C, Q, S1, n_sm * _BLOCKS_PER_SM,
+        ptr["code_a"], ptr["num_codes"], ptr["lut_off"], ptr["lut_flat"], L,
+        ptr["pushed_tbl"], ptr["active"], S1, ptr["table"], staged.table_vec,
+        lay.warp_words, int(lay.local_acc), lay.smem, KERNEL_WARPS,
+        n_sm * _BLOCKS_PER_SM,
         out[0].data_ptr(), out[1].data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream)
     cuda_build.check_launch(lib, err, "scan")
@@ -359,20 +529,47 @@ def launch_scan(plane: DevicePlaneArrays, staged: StagedParams
     return out[0], out[1]
 
 
-def scan_core_cuda(plane: DevicePlaneArrays, params: ScanParams
-                   ) -> tuple[torch.Tensor, torch.Tensor]:
-    """``(counts, cands)`` int32[Q, S1] from one launch of ``csrc/scan.cu``.
+def _by_query_groups(run, params: ScanParams, device,
+                     table: np.ndarray | None) -> tuple[torch.Tensor,
+                                                        torch.Tensor]:
+    """``run(params, table)`` once per :func:`query_groups` group, the
+    rows gathered into one ``(counts, cands)`` pair."""
+    groups = query_groups(params, table)
+    if len(groups) == 1:
+        return run(params, groups[0][2])
+    Q, S1 = params.pushed_tbl.shape
+    out = torch.zeros((2, Q, S1), dtype=torch.int32, device=device)
+    for idx, sub, table in groups:
+        if not table[TABLE_N_QUERIES]:
+            continue                # no active slot: its rows stay 0
+        counts, cands = run(sub, table)
+        rows = torch.from_numpy(idx).to(device)
+        out[0, rows] = counts
+        out[1, rows] = cands
+    return out[0], out[1]
 
-    On a plane held on the CPU this runs the plain version
-    (:func:`scan_core`) instead.  Raises on term/clause buckets wider than
-    the kernel's register and shared-memory tables.
+
+def scan_core_cuda(plane: DevicePlaneArrays, params: ScanParams,
+                   table: np.ndarray | None = None
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(counts, cands)`` int32[Q, S1] from ``csrc/scan.cu``.
+
+    One launch per :func:`query_groups` group: one for a batch whose
+    tables fit a block's shared memory (200 uniform queries over the ycsb
+    pool take about 100 KB), several, by query, otherwise.  ``table`` is
+    the batch's :func:`scan_table` when the caller built it already.  On a
+    plane held on the CPU each group runs the plain version
+    (:func:`scan_core`) instead.
     """
     dev = plane.sid.device
     if dev.type == "cpu":
-        return scan_core(plane, params)
+        return _by_query_groups(lambda p, _t: scan_core(plane, p), params,
+                                dev, table)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
-    return launch_scan(plane, stage_params(params, dev))
+    return _by_query_groups(
+        lambda p, t: launch_scan(plane, stage_params(p, dev, t)), params,
+        dev, table)
 
 
 # ---------------------------------------------------------------------------
@@ -434,12 +631,15 @@ def scan_core_numpy(pres, notn, isb, numv, scod, rcod, sid, cw,
 
 
 def scan_counts(plane: DevicePlaneArrays, params: ScanParams, *,
-                backend: str = "cuda") -> tuple[np.ndarray, np.ndarray]:
-    """One fused launch over the plane; ``(counts, cands)`` as int32[Q, S1].
+                backend: str = "cuda", table: np.ndarray | None = None
+                ) -> tuple[np.ndarray, np.ndarray]:
+    """The fused scan over the plane; ``(counts, cands)`` as int32[Q, S1].
 
     ``backend``: ``"cuda"`` (the hand-written kernel; the plane must be on
     a card), ``"torch"`` (the plain version on the plane's device) or
-    ``"numpy"`` (the host reference — converts the plane per call).
+    ``"numpy"`` (the host reference — converts the plane per call).  The
+    first two run one launch per :func:`query_groups` group (one unless
+    the batch's tables exceed ``MAX_SMEM``), over ``table`` when given.
     """
     if backend == "numpy":
         return scan_core_numpy(
@@ -448,9 +648,11 @@ def scan_counts(plane: DevicePlaneArrays, params: ScanParams, *,
         if plane.sid.device.type != "cuda":
             raise ValueError("backend 'cuda' needs the plane on a CUDA "
                              f"device, not {plane.sid.device}")
-        counts, cands = scan_core_cuda(plane, params)
+        counts, cands = scan_core_cuda(plane, params, table)
     elif backend == "torch":
-        counts, cands = scan_core(plane, params)
+        counts, cands = _by_query_groups(
+            lambda p, _t: scan_core(plane, p), params, plane.sid.device,
+            table)
     else:
         raise ValueError(f"unknown device scan backend {backend!r}")
     return counts.cpu().numpy(), cands.cpu().numpy()

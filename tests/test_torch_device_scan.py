@@ -191,22 +191,24 @@ def test_scan_cores_agree_on_one_plane(ycsb):
 
 def test_packed_tables_hold_every_table_in_place(ycsb):
     """The kernel's single staging buffer: each table at its aligned
-    offset, byte for byte; clause/query tables as row bit masks."""
+    offset, byte for byte; the batch's terms, clauses and queries as one
+    ``scan_table`` (decoded against the dense tables in
+    ``tests/test_torch_scan_match_model.py``)."""
     store = _build(ycsb, jax=False)
     dev = DeviceScanner(store, backend="torch", device="cpu",
                         log_queries=False)
     params = dev._prepare(_workload(ycsb)).params
     host, offsets = scan_fused.pack_params(params)
-    want = params._replace(
-        membership=j_bitvector.pack(params.membership > 0),
-        query_clause=j_bitvector.pack(params.query_clause > 0))
+    want = dict(params._asdict(), table=scan_fused.scan_table(params))
+    assert set(offsets) == {"code_a", "num_codes", "lut_off", "lut_flat",
+                            "pushed_tbl", "active", "table"}
     for name, off in offsets.items():
-        table = np.ascontiguousarray(getattr(want, name))
+        table = np.ascontiguousarray(want[name])
         assert off % 16 == 0
         got = host[off:off + table.nbytes].view(table.dtype)
         assert np.array_equal(got, table.reshape(-1)), name
     assert host.nbytes == max(offsets.values()) + -(
-        -want.active.nbytes // 16) * 16
+        -want["table"].nbytes // 16) * 16
 
 
 def test_numpy_backend_matches_torch(ycsb):
