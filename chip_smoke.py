@@ -49,6 +49,15 @@ checked by (i) layer 0's q, k, v captured from the serving prefill, F's
 output against the plain version, and (ii) in f32, forward logits at
 position S-1 against prefill(S-1) + one decode step (B=2, S=128).
 
+Kernel C is also held at contiguous row slices off 16 bytes, rows 4-12
+bytes past 16 at W % 4 == 0, the one-block width +- 1 and a bytes-bound
+probe (P=12, W=2,097,152; not a path shape), and measured around its
+launches: the launch floor (an empty kernel of its block size), the whole
+ops.reduce_bitvectors call on the host clock, the device operations per
+call from the profiler (exactly one kernel per bitvector_reduce call, and
+one upload, one kernel and one copy back per reduce_bitvectors call, or
+the run fails) and the probe beside its bytes bound.
+
 Any mismatch or fault raises (exit code != 0).
 
     python3 chip_smoke.py                  # one CUDA card, full size
@@ -128,23 +137,9 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
 
 def kernel_ms(fn, reps: int, name: str) -> float:
     """Device milliseconds per launch of the kernel ``name`` inside ``fn``,
-    from the profiler's CUDA activity (kernel time alone).  Raises when
-    three traces in a row record no launch of it."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    for _ in range(3):              # a trace now and then comes back empty
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-        us = [e.device_time_total / e.count for e in prof.key_averages()
-              if name in e.key and e.count]
-        if us and us[0] > 0:
-            return us[0] / 1e3
-    raise AssertionError(f"the profiler found no {name} launch in three "
-                         "traces")
+    from the profiler's CUDA activity (kernel time alone)."""
+    from repro_torch.benchmarks import bench_reduce
+    return bench_reduce.kernel_ms(fn, reps, name)
 
 
 def same_bits(a, b) -> int:
@@ -385,7 +380,7 @@ def check_split_kernels(dev) -> int:
     from repro_torch.core.client import encode_chunk, encode_patterns
     from repro_torch.core.predicates import Kind
     from repro_torch.data.datasets import generate_records, predicate_pool
-    from repro_torch.kernels import bitvector_ops, fused, ops, ref
+    from repro_torch.kernels import fused, ops, ref
     from repro_torch.kernels import substring_match as sm
     from repro_torch.kernels.plan import compile_plan
 
@@ -418,11 +413,7 @@ def check_split_kernels(dev) -> int:
     def check_c(words) -> None:
         nonlocal n
         n += 1
-        t = words if isinstance(words, torch.Tensor) else on_dev(words)
-        got, want = bitvector_ops.bitvector_reduce(t), ref.bitvector_reduce_ref(t)
-        if max(same_bits(g, w) for g, w in zip(got, want)):
-            raise AssertionError(f"reduce kernel != plain version "
-                                 f"(P, W = {tuple(t.shape)})")
+        reduce_matches(words)
 
     for ds in ("ycsb", "yelp", "winlog"):
         pool = predicate_pool(ds)
@@ -522,15 +513,58 @@ def check_split_kernels(dev) -> int:
     check_d(wide, [b'"age":7', b"xx", b"", b"zz"])
     for k, v in kv_pairs[4:7]:
         check_e(wide, k, v)
-    # C: the TPU test sweep, uniform rows, a long row
-    rng = np.random.default_rng(0)
-    for p, w in ((1, 1), (3, 64), (8, 130), (2, 257), (5, 100_003)):
-        check_c(rng.integers(0, 2**32, (p, w), dtype=np.uint64)
-                .astype(np.uint32))
-    for fill in (0, 0xFFFFFFFF):
-        check_c(np.full((4, 333), fill, np.uint32))
+    n += check_reduce(dev)
     print(f"  edge cases: bit-identical ({n} comparisons in all)")
     return n
+
+
+def reduce_matches(t) -> None:
+    """Kernel C on ``t`` (uint32[P, W] on the card) bit for bit against
+    its plain version."""
+    from repro_torch.kernels import bitvector_ops, ref
+    got, want = bitvector_ops.bitvector_reduce(t), ref.bitvector_reduce_ref(t)
+    if max(same_bits(g, w) for g, w in zip(got, want)):
+        raise AssertionError(f"reduce kernel != plain version "
+                             f"(P, W = {tuple(t.shape)}, base "
+                             f"{t.data_ptr() % 16} bytes past 16)")
+
+
+def check_reduce(dev) -> int:
+    """Kernel C's edge cases against its plain version: the TPU test
+    sweep, uniform rows, a long row; contiguous row slices ``t[1:]``
+    (bases off 16 bytes: the scalar route, and the vector route's head
+    and tail at P == 1), rows off 16 bytes at W % 4 == 0 (the vector
+    route's head and tail), the one-block width +- 1 (one launch, then a
+    grid of blocks and the partials' sum) and the bytes-bound probe.
+    Returns the comparisons made."""
+    import numpy as np
+    import torch
+    from repro_torch.benchmarks.bench_reduce import PROBE
+    from repro_torch.kernels import bitvector_ops
+
+    rng = np.random.default_rng(0)
+    one = bitvector_ops.ONE_BLOCK_WORDS
+
+    def words(p, w):
+        return torch.from_numpy(rng.integers(0, 2**32, (p, w),
+                                             dtype=np.uint32)).to(dev)
+
+    cases = [words(p, w) for p, w in ((1, 1), (3, 64), (8, 130), (2, 257),
+                                      (5, 100_003))]
+    cases += [torch.from_numpy(np.full((4, 333), fill, np.uint32)).to(dev)
+              for fill in (0, 0xFFFFFFFF)]
+    cases += [words(p + 1, w)[1:] for w in (3, 5, 257) for p in (1, 2, 12)]
+    for off in (1, 2, 3):
+        flat = words(1, 12 * 256 + 3)[0]
+        cases.append(flat[off:off + 12 * 256].view(12, 256))
+    cases += [words(p, w) for w in (one - 1, one + 1) for p in (2, 12)]
+    cases.append(words(*PROBE))
+    for t in cases:
+        reduce_matches(t)
+    print(f"  reduce: {len(cases)} edge cases bit-identical (row slices "
+          f"at W 3/5/257, rows 4-12 bytes past 16 at W 256, W {one - 1} "
+          f"and {one + 1}, the probe P, W = {PROBE})")
+    return len(cases)
 
 
 def small_store():
@@ -754,6 +788,50 @@ def main_path(n_records: int, dev):
             "results": steady, "prefix": (prefix, pscan, base)}
 
 
+def reduce_numbers(dev) -> dict:
+    """Kernel C and what surrounds its launches
+    (:func:`repro_torch.benchmarks.bench_reduce.measure`): the kernel's
+    time at the path's shapes (P=2, W=256: phase (b) and the hook; P=12,
+    W=256: phase (a)), the whole ``ops.reduce_bitvectors`` call on the
+    host clock, the device operations of a ``bitvector_reduce`` call and
+    of a ``reduce_bitvectors`` call (profiler), and the probe beside its
+    bytes bound; here also the launch floor, an empty kernel of C's block
+    size timed the same way.  Holds the design: exactly one kernel, C's,
+    per ``bitvector_reduce`` call, and one upload, one kernel and one copy
+    back per ``reduce_bitvectors`` call."""
+    from repro_torch.benchmarks import bench_reduce
+    from repro_torch.kernels import bitvector_ops
+
+    def hold(got, want, what):
+        if any(got[k] != want.get(k, 0) for k in bench_reduce.KINDS):
+            raise AssertionError(f"device operations per {what} call "
+                                 f"{got['rows']}, want {want}")
+
+    out = bench_reduce.measure(dev, SEED)
+    for shape, r in out["shapes"].items():
+        k, c = r["kernel_call_ops"], r["call_ops"]
+        print(f"  reduce at {shape}: kernel {r['kernel_ms']:.5f} ms; "
+              f"reduce_bitvectors call {r['call_ms']:.4f} ms (host clock); "
+              f"device operations per bitvector_reduce call {k['rows']}, "
+              f"per reduce_bitvectors call {c['rows']}")
+        hold(k, {"kernels": 1}, "bitvector_reduce")
+        if not all("bitvector_reduce_kernel" in name for name in k["rows"]):
+            raise AssertionError(f"a bitvector_reduce call launched another "
+                                 f"kernel: {k['rows']}")
+        hold(c, {"kernels": 1, "copies_to_device": 1, "copies_to_host": 1},
+             "reduce_bitvectors")
+    out["floor_ms"] = kernel_ms(lambda: bitvector_ops.noop(dev), 200,
+                                "noop_kernel")
+    print(f"  launch floor (empty kernel, {bitvector_ops.THREADS} threads): "
+          f"{out['floor_ms']:.5f} ms")
+    p = out["probe"]
+    print(f"  reduce probe {p['shape']} (not a path shape): {p['ms']:.4f} "
+          f"ms, bound {p['bound_ms']:.4f} ms by bytes "
+          f"({p['bound_share']:.1%}); device ms per launch "
+          f"{p['device_ms_per_launch']}")
+    return out
+
+
 def _zero_counters() -> None:
     from repro_torch.kernels import bitvector_ops, fused, scan_fused
     from repro_torch.kernels import flash_attention as fa
@@ -864,9 +942,10 @@ def split_path(run, dev) -> dict:
     return out
 
 
-def split_kernel_rows(run, split, dev) -> list[dict]:
+def split_kernel_rows(run, split, dev, reduce) -> list[dict]:
     """Kernels C, D and E timed at phase (b)'s shapes (the main plan on a
-    main-path chunk) beside their plain versions."""
+    main-path chunk) beside their plain versions; C's row also carries
+    ``reduce`` (:func:`reduce_numbers`)."""
     import torch
     from repro_torch.core.client import encode_patterns
     from repro_torch.core.predicates import Kind
@@ -931,6 +1010,16 @@ def split_kernel_rows(run, split, dev) -> list[dict]:
             "ms_from": "profiler", "wrapper_call_ms": cuda_ms(kern, 50),
             "shape": shape,
         })
+    c_row = next(r for r in rows if r["name"].startswith("bitvector_reduce"))
+    shapes = reduce["shapes"]
+    c_row.update({
+        "floor_ms": reduce["floor_ms"],
+        "ms_by_shape": {k: v["kernel_ms"] for k, v in shapes.items()},
+        "call_ms_by_shape": {k: v["call_ms"] for k, v in shapes.items()},
+        "device_ops_per_call": {
+            "bitvector_reduce": shapes["P=2 W=256"]["kernel_call_ops"],
+            "reduce_bitvectors": shapes["P=2 W=256"]["call_ops"]},
+        "probe": reduce["probe"]})
     # kernel D: two more timing calls at phase (b)'s shape (its time has
     # read 0.0032 and 0.0065 ms in two runs of one build), and every simple
     # pattern of each dataset's pool on an 8,192-record chunk (no launch
@@ -1528,6 +1617,9 @@ def main(argv=None) -> int:
     run = main_path(args.records, dev)
     phase("kernels C/D/E: reduce, match, key-value vs plain versions")
     check_split_kernels(dev)
+    phase("kernel C around its launches: floor, calls, device operations, "
+          "probe")
+    reduce = reduce_numbers(dev)
     phase("split path: (a) split vs fused, (b) split ingest + hooked scan")
     split = split_path(run, dev)
     phase("wide scan batch: 200 uniform queries in one DeviceScanner batch")
@@ -1541,8 +1633,8 @@ def main(argv=None) -> int:
     phase("exactness at full width: forward vs prefill + decode (f32)")
     exactness_f32(dev)
     phase("kernels at main-path shapes")
-    rows = (kernel_table(run, scan, dev) + split_kernel_rows(run, split, dev)
-            + [flash_row(serve)])
+    rows = (kernel_table(run, scan, dev)
+            + split_kernel_rows(run, split, dev, reduce) + [flash_row(serve)])
     for r in rows:
         lib = "" if r["library_ms"] is None else \
             f"; library {r['library_ms']:.4f} ms"

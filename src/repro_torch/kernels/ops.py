@@ -19,8 +19,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from . import ref
-from .bitvector_ops import bitvector_reduce
+from . import bitvector_ops, ref
 from .fused import clause_bitvectors_fused
 from .substring_match import key_value_match, multi_match_any
 
@@ -165,10 +164,14 @@ def match_key_value(data, key: bytes, val: bytes, *, backend: str = "cuda",
 def reduce_bitvectors(bitvecs, *, backend: str = "cuda", device=None):
     """(and_words, or_words, surviving_count) over uint32[P, W] (kernel C).
 
-    ``P >= 1``; numpy ``uint32[W]`` words and an int count.
+    ``P >= 1``; numpy ``uint32[W]`` words and an int count.  On the card:
+    one upload (unless ``bitvecs`` is there already), one launch and one
+    copy back of the kernel's [AND | OR | count] buffer.
     """
     dev = _split_device(backend, device, bitvecs)
     bv = _tensor(bitvecs, np.uint32, dev)
-    fn = ref.bitvector_reduce_ref if backend == "torch" else bitvector_reduce
-    a, o, c = fn(bv)
-    return a.cpu().numpy(), o.cpu().numpy(), int(c)
+    if backend == "torch":
+        a, o, c = ref.bitvector_reduce_ref(bv)
+        return a.cpu().numpy(), o.cpu().numpy(), int(c)
+    return bitvector_ops.split(
+        bitvector_ops.bitvector_reduce_buffer(bv).cpu().numpy(), bv.shape[1])

@@ -129,7 +129,8 @@ def test_import_walk_covers_every_port_module():
     walked = {p.relative_to(ROOT).as_posix() for p in _port_files()}
     for mod in ("kernels/bitvector_ops.py", "kernels/substring_match.py",
                 "kernels/residual.py", "benchmarks/__init__.py",
-                "benchmarks/bench_kernels.py", "kernels/flash_attention.py",
+                "benchmarks/bench_kernels.py", "benchmarks/bench_reduce.py",
+                "kernels/flash_attention.py",
                 "configs/__init__.py", "configs/base.py",
                 "configs/qwen3_1_7b.py", "configs/deepseek_v3_671b.py",
                 "data/tokenizer.py", "models/__init__.py", "models/layers.py",
