@@ -32,6 +32,33 @@ DeviceScanner("cuda").scan_batch on the main path's 65,536-record prefix
 store (512 term and clause slots, 256 queries; kernel B), checked against
 the host scanner and FullScanBaseline.
 
+Then the sharded plane, on the main path's own chunks and bitvectors:
+
+  ShardedCiaoStore, 4 shards, range-routed on the plan's routing key
+    -> ShardedDeviceScanner("cuda"), batches of 64   [kernel B per shard]
+    -> ShardedScanner(and_reduce=residual.bv_and_many_cuda)   [kernel C]
+    -> ScanBatcher(and_reduce=..., ResultCache), cold and cached
+
+every ScanResult equal across the three in full accounting (shards
+scanned and pruned included), every count equal to the unsharded main
+path, at least one shard pruned, 0 steady uploads; and the 65,536-record
+prefix hash-routed on a key no query reads, where every query visits
+every shard and the hook runs from the sharded scanner's thread pool,
+against FullScanBaseline.  Then the client fleet, the paper's different
+budgets for different clients:
+
+  one ycsb PlanFamily of nested tiers (build_plan_family)
+    -> 13 ClientShards (speeds 4.0 x1, 1.0 x4, 0.25 x8), each with its
+       own KernelEngine("cuda") and seed              [kernel A, per tier]
+    -> FleetTierAllocator: one global budget split over the clients
+    -> IngestCoordinator -> ShardedCiaoStore, 4 shards, chunks of 8,192
+    -> ShardedDeviceScanner("cuda")                    [kernel B]
+    -> one Replanner step over the sharded store, a chunk at the new epoch
+
+at 2 chunks per client (the clients make their records in this process),
+every client's chunks at its assigned tier and every count equal to
+FullScanBaseline, before and after the replan.
+
 Then kernel F (flash attention, csrc/flash_attention.cu) against its plain
 version on the TPU test shapes, the serving shape, unmasked, Sq != Sk and
 ragged S, in f32 (the SIMT route) and bf16 (the tensor-core route, also
@@ -75,6 +102,7 @@ import multiprocessing as mp
 import os
 import subprocess
 import sys
+import threading
 import time
 from concurrent.futures import ProcessPoolExecutor
 
@@ -110,6 +138,29 @@ def _records_part(args):
     sys.path.insert(0, src)
     from repro_torch.data.datasets import generate_records
     return generate_records(dataset, n, seed=seed)
+
+
+def _baseline_part(args):
+    """FullScanBaseline's counts of ``queries`` over some chunks, in a
+    worker."""
+    src, chunks, queries = args
+    sys.path.insert(0, src)
+    from repro_torch.core.server import FullScanBaseline
+    base = FullScanBaseline()
+    for chunk in chunks:
+        base.ingest_chunk(chunk)
+    return [base.scan(q).count for q in queries]
+
+
+def baseline_counts(chunks, queries) -> list[int]:
+    """FullScanBaseline's count of each query over ``chunks``, the rows
+    split over worker processes and the counts summed."""
+    workers = min(8, os.cpu_count() or 1, len(chunks))
+    with ProcessPoolExecutor(max_workers=workers,
+                             mp_context=mp.get_context("spawn")) as ex:
+        got = list(ex.map(_baseline_part, [
+            (SRC, chunks[i::workers], queries) for i in range(workers)]))
+    return [sum(c) for c in zip(*got)]
 
 
 _T0 = time.perf_counter()
@@ -785,7 +836,8 @@ def main_path(n_records: int, dev):
     return {"chunks": chunks, "plan": report.plan, "engine": engine,
             "scanner": scanner, "batches": batches, "launches": launches,
             "store": store, "bvs": bvs, "queries": queries,
-            "results": steady, "prefix": (prefix, pscan, base)}
+            "results": steady, "prefix": (prefix, pscan, base),
+            "prefix_counts": dict(zip(unique, want))}
 
 
 def reduce_numbers(dev) -> dict:
@@ -1586,6 +1638,362 @@ def wide_batch(run, dev) -> dict:
             "ms_steady": t_steady * 1e3}
 
 
+def full_accounting(r) -> tuple:
+    """``accounting`` plus the sharded fields (segments scanned, shards
+    scanned and pruned)."""
+    return accounting(r) + (r.segments_scanned, r.shards_scanned,
+                            r.shards_pruned)
+
+
+def timed_batches(fn, batches) -> tuple[list, list[float]]:
+    """``fn`` over each batch: the results in order and ms per batch."""
+    out, ms = [], []
+    for b in batches:
+        t0 = time.perf_counter()
+        out += fn(b)
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return out, ms
+
+
+def sharded_plane(run, dev) -> dict:
+    """The main path's chunks and kernel-A bitvectors in a 4-shard
+    ShardedCiaoStore, range-routed on the plan's routing key from 800
+    sampled records; the 200 zipf queries in batches of 64 through
+    ShardedDeviceScanner("cuda") (kernel B once per surviving shard), the
+    ShardedScanner with kernel C as its AND hook, called from its thread
+    pool, and ScanBatcher with the hook and a ResultCache, twice.  Every
+    ScanResult of the three is equal in full accounting and every count
+    to the unsharded main path; a hash-routed 4-shard store of the
+    65,536-record prefix counts as FullScanBaseline."""
+    import torch
+    from repro_torch.core.batch_scan import ResultCache, ScanBatcher
+    from repro_torch.core.device_scan import ShardedDeviceScanner
+    from repro_torch.core.shard import (
+        ShardedCiaoStore, ShardedScanner, ShardRouter, choose_routing_key,
+    )
+    from repro_torch.kernels import bitvector_ops, residual, scan_fused
+
+    chunks, bvs, plan = run["chunks"], run["bvs"], run["plan"]
+    queries, batches = run["queries"], run["batches"]
+    n = len(chunks)
+    objs = [json.loads(chunks[0].record(i)) for i in range(800)]
+    key = choose_routing_key(plan)
+    # ---- the sharded plane: counters at 0 just before, read just after ----
+    torch.cuda.synchronize()
+    _zero_counters()
+    router = ShardRouter.from_samples(4, key, objs)
+    store = ShardedCiaoStore(plan, router=router)
+    t0 = time.perf_counter()
+    for chunk, bv in zip(chunks, bvs):
+        store.ingest_chunk(chunk, bv)
+    t_ingest = time.perf_counter() - t0
+    device = ShardedDeviceScanner(store, backend="cuda")
+    t0 = time.perf_counter()
+    first = [r for b in batches for r in device.scan_batch(b)]
+    t_first = time.perf_counter() - t0
+    uploads = sum(c.uploads for c in device.caches)
+    torch.cuda.synchronize()
+    dev_res, dev_ms = timed_batches(device.scan_batch, batches)
+    steady_uploads = sum(c.uploads for c in device.caches) - uploads
+    b_launches = scan_fused.launches
+    threads = set()
+    hook_calls = []
+
+    def hook(words):
+        """kernel C's AND (residual.bv_and_many_cuda), noting the thread"""
+        threads.add(threading.current_thread().name)
+        hook_calls.append(1)
+        return residual.bv_and_many_cuda(words)
+
+    # threshold 0: the shards are scanned on the pool for every query
+    hooked = ShardedScanner(store, log_queries=False, and_reduce=hook,
+                            parallel_threshold_rows=0)
+    host_res, host_ms = timed_batches(
+        lambda b: [hooked.scan(q) for q in b], batches)
+    hooked.close()
+    c_hooked = bitvector_ops.launches
+    # each segment memoises its pushed clauses' AND: clear it, so the
+    # batcher computes its own through kernel C too
+    for seg in store.blocks:
+        seg._and_masks = {}
+    cache = ResultCache(cap=4096)
+    batcher = ScanBatcher(store, log_queries=False, cache=cache,
+                          and_reduce=residual.bv_and_many_cuda)
+    cold, cold_ms = timed_batches(batcher.scan_batch, batches)
+    hits, misses = cache.hits, cache.misses
+    warm, warm_ms = timed_batches(batcher.scan_batch, batches)
+    c_batcher = bitvector_ops.launches - c_hooked
+    range_threads = set(threads)
+    # the prefix, hash-routed on a key no query reads, so every query
+    # visits every shard: the hooked scanner fans out on its pool here
+    hstore = ShardedCiaoStore(
+        plan, router=ShardRouter(n_shards=4, key=HASH_KEY, mode="hash"))
+    prefix_store = run["prefix"][0]
+    n_pre = prefix_store.stats.n_records // CHUNK
+    for chunk, bv in zip(chunks[:n_pre], bvs[:n_pre]):
+        hstore.ingest_chunk(chunk, bv)
+    unique = list(dict.fromkeys(queries))
+    hdev = ShardedDeviceScanner(hstore, backend="cuda", log_queries=False)
+    hash_dev = [r for i in range(0, len(unique), 64)
+                for r in hdev.scan_batch(unique[i:i + 64])]
+    threads.clear()
+    before = bitvector_ops.launches
+    with ShardedScanner(hstore, log_queries=False, and_reduce=hook,
+                        parallel_threshold_rows=0) as sc:
+        hash_host = [sc.scan(q) for q in unique]
+    c_pool = bitvector_ops.launches - before
+    launches = {"scan": scan_fused.launches, "reduce": bitvector_ops.launches}
+    # -----------------------------------------------------------------------
+    rows = [s.stats.n_records for s in store.shards]
+    loaded = [s.stats.n_loaded for s in store.shards]
+    mib = [round(c.bytes_used / 2**20, 2) for c in device.caches]
+    pruned = sum(r.shards_pruned for r in dev_res)
+    print(f"  router: range on {key!r} from 800 sampled records, "
+          f"boundaries {list(router.boundaries)}")
+    print(f"  ingest (ShardedCiaoStore, host): "
+          f"{t_ingest / n * 1e3:.3f} ms/chunk, of which routing "
+          f"(route_time_s) {store.route_time_s / n * 1e3:.3f} ms/chunk")
+    print(f"  rows per shard {rows}, loaded {loaded}; resident MiB per "
+          f"shard {mib}, segments per shard "
+          f"{[c.n_slots for c in device.caches]}")
+    print(f"  ShardedDeviceScanner: first pass {t_first:.3f} s, steady "
+          f"{[round(t, 3) for t in dev_ms]} ms per 64-query batch; "
+          f"steady-state uploads {steady_uploads}; {b_launches} scan "
+          f"launches; {pruned} shard prunes over the steady pass")
+    visits = sorted({r.shards_scanned for r in dev_res})
+    print(f"  ShardedScanner, kernel C hook: "
+          f"{[round(t, 3) for t in host_ms]} ms per batch; "
+          f"{len(hook_calls)} hook calls from {sorted(range_threads)} "
+          f"(each query visits {visits} of 4 shards under range routing); "
+          f"{c_hooked} reduce launches")
+    print(f"  ScanBatcher, hook and ResultCache: cold "
+          f"{[round(t, 3) for t in cold_ms]} ms, warm "
+          f"{[round(t, 3) for t in warm_ms]} ms per batch; cache hits "
+          f"{cache.hits - hits} of {cache.hits - hits + cache.misses - misses}"
+          f" lookups on the warm run; {c_batcher} reduce launches")
+    print(f"  launches in this phase: {launches}")
+    if steady_uploads:
+        raise AssertionError(f"sharded steady-state scans uploaded "
+                             f"{steady_uploads} times")
+    if min(launches.values()) < 1 or c_hooked < 1:
+        raise AssertionError(f"a kernel was not launched: {launches}, "
+                             f"{c_hooked} by the hook")
+    if not any(t.startswith("ciao-shard-scan") for t in threads) \
+            or c_pool < 1:
+        raise AssertionError(f"the hook never launched kernel C in the "
+                             f"pool: {threads}, {c_pool} launches")
+    if cache.misses != misses or cache.hits == hits:
+        raise AssertionError("the warm ScanBatcher run missed the cache")
+    if not pruned:
+        raise AssertionError("no query pruned a shard under range routing")
+    for i, q in enumerate(queries):
+        want = full_accounting(dev_res[i])
+        for name, got in (("first pass", first[i]), ("hooked", host_res[i]),
+                          ("batcher", cold[i]), ("cached", warm[i])):
+            if full_accounting(got) != want:
+                raise AssertionError(f"sharded {name} != device scanner: "
+                                     f"{q.describe()}")
+        if dev_res[i].count != run["results"][i].count:
+            raise AssertionError(f"sharded != unsharded: {q.describe()}")
+    for q, a, b in zip(unique, hash_dev, hash_host):
+        if full_accounting(a) != full_accounting(b):
+            raise AssertionError(f"hash-routed: device != hooked scanner: "
+                                 f"{q.describe()}")
+        if a.count != run["prefix_counts"][q]:
+            raise AssertionError(f"hash-routed: device != FullScanBaseline: "
+                                 f"{q.describe()}")
+    print(f"  {len(queries)} ScanResults equal across ShardedDeviceScanner, "
+          f"the hooked ShardedScanner and ScanBatcher (cold and cached), "
+          f"full accounting; counts equal to the unsharded main path")
+    print(f"  hash-routed on {HASH_KEY!r}, {hstore.stats.n_records}-record "
+          f"prefix: {len(unique)} distinct queries, each on "
+          f"{sorted({r.shards_scanned for r in hash_dev})} shards; device "
+          f"scanner == hooked scanner (hook from {sorted(threads)}, "
+          f"{c_pool} reduce launches) == FullScanBaseline")
+    return {"launches": launches, "reduce_hook": c_hooked,
+            "reduce_batcher": c_batcher, "ingest_ms": t_ingest / n * 1e3,
+            "route_ms": store.route_time_s / n * 1e3, "rows": rows,
+            "mib": mib, "device_ms": dev_ms, "host_ms": host_ms,
+            "batcher_ms": cold_ms, "cached_ms": warm_ms,
+            "first_s": t_first, "prunes": pruned, "reduce_pool": c_pool}
+
+
+#: the hash-routed prefix store's routing key: one no query reads, so
+#: every query visits every shard
+HASH_KEY = "customer_id"
+
+#: the JAX package's fleet benchmark (benchmarks/bench_tiers.py):
+#: (speed, count) for one fast, four nominal and eight slow clients
+FLEET = ((4.0, 1), (1.0, 4), (0.25, 8))
+#: chunks per client: ClientShard makes its records in this process, so
+#: the fleet runs at 2 x 8,192 records per client (212,992 records)
+FLEET_CHUNKS = 2
+
+
+def client_fleet(dev) -> dict:
+    """Different budgets for different clients: one ycsb PlanFamily of
+    nested tiers, 13 clients at the fleet benchmark's speeds, each with
+    its own KernelEngine("cuda") and seed; FleetTierAllocator splits one
+    global budget, IngestCoordinator feeds a 4-shard ShardedCiaoStore in
+    chunks of 8,192; every client's chunks are held to its assigned tier,
+    ShardedDeviceScanner's counts to FullScanBaseline over the same
+    records (the floor tier leaves raw rows the queries promote); then one
+    Replanner check over the sharded store, a chunk
+    ingested under the new epoch, and the counts held again."""
+    import numpy as np
+    import torch
+    from repro_torch.core.cost_model import CostModel
+    from repro_torch.core.device_scan import ShardedDeviceScanner
+    from repro_torch.core.planner import build_plan_family
+    from repro_torch.core.predicates import Query
+    from repro_torch.core.replan import Replanner, ReplanPolicy
+    from repro_torch.core.server import FullScanBaseline
+    from repro_torch.core.shard import (
+        ShardedCiaoStore, ShardRouter, choose_routing_key,
+    )
+    from repro_torch.core.workload import Workload, generate_workload
+    from repro_torch.data.datasets import generate_records, predicate_pool
+    from repro_torch.data.pipeline import (
+        ClientShard, FleetTierAllocator, IngestCoordinator,
+    )
+    from repro_torch.kernels import fused, scan_fused
+    from repro_torch.kernels.engine import KernelEngine
+
+    # the fleet benchmark's family, on the analytic cost model (no timed
+    # calibration, so the tiers and the budget are the same every run)
+    pool = predicate_pool("ycsb")
+    wl = generate_workload(pool, n_queries=300, distribution="zipf",
+                           zipf_a=1.1, rng=np.random.default_rng(3),
+                           name="fleet-queries")
+    sample = generate_records("ycsb", 400, seed=17)
+    cm = CostModel().scaled(20.0)
+    costs = sorted(cm.clause_cost(c, 0.2) for c in pool)
+    med = costs[len(costs) // 2]
+    budgets = [1.5 * med, 3.0 * med, 40.0 * med]
+    family = build_plan_family(Workload(wl.name, wl.queries[:-120]), sample,
+                               tier_budgets_us=budgets, cost_model=cm).family
+    t1 = set(family.tier_clauses(1))
+    queries = list(dict.fromkeys(q for q in wl.queries[-120:]
+                                 if any(c in t1 for c in q.clauses)))
+    clients = []
+    for speed, count in FLEET:
+        for _ in range(count):
+            clients.append(ClientShard(
+                "ycsb", len(clients), KernelEngine("cuda"), family.plan,
+                chunk_records=CHUNK, speed=speed, cost_ewma_alpha=0.0))
+    rates = np.array([c.speed * c.chunk_records for c in clients])
+    weights = rates / rates.sum()
+    target = {4.0: 1, 1.0: 1, 0.25: 0}
+    budget = 1.02 * float(sum(w * c.cost_scale * family.tier_costs[
+        target[c.speed]] for w, c in zip(weights, clients)))
+    made = []
+
+    def keep(c, produce):
+        def next_chunk():
+            chunk, bv = produce()
+            made.append((c.shard_id, c.tier, bv.words.shape[0], chunk))
+            return chunk, bv
+        return next_chunk
+
+    for c in clients:
+        c.next_chunk = keep(c, c.next_chunk)
+    key = choose_routing_key(family)
+    store = ShardedCiaoStore(family, router=ShardRouter(
+        n_shards=4, key=key, mode="hash"))
+    # ---- the client fleet: counters at 0 just before, read just after ----
+    torch.cuda.synchronize()
+    _zero_counters()
+    alloc = FleetTierAllocator(family, budget, retier_every_records=10**9)
+    # no stealing: every client makes its own chunks at its own tier (the
+    # fast client would otherwise take the slow clients' slots)
+    coord = IngestCoordinator(clients, store, allocator=alloc, steal=False)
+    tiers = [c.tier for c in clients]
+    t0 = time.perf_counter()
+    coord.run(chunks_per_client=FLEET_CHUNKS)
+    t_run = time.perf_counter() - t0
+    scanner = ShardedDeviceScanner(store, backend="cuda")
+    t0 = time.perf_counter()
+    got = [r.count for i in range(0, len(queries), 64)
+           for r in scanner.scan_batch(queries[i:i + 64])]
+    t_scan = time.perf_counter() - t0
+    a_fleet = fused.launches
+    # one Replanner check over the sharded store: a drifted workload
+    # (clauses the family does not push) in the query log, a forced step
+    rp = Replanner(store, sample, tier_budgets_us=budgets,
+                   base_workload=Workload(wl.name, wl.queries[:-120]),
+                   cost_model=cm, policy=ReplanPolicy(
+                       check_every_records=CHUNK, min_observe_records=CHUNK,
+                       min_window_queries=4, recalibrate_cost=False))
+    pushed = set(family.plan.clauses)
+    drift = [Query((c,)) for c in pool if c not in pushed][:8]
+    for q in drift * 4:
+        store.log_query(q)
+    new = rp.step(force=True)
+    retier = None
+    if new is not None:
+        alloc.set_family(new, clients)
+        retier = [c.tier for c in clients]
+        chunk, bv = clients[0].next_chunk()
+        store.ingest_chunk(chunk, bv, epoch=new.plan.epoch,
+                           tier=clients[0].tier)
+    after = [r.count for i in range(0, len(queries), 64)
+             for r in scanner.scan_batch(queries[i:i + 64])]
+    launches = {"pushdown": fused.launches, "scan": scan_fused.launches}
+    # -----------------------------------------------------------------------
+    n_made = sum(ch.n_records for *_, ch in made)
+    by_speed = {s: [t for c, t in zip(clients, tiers) if c.speed == s]
+                for s, _ in FLEET}
+    print(f"  depth cut: {FLEET_CHUNKS} chunks of {CHUNK} records per client"
+          f" ({FLEET_CHUNKS * CHUNK * len(clients)} records): ClientShard "
+          f"makes its records in this process (fleet run {t_run:.1f} s)")
+    print(f"  family: tier sizes {family.tier_sizes}, modelled tier costs "
+          f"{[round(x, 3) for x in family.tier_costs]} us/record")
+    print(f"  allocation (tier per client by speed): "
+          f"{ {s: t for s, t in by_speed.items()} }; modelled fleet spend "
+          f"{alloc.allocation.spent:.4f} us/record against a budget of "
+          f"{budget:.4f}; makespan {coord.makespan:.2f} (no stealing)")
+    print(f"  store: rows per shard {[s.stats.n_records for s in store.shards]}"
+          f", per (epoch, tier) {dict(sorted(store.group_records.items()))}; "
+          f"{len(queries)} queries scanned in {t_scan:.3f} s (first pass)")
+    if new is None:
+        raise AssertionError("the replanner kept the family under a "
+                             "drifted workload")
+    print(f"  replan: epoch {store.epoch} on every shard "
+          f"({sorted({s.plan.epoch for s in store.shards})}), tier sizes "
+          f"{new.tier_sizes}, clients re-tiered to {retier}; one chunk "
+          f"ingested under the new epoch")
+    print(f"  launches in this phase: {launches} ({a_fleet} pushdown "
+          f"launches during the fleet's ingest)")
+    for sid, tier, n_rows, _ in made[:-1]:
+        if tier != tiers[sid] or n_rows != family.tier_sizes[tier]:
+            raise AssertionError(f"client {sid} ran tier {tier} "
+                                 f"({n_rows} clauses), assigned "
+                                 f"{tiers[sid]}")
+    if not alloc.allocation.feasible or len(set(tiers)) < 2:
+        raise AssertionError(f"allocation {alloc.allocation}")
+    if store.epoch != 1 or any(s.plan.epoch != 1 for s in store.shards):
+        raise AssertionError("the epoch did not reach every shard")
+    if min(launches.values()) < 1 or a_fleet < 1:
+        raise AssertionError(f"a kernel was not launched: {launches}")
+    t0 = time.perf_counter()
+    want = baseline_counts([chunk for *_, chunk in made[:-1]], queries)
+    extra = FullScanBaseline()
+    extra.ingest_chunk(made[-1][3])
+    t_base = time.perf_counter() - t0
+    if got != want:
+        raise AssertionError("fleet store's device scan != FullScanBaseline")
+    if after != [w + extra.scan(q).count for q, w in zip(queries, want)]:
+        raise AssertionError("after the replan: device scan != "
+                             "FullScanBaseline")
+    print(f"  every client's chunks at its assigned tier; {len(queries)} "
+          f"counts equal to FullScanBaseline over the fleet's "
+          f"{n_made - made[-1][3].n_records} records, and again after the "
+          f"replan's chunk (baseline {t_base:.1f} s)")
+    return {"launches": launches, "pushdown_fleet": a_fleet,
+            "tiers": tiers, "spent": alloc.allocation.spent,
+            "budget": budget, "run_s": t_run, "scan_s": t_scan}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--records", type=int, default=1 << 20,
@@ -1624,6 +2032,14 @@ def main(argv=None) -> int:
     split = split_path(run, dev)
     phase("wide scan batch: 200 uniform queries in one DeviceScanner batch")
     scan = wide_batch(run, dev)
+    phase("sharded plane: the main path's records in 4 shards")
+    t0 = time.perf_counter()
+    sharded = sharded_plane(run, dev)
+    print(f"  phase {time.perf_counter() - t0:.1f} s")
+    phase("client fleet: 13 clients, one budget, 4 shards, one replan")
+    t0 = time.perf_counter()
+    fleet = client_fleet(dev)
+    print(f"  phase {time.perf_counter() - t0:.1f} s")
     phase("kernel F: flash attention vs plain version")
     check_flash(dev)
     phase(f"serve path: {' '.join(SERVE_ARGS)}")
@@ -1635,6 +2051,17 @@ def main(argv=None) -> int:
     phase("kernels at main-path shapes")
     rows = (kernel_table(run, scan, dev)
             + split_kernel_rows(run, split, dev, reduce) + [flash_row(serve)])
+    # launches on this slice's paths, each read from its own phase
+    rows[0]["launches_client_fleet"] = fleet["launches"]["pushdown"]
+    rows[1]["launches_sharded_plane"] = sharded["launches"]["scan"]
+    rows[1]["launches_client_fleet"] = fleet["launches"]["scan"]
+    c_row = next(r for r in rows if r["name"].startswith("bitvector_reduce"))
+    c_row["launches_sharded_plane"] = sharded["launches"]["reduce"]
+    c_row["launches_sharded_plane_by"] = {
+        "ShardedScanner hook, range store": sharded["reduce_hook"],
+        "ScanBatcher hook, range store": sharded["reduce_batcher"],
+        "ShardedScanner hook from its pool, hash store":
+            sharded["reduce_pool"]}
     for r in rows:
         lib = "" if r["library_ms"] is None else \
             f"; library {r['library_ms']:.4f} ms"

@@ -22,6 +22,12 @@ from .predicates import (  # noqa: F401
     query,
     substring,
 )
+from .replan import (  # noqa: F401
+    DriftSignal,
+    ReplanEvent,
+    Replanner,
+    ReplanPolicy,
+)
 from .selection import (  # noqa: F401
     SelectionProblem,
     SelectionResult,
@@ -39,6 +45,15 @@ from .server import (  # noqa: F401
     PushdownPlan,
     StaleEpochError,
     evolve_plan,
+)
+from .shard import (  # noqa: F401
+    ShardedCiaoStore,
+    ShardedScanner,
+    ShardRouter,
+    ShardSummary,
+    choose_routing_key,
+    merge_scan_results,
+    reshard,
 )
 from .workload import (  # noqa: F401
     DriftPhase,

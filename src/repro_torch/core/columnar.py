@@ -166,8 +166,7 @@ class _KeyAcc:
         ngram = None
         if self.str_index:
             ngram = NGramBloom()
-            for s in self.str_index:
-                ngram.add(s)
+            ngram.add_many(self.str_index)
         return KeyColumn(
             present=self.present, notnull=self.notnull,
             is_bool=self.is_bool, num_valid=self.num_valid, num=self.num,

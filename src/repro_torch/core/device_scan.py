@@ -21,17 +21,25 @@ labor per scan:
 ``backend="cuda"`` (the default) launches the hand-written scan kernel
 (``csrc/scan.cu``) over a plane resident on ``device``; ``"torch"`` runs
 its plain PyTorch version on ``device`` (the CPU in the tests);
-``"numpy"`` scans a host mirror with ``scan_core_numpy``.  The sharded
-scanner of the JAX package is not ported yet.
+``"numpy"`` scans a host mirror with ``scan_core_numpy``.
+
+:class:`ShardedDeviceScanner` mirrors
+:class:`~repro_torch.core.shard.ShardedScanner`'s three-level cascade
+(partition prune -> per-shard scan -> deterministic
+``merge_scan_results`` through ``dist.collectives.tree_reduce``) with one
+:class:`DeviceScanner`, and so one resident plane, per shard.  Every
+shard's plane lives on the scanner's one device and the shards launch in
+turn.  The JAX package can instead run the surviving shards as one
+``shard_map`` program with shard *i* on device *i*; its counterpart here,
+shards placed on several cards, is not ported yet.
 
 Public contract, shared with every other scanner: ``ScanResult.groups``
 sorted by (epoch, tier), deterministic merge order, accounting
 bit-identical to the host ``DataSkippingScanner``.  Since DESIGN.md §16
-a result cache with ``ResultCache``'s ``lookup``/``store`` methods can
-be attached (distinct from the segment cache: it stores finished
-``ScanResult`` objects keyed on type-strict predicates, validated per
-``(epoch, data_version)``) and
-every scan is folded into the store's
+a :class:`~repro_torch.core.batch_scan.ResultCache` can be attached
+(distinct from the segment cache: it stores finished ``ScanResult``
+objects keyed on type-strict predicates, validated per ``(epoch,
+data_version)``) and every scan is folded into the store's
 :class:`~repro_torch.core.telemetry.TelemetryPlane`.
 """
 from __future__ import annotations
@@ -42,15 +50,16 @@ from typing import Sequence
 
 import numpy as np
 
+from repro_torch.core.batch_scan import ResultCache
 from repro_torch.core.device_cache import CacheSlot, DeviceSegmentCache
 from repro_torch.core.predicates import Query
 from repro_torch.core.server import CiaoStore, DataSkippingScanner, ScanResult
+from repro_torch.core.shard import ShardedCiaoStore, merge_scan_results
 from repro_torch.kernels.ops import resolve_device
 from repro_torch.kernels.scan_fused import (
     ScanBatch, ScanParams, compile_scan_batch, scan_core_numpy, scan_counts,
     scan_table,
 )
-
 
 @dataclass
 class _Prepared:
@@ -75,7 +84,7 @@ class DeviceScanner:
     def __init__(self, store: CiaoStore, *, backend: str = "cuda",
                  device=None, byte_budget: int = 256 << 20,
                  log_queries: bool = True,
-                 result_cache: "object | None" = None,
+                 result_cache: "ResultCache | None" = None,
                  telemetry: "object | bool | None" = None,
                  tenant: str = "default"):
         self.store = store
@@ -87,12 +96,11 @@ class DeviceScanner:
         self.log_queries = log_queries
         self.cache = DeviceSegmentCache(byte_budget=byte_budget,
                                         device=self.device)
-        # optional ResultCache (duck-typed ``lookup``/``store``) — NOT the
-        # segment cache above: entries are whole per-query ScanResults
-        # under the same (shard 0, clauses) keys and (epoch,
-        # data_version) validity the host batcher and ShardedScanner use,
-        # so host and device paths share one cache and one accounting
-        # contract (DESIGN.md §16)
+        # optional ResultCache — NOT the segment cache above: entries are
+        # whole per-query ScanResults under the same (shard 0, clauses)
+        # keys and (epoch, data_version) validity the host batcher and
+        # ShardedScanner use, so host and device paths share one cache and
+        # one accounting contract (DESIGN.md §16)
         self.result_cache = result_cache
         from repro_torch.core.telemetry import TelemetryPlane
         if telemetry is None:
@@ -304,3 +312,133 @@ class DeviceScanner:
             result.used_skipping = any(pm.values())
             results.append(result)
         return results
+
+
+# ---------------------------------------------------------------------------
+# sharded scatter-gather
+# ---------------------------------------------------------------------------
+
+class ShardedDeviceScanner:
+    """Scatter-gather device scan over a :class:`ShardedCiaoStore`.
+
+    Bit-identical to :class:`~repro_torch.core.shard.ShardedScanner`:
+    empty shards contribute nothing, partition-refuted shards contribute
+    their resident segment rows as skipped (and never promote), surviving
+    shards scan on their device plane, and the per-shard results reduce
+    deterministically through ``merge_scan_results``.  The per-shard
+    scanners share ``backend`` and ``device``.
+    """
+
+    def __init__(self, store: ShardedCiaoStore, *, backend: str = "cuda",
+                 device=None, byte_budget: int = 256 << 20,
+                 log_queries: bool = True,
+                 telemetry: "object | bool | None" = None,
+                 tenant: str = "default"):
+        self.store = store
+        self.log_queries = log_queries
+        from repro_torch.core.telemetry import TelemetryPlane
+        if telemetry is None:
+            telemetry = getattr(store, "telemetry", None)
+        self.telemetry = telemetry if isinstance(telemetry, TelemetryPlane) \
+            else None
+        self.tenant = tenant
+        device = resolve_device(
+            "torch" if backend == "numpy" else backend, device)
+        self._scanners = [
+            DeviceScanner(s, backend=backend, device=device,
+                          byte_budget=byte_budget, log_queries=False,
+                          telemetry=False)
+            for s in store.shards
+        ]
+
+    @property
+    def caches(self) -> list[DeviceSegmentCache]:
+        return [sc.cache for sc in self._scanners]
+
+    def scan(self, q: Query) -> ScanResult:
+        return self.scan_batch([q])[0]
+
+    def scan_batch(self, queries: Sequence[Query]) -> list[ScanResult]:
+        t0 = time.perf_counter()
+        store = self.store
+        queries = tuple(queries)
+        if self.log_queries:
+            for q in queries:
+                store.log_query(q)
+        # per-shard surviving query subsets (partition prune, level 1)
+        sub: list[list[int]] = []
+        pruned_shards: list[list[int]] = [[] for _ in queries]
+        for s in range(store.n_shards):
+            shard = store.shards[s]
+            if not (shard.stats.n_records or shard.blocks
+                    or shard.jit_blocks or shard.raw):
+                sub.append([])
+                continue
+            qs: list[int] = []
+            for qi, q in enumerate(queries):
+                if store.n_shards > 1 and \
+                        not store.summaries[s].query_possible(q):
+                    pruned_shards[qi].append(s)
+                else:
+                    qs.append(qi)
+            sub.append(qs)
+        # promotions and pruned-shard row snapshots in GLOBAL query
+        # order: sequential scatter-gather scans run query i across every
+        # shard before query i+1, so a shard pruned for query i accounts
+        # its resident rows BEFORE later queries' promotions enlarge them
+        pushed_maps: list[list] = [[] for _ in range(store.n_shards)]
+        promoted: list[list[dict]] = [[] for _ in range(store.n_shards)]
+        jit_vis: list[list[int]] = [[] for _ in range(store.n_shards)]
+        pruned_rows: dict[tuple[int, int], dict] = {}
+        for qi, q in enumerate(queries):
+            for s in range(store.n_shards):
+                shard = store.shards[s]
+                if qi in sub[s]:
+                    pm = shard.pushed_by_epoch(q)
+                    pushed_maps[s].append(pm)
+                    promoted[s].append(dict(shard.promote_uncovered_raw(pm)))
+                    jit_vis[s].append(len(shard.jit_blocks))
+                elif s in pruned_shards[qi]:
+                    pruned_rows[(qi, s)] = shard.resident_group_rows()
+        prepared: dict[int, _Prepared] = {}
+        for s, qs in enumerate(sub):
+            if qs:
+                prepared[s] = self._scanners[s]._prepare(
+                    [queries[qi] for qi in qs],
+                    pushed_maps=pushed_maps[s], promoted=promoted[s],
+                    jit_vis=jit_vis[s])
+        # one launch per surviving shard, in shard order, on one device
+        shard_results: dict[int, list[ScanResult]] = {}
+        for s, p in prepared.items():
+            c, d = self._scanners[s]._launch(p)
+            shard_results[s] = self._scanners[s]._assemble(p, c, d)
+        out: list[ScanResult] = []
+        dt = time.perf_counter() - t0
+        for qi, q in enumerate(queries):
+            results: list[ScanResult] = []
+            for s in sorted(prepared):
+                if qi in sub[s]:
+                    r = shard_results[s][sub[s].index(qi)]
+                    r.shards_scanned = 1
+                    results.append(r)
+            if results:
+                merged = merge_scan_results(results)
+            else:
+                merged = ScanResult(count=0, rows_scanned=0,
+                                    rows_skipped=0, raw_parsed=0,
+                                    time_s=0.0, used_skipping=False)
+            for s in pruned_shards[qi]:
+                merged.shards_pruned += 1
+                for (e, t), n in pruned_rows[(qi, s)].items():
+                    merged.group(e, t).rows_skipped += n
+                    merged.rows_skipped += n
+            if pruned_shards[qi]:
+                merged.sort_groups()
+            if not results:
+                merged.used_skipping = any(
+                    store.pushed_by_epoch(q).values())
+            merged.time_s = dt / max(len(queries), 1)
+            if self.telemetry is not None:
+                self.telemetry.record_scan(merged, tenant=self.tenant)
+            out.append(merged)
+        return out

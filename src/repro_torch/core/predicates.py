@@ -235,6 +235,7 @@ def range_contains(bounds: tuple, v: Any) -> bool:
 
 _JSON_NUMBER_CACHE: dict[str, Any] = {}
 _JSON_NUMBER_CACHE_CAP = 4096
+_NUMBER_STARTS = frozenset("-0123456789NI")
 
 
 def json_number(s: str) -> "int | float | None":
@@ -252,6 +253,10 @@ def json_number(s: str) -> "int | float | None":
     global _JSON_NUMBER_CACHE
     if s in _JSON_NUMBER_CACHE:
         return _JSON_NUMBER_CACHE[s]
+    # a number (or NaN / Infinity) starts with one of these after JSON
+    # whitespace; any other string is no number, without a failed parse
+    if s.lstrip(" \t\n\r")[:1] not in _NUMBER_STARTS:
+        return None
     try:
         v = json.loads(s)
     except Exception:

@@ -98,6 +98,27 @@ class NGramBloom:
             for idx in _gram_buckets(b[i:i + NGRAM_N]):
                 bits[idx >> 6] |= np.uint64(1 << (idx & 63))
 
+    def add_many(self, strings) -> None:
+        """:meth:`add` of every string in ``strings``, all their grams at
+        once in numpy (a gram never spans two strings)."""
+        bufs = [s.encode("utf-8") for s in strings]
+        if not bufs:
+            return
+        lens = np.fromiter(map(len, bufs), np.int64, len(bufs))
+        n_grams = np.maximum(lens - (NGRAM_N - 1), 0)
+        total = int(n_grams.sum())
+        if not total:
+            return
+        data = np.frombuffer(b"".join(bufs), np.uint8).astype(np.uint64)
+        first = np.cumsum(lens) - lens             # each string's offset
+        before = np.cumsum(n_grams) - n_grams      # grams of earlier ones
+        pos = np.repeat(first - before, n_grams) + np.arange(total)
+        x = (data[pos] << 16) | (data[pos + 1] << 8) | data[pos + 2]
+        hit = np.zeros(_BLOOM_BITS, bool)
+        hit[((x * 2654435761) & 0xFFFFFFFF) % _BLOOM_BITS] = True
+        hit[((x * 0x9E3779B1 + 0x7F4A7C15) & 0xFFFFFFFF) % _BLOOM_BITS] = True
+        self.bits |= np.packbits(hit, bitorder="little").view("<u8")
+
     def might_contain(self, needle: str) -> bool:
         """False only when NO summarized string can contain ``needle``."""
         b = needle.encode("utf-8")

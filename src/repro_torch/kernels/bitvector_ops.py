@@ -43,15 +43,10 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 
 
 def _lib() -> ctypes.CDLL:
-    lib = cuda_build.load("bitvector_reduce")
-    if not getattr(lib, "_typed", False):
-        lib.ciao_bitvector_reduce.argtypes = [_I, _P, _I, _I, _I, _I, _P,
-                                              _P]
-        lib.ciao_bitvector_reduce.restype = _I
-        lib.ciao_noop.argtypes = [_I, _I, _P]
-        lib.ciao_noop.restype = _I
-        lib._typed = True
-    return lib
+    return cuda_build.load("bitvector_reduce", {
+        "ciao_bitvector_reduce": ([_I, _P, _I, _I, _I, _I, _P, _P], _I),
+        "ciao_noop": ([_I, _I, _P], _I),
+    })
 
 
 def _check_rows(bitvecs: torch.Tensor) -> None:
@@ -106,7 +101,8 @@ def bitvector_reduce_buffer(bitvecs: torch.Tensor) -> torch.Tensor:
         dev.index, bitvecs.data_ptr(), P, W, blocks, THREADS,
         out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     cuda_build.check_launch(lib, err, "bitvector_reduce")
-    launches += 1 if blocks == 1 else 2
+    with cuda_build.counter_lock:
+        launches += 1 if blocks == 1 else 2
     return out[:2 * W + 1]
 
 

@@ -6,6 +6,12 @@ plain C interface, loaded through ``ctypes``.  Libraries go to
 their source so an edited kernel is never served from a stale build.
 Building happens at first use, never at import: the CPU-only test host
 has no ``nvcc``.  :func:`build` starts one ``nvcc`` per source at once.
+
+Building and loading hold one lock, so threads that make a kernel's
+first call together (the sharded scanner calls its AND hook from a
+thread pool) run one ``nvcc`` and load the library once; each temporary
+output is named by process and thread.  The wrappers' launch counters
+are bumped under :data:`counter_lock`.
 """
 from __future__ import annotations
 
@@ -14,6 +20,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -31,6 +38,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _libs: dict[str, ctypes.CDLL] = {}
+#: held while building or loading a library (reentrant: load builds)
+_lock = threading.RLock()
+#: held by every kernel wrapper while it adds one to its launch counter
+counter_lock = threading.Lock()
 #: ptxas report (registers, shared memory, spills) per library built here
 build_logs: dict[str, str] = {}
 
@@ -55,7 +66,11 @@ def build(names=None) -> float:
     Returns the wall seconds spent; raises with the compiler's output if
     any build fails.
     """
-    names = list(SOURCES) if names is None else list(names)
+    with _lock:
+        return _build(list(SOURCES) if names is None else list(names))
+
+
+def _build(names: list[str]) -> float:
     todo = [n for n in names if not lib_path(n).exists()]
     if not todo:
         return 0.0
@@ -64,7 +79,8 @@ def build(names=None) -> float:
     t0 = time.perf_counter()
     procs = {}
     for n in todo:
-        tmp = lib_path(n).with_suffix(f".{os.getpid()}.tmp")
+        tmp = lib_path(n).with_suffix(
+            f".{os.getpid()}.{threading.get_ident()}.tmp")
         cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / SOURCES[n])]
         procs[n] = (tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
@@ -81,18 +97,30 @@ def build(names=None) -> float:
     return time.perf_counter() - t0
 
 
-def load(name: str) -> ctypes.CDLL:
+def load(name: str, signatures: dict) -> ctypes.CDLL:
     """The loaded library ``name``, built first if needed.
 
+    ``signatures`` maps an exported function to its ``(argtypes,
+    restype)``; they are set once, under the lock, before any caller
+    sees them (ctypes makes a function object at its first lookup, so
+    two threads typing it at once could each type a different one).
     Every library exports ``ciao_error_string(int) -> const char*``.
     """
     lib = _libs.get(name)
-    if lib is None:
-        build([name])
-        lib = ctypes.CDLL(str(lib_path(name)))
-        lib.ciao_error_string.argtypes = [ctypes.c_int]
-        lib.ciao_error_string.restype = ctypes.c_char_p
-        _libs[name] = lib
+    if lib is not None:
+        return lib
+    with _lock:
+        lib = _libs.get(name)
+        if lib is None:
+            build([name])
+            lib = ctypes.CDLL(str(lib_path(name)))
+            lib.ciao_error_string.argtypes = [ctypes.c_int]
+            lib.ciao_error_string.restype = ctypes.c_char_p
+            for fn, (argtypes, restype) in signatures.items():
+                f = getattr(lib, fn)
+                f.argtypes = argtypes
+                f.restype = restype
+            _libs[name] = lib
     return lib
 
 

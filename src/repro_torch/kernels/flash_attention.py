@@ -38,14 +38,11 @@ _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 
 
 def _lib() -> ctypes.CDLL:
-    lib = cuda_build.load("flash_attention")
-    if not getattr(lib, "_typed", False):
-        lib.ciao_flash_attention.argtypes = (
+    return cuda_build.load("flash_attention", {
+        "ciao_flash_attention": (
             [_I, _I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I]
-            + [_L] * 12 + [ctypes.c_float, _I, _P])
-        lib.ciao_flash_attention.restype = _I
-        lib._typed = True
-    return lib
+            + [_L] * 12 + [ctypes.c_float, _I, _P], _I),
+    })
 
 
 def _check(q, k, v) -> None:
@@ -122,5 +119,6 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         *out.stride()[:3], d ** -0.5, int(bool(causal)),
         torch.cuda.current_stream(dev).cuda_stream)
     cuda_build.check_launch(lib, err, "flash_attention")
-    launches += 1
+    with cuda_build.counter_lock:
+        launches += 1
     return out

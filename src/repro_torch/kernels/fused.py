@@ -32,15 +32,11 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 
 
 def _lib() -> ctypes.CDLL:
-    lib = cuda_build.load("pushdown")
-    if not getattr(lib, "_typed", False):
-        lib.ciao_pushdown.argtypes = [
-            _I, _P, _I, _I, _I, _P, _I, _I, _P, _P, _P, _P]
-        lib.ciao_pushdown.restype = _I
-        lib.ciao_pushdown_smem_bytes.argtypes = [_I, _I]
-        lib.ciao_pushdown_smem_bytes.restype = _I
-        lib._typed = True
-    return lib
+    return cuda_build.load("pushdown", {
+        "ciao_pushdown": (
+            [_I, _P, _I, _I, _I, _P, _I, _I, _P, _P, _P, _P], _I),
+        "ciao_pushdown_smem_bytes": ([_I, _I], _I),
+    })
 
 
 def clause_bitvectors_fused(data: torch.Tensor, plan: dict,
@@ -86,5 +82,6 @@ def clause_bitvectors_fused(data: torch.Tensor, plan: dict,
         table.numel() // 4, C, words.data_ptr(), or_words.data_ptr(),
         counts.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     cuda_build.check_launch(lib, err, "pushdown")
-    launches += 1
+    with cuda_build.counter_lock:
+        launches += 1
     return words, or_words, counts

@@ -276,14 +276,11 @@ _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 
 
 def _lib() -> ctypes.CDLL:
-    lib = cuda_build.load("scan")
-    if not getattr(lib, "_typed", False):
-        lib.ciao_scan.argtypes = (
+    return cuda_build.load("scan", {
+        "ciao_scan": (
             [_I] + [_P] * 8 + [_LL] + [_P] * 4 + [_I] + [_P] * 2 + [_I, _P]
-            + [_I] * 6 + [_P] * 3)
-        lib.ciao_scan.restype = _I
-        lib._typed = True
-    return lib
+            + [_I] * 6 + [_P] * 3, _I),
+    })
 
 
 def _check_plane(plane: DevicePlaneArrays) -> None:
@@ -525,7 +522,8 @@ def launch_scan(plane: DevicePlaneArrays, staged: StagedParams
         out[0].data_ptr(), out[1].data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream)
     cuda_build.check_launch(lib, err, "scan")
-    launches += 1
+    with cuda_build.counter_lock:
+        launches += 1
     return out[0], out[1]
 
 

@@ -30,25 +30,18 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 
 
 def _match_lib() -> ctypes.CDLL:
-    lib = cuda_build.load("substring_match")
-    if not getattr(lib, "_typed", False):
-        lib.ciao_multi_match.argtypes = [_I, _P, _I, _I, _P, _I, _P, _I, _P,
-                                         _P]
-        lib.ciao_multi_match.restype = _I
-        lib.ciao_match_smem_bytes.argtypes = [_I, _I]
-        lib.ciao_match_smem_bytes.restype = _I
-        lib._typed = True
-    return lib
+    return cuda_build.load("substring_match", {
+        "ciao_multi_match": (
+            [_I, _P, _I, _I, _P, _I, _P, _I, _P, _P], _I),
+        "ciao_match_smem_bytes": ([_I, _I], _I),
+    })
 
 
 def _kv_lib() -> ctypes.CDLL:
-    lib = cuda_build.load("key_value")
-    if not getattr(lib, "_typed", False):
-        lib.ciao_key_value.argtypes = [_I, _P, _I, _I, _P, _I, _P, _I, _I,
-                                       _P, _P]
-        lib.ciao_key_value.restype = _I
-        lib._typed = True
-    return lib
+    return cuda_build.load("key_value", {
+        "ciao_key_value": (
+            [_I, _P, _I, _I, _P, _I, _P, _I, _I, _P, _P], _I),
+    })
 
 
 def _device_of(data: torch.Tensor) -> torch.device | None:
@@ -92,7 +85,8 @@ def multi_match_any(data: torch.Tensor, patterns: torch.Tensor,
         plens.data_ptr(), P, out.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream)
     cuda_build.check_launch(lib, err, "multi_match")
-    match_launches += 1
+    with cuda_build.counter_lock:
+        match_launches += 1
     return out
 
 
@@ -123,5 +117,6 @@ def key_value_match(data: torch.Tensor, key: torch.Tensor, val: torch.Tensor,
         val.data_ptr(), val.numel(), int(bool(unbounded)), out.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream)
     cuda_build.check_launch(lib, err, "key_value")
-    kv_launches += 1
+    with cuda_build.counter_lock:
+        kv_launches += 1
     return out

@@ -160,3 +160,91 @@ def test_checkpoint_round_trip_through_both(setup, tmp_path):
     for q in queries:
         assert accounting(s1.scan(q)) == accounting(s2.scan(q)), q.describe()
     assert sorted(back.plans) == sorted(ours.plans)
+
+
+# ---------------------------------------------------------------------------
+# sharded stores: format-6 checkpoints (a manifest and one file per shard)
+# ---------------------------------------------------------------------------
+
+from repro.core import shard as j_shard  # noqa: E402
+from repro_torch.core.shard import (  # noqa: E402
+    ShardedCiaoStore, ShardedScanner, ShardRouter,
+)
+
+
+def sharded_accounting(r) -> tuple:
+    return accounting(r) + (r.segments_scanned, r.shards_scanned,
+                            r.shards_pruned, r.used_skipping)
+
+
+def _sharded(setup, *, jax: bool, mode: str):
+    fam0, fam1, ingest, _ = setup
+    objs = [json.loads(r) for _, _, batch, _ in ingest for r in batch]
+    if mode == "range":
+        router = ShardRouter.from_samples(4, "linear_score", objs[:400])
+    else:
+        router = ShardRouter(n_shards=4, key="customer_id", mode="hash")
+    if jax:
+        store = j_shard.ShardedCiaoStore(
+            _j_family(fam0), segment_capacity=512,
+            router=j_shard.ShardRouter.from_obj(router.to_obj()))
+        f1, enc = _j_family(fam1), j_client.encode_chunk
+        bits = lambda bv: j_bitvector.ChunkBitvectors(  # noqa: E731
+            words=bv.words, or_words=bv.or_words, counts=bv.counts,
+            n_records=bv.n_records)
+    else:
+        store = ShardedCiaoStore(fam0, router=router, segment_capacity=512)
+        f1, enc, bits = fam1, encode_chunk, (lambda bv: bv)
+    for second, tier, batch, bv in ingest:
+        if second and store.plan.epoch == 0:
+            store.advance_epoch(f1)
+        store.ingest_chunk(enc(batch), bits(bv), epoch=1 if second else 0,
+                           tier=tier)
+    return store
+
+
+def _sharded_scans(store, queries, *, jax: bool):
+    Scanner = j_shard.ShardedScanner if jax else ShardedScanner
+    with Scanner(store, log_queries=False) as sc:
+        return [sharded_accounting(sc.scan(_jq(q) if jax else q))
+                for q in queries]
+
+
+def _summaries(store):
+    return [json.loads(json.dumps(s.to_obj())) for s in store.summaries]
+
+
+@pytest.mark.parametrize("mode", ["range", "hash"])
+def test_sharded_checkpoints_cross_both_ways(setup, tmp_path, mode):
+    """A format-6 checkpoint of either package loads in the other: the
+    same router, partition summaries (range bounds and n-gram blooms
+    included), epochs and per-shard rows, and every query answered with
+    the same accounting, shards pruned included."""
+    queries = setup[3]
+    ours = _sharded(setup, jax=False, mode=mode)
+    theirs = _sharded(setup, jax=True, mode=mode)
+    assert _summaries(ours) == _summaries(theirs)
+    for src, load, jax_loaded in (
+            (ours, j_shard.ShardedCiaoStore.load, True),
+            (theirs, ShardedCiaoStore.load, False)):
+        path = str(tmp_path / f"{mode}-{jax_loaded}")
+        src.save(path)
+        manifest = json.loads(
+            (tmp_path / f"{mode}-{jax_loaded}" / "manifest.json").read_text())
+        assert manifest["format"] == 6
+        back = load(path)
+        assert back.router.to_obj() == src.router.to_obj()
+        assert _summaries(back) == _summaries(src)
+        assert back.epoch == src.epoch == 1
+        assert back.group_records == src.group_records
+        assert [s.stats.n_records for s in back.shards] == \
+            [s.stats.n_records for s in src.shards]
+        assert any("ngram" in json.dumps(s) for s in _summaries(back))
+    want = _sharded_scans(theirs, queries, jax=True)
+    assert _sharded_scans(ours, queries, jax=False) == want
+    jax_of_ours = j_shard.ShardedCiaoStore.load(str(tmp_path / f"{mode}-True"))
+    ours_of_jax = ShardedCiaoStore.load(str(tmp_path / f"{mode}-False"))
+    assert _sharded_scans(jax_of_ours, queries, jax=True) == want
+    assert _sharded_scans(ours_of_jax, queries, jax=False) == want
+    if mode == "range":
+        assert sum(w[-2] for w in want) > 0

@@ -130,7 +130,9 @@ def test_import_walk_covers_every_port_module():
     for mod in ("kernels/bitvector_ops.py", "kernels/substring_match.py",
                 "kernels/residual.py", "benchmarks/__init__.py",
                 "benchmarks/bench_kernels.py", "benchmarks/bench_reduce.py",
-                "kernels/flash_attention.py",
+                "benchmarks/bench_ingest.py", "kernels/flash_attention.py",
+                "dist/__init__.py", "dist/collectives.py", "core/shard.py",
+                "core/batch_scan.py", "core/replan.py", "data/pipeline.py",
                 "configs/__init__.py", "configs/base.py",
                 "configs/qwen3_1_7b.py", "configs/deepseek_v3_671b.py",
                 "data/tokenizer.py", "models/__init__.py", "models/layers.py",
