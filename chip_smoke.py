@@ -57,7 +57,24 @@ budgets for different clients:
 
 at 2 chunks per client (the clients make their records in this process),
 every client's chunks at its assigned tier and every count equal to
-FullScanBaseline, before and after the replan.
+FullScanBaseline, before and after the replan.  Then the store's serving
+plane and its online tuner:
+
+  CiaoServeEngine(ShardedCiaoStore, 4 range shards, device_backend="cuda",
+                  result_cache=ResultCache())
+    <- one feeder: the main path's 128 chunks, each through
+       KernelEngine("cuda") just before ingest_chunk      [kernel A]
+    -> four readers over the 200 zipf queries while it runs: two in
+       device mode (ShardedDeviceScanner per snapshot)    [kernel B]
+       one in host mode, one through query_batch (64)
+  PhysicalDesignTuner, driven by CiaoServeEngine.start_tuner, on a
+  4-shard store of the first 262,144 records (TUNER_RECORDS): panel A
+  (linear_score), panel B (visits) on the stale layout, the migration to
+  visits under four device-mode readers                   [kernel B]
+
+every live count at most its final count, every quiesced count equal to
+the main path's in host, batch and device mode (device == host in full
+accounting), and every tuner-phase count equal to FullScanBaseline.
 
 Then kernel F (flash attention, csrc/flash_attention.cu) against its plain
 version on the TPU test shapes, the serving shape, unmasked, Sq != Sk and
@@ -152,15 +169,30 @@ def _baseline_part(args):
     return [base.scan(q).count for q in queries]
 
 
+def start_baseline(chunks, queries):
+    """Start FullScanBaseline's counts of ``queries`` over ``chunks``, the
+    rows split over worker processes; :func:`finish_baseline` sums them."""
+    workers = min(8, os.cpu_count() or 1, len(chunks))
+    ex = ProcessPoolExecutor(max_workers=workers,
+                             mp_context=mp.get_context("spawn"))
+    return ex, [ex.submit(_baseline_part, (SRC, chunks[i::workers], queries))
+                for i in range(workers)]
+
+
+def finish_baseline(pending) -> list[int]:
+    """The counts of a :func:`start_baseline`; stops its processes."""
+    ex, futures = pending
+    try:
+        got = [f.result() for f in futures]
+    finally:
+        ex.shutdown(cancel_futures=True)
+    return [sum(c) for c in zip(*got)]
+
+
 def baseline_counts(chunks, queries) -> list[int]:
     """FullScanBaseline's count of each query over ``chunks``, the rows
     split over worker processes and the counts summed."""
-    workers = min(8, os.cpu_count() or 1, len(chunks))
-    with ProcessPoolExecutor(max_workers=workers,
-                             mp_context=mp.get_context("spawn")) as ex:
-        got = list(ex.map(_baseline_part, [
-            (SRC, chunks[i::workers], queries) for i in range(workers)]))
-    return [sum(c) for c in zip(*got)]
+    return finish_baseline(start_baseline(chunks, queries))
 
 
 _T0 = time.perf_counter()
@@ -1248,6 +1280,7 @@ def serve_breakdown(dev) -> dict:
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+    from repro_torch.benchmarks import bench_reduce
     from repro_torch.configs import get_config
     from repro_torch.models.model import build_model
     from repro_torch.serve.engine import make_serve_fns
@@ -1276,8 +1309,10 @@ def serve_breakdown(dev) -> dict:
         wall = (time.perf_counter() - t0) / 3 * 1e3
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
+            time.sleep(bench_reduce.PAD_S)
             fn()
             torch.cuda.synchronize()
+            time.sleep(bench_reduce.PAD_S)
         rows = [(e.key, e.self_device_time_total / 1e3, e.count)
                 for e in prof.key_averages()
                 if e.device_type == DeviceType.CUDA
@@ -1350,16 +1385,27 @@ def exactness_f32(dev) -> float:
     return err
 
 
-def flash_row(serve) -> dict:
-    """Kernel F at the serving shape (layer 0's captured q, k, v)."""
+#: kernel F's serving shape: batch, query heads, kv heads, prompt, head dim
+FLASH_SHAPE = (8, 16, 8, 512, 128)
+
+
+def flash_timing(dev) -> dict:
+    """Kernel F at the serving shape, on seeded bf16 q, k, v laid out as
+    the model hands them over ((B, S, heads, d) transposed), beside its
+    plain version and ``scaled_dot_product_attention``.  Timed before the
+    serve path: every profiler trace that missed its kernel in this
+    script's runs came after the model had served."""
+    import numpy as np
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref
 
-    q, k, v = serve["qkv"]
-    B, H, S, d = q.shape
-    Hkv = k.shape[1]
+    B, H, Hkv, S, d = FLASH_SHAPE
+    rng = np.random.default_rng(SEED)
+    q, k, v = (torch.from_numpy(rng.normal(size=(B, S, h, d)).astype(
+        np.float32)).to(dev).to(torch.bfloat16).transpose(1, 2)
+        for h in (H, Hkv, Hkv))
     ms = kernel_ms(lambda: fa.flash_attention(q, k, v), 20, "flash_kernel")
     nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
     flops = 2 * B * H * S * S * d
@@ -1371,7 +1417,6 @@ def flash_row(serve) -> dict:
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:78",
-        "launches": serve["launches"], "max_abs_err": serve["err"],
         "ms": ms, "plain_ms": cuda_ms(
             lambda: ref.flash_attention_ref(q, k, v), 3),
         "bound_ms": max(bytes_ms, flops_ms),
@@ -1381,14 +1426,25 @@ def flash_row(serve) -> dict:
                         "enable_gqa=True), timed only",
         "ms_from": "profiler", "wrapper_call_ms": cuda_ms(
             lambda: fa.flash_attention(q, k, v), 20),
-        "launches_per_prefill": serve["launches"]
-        // serve["result"]["prefill_calls"],
         "shape": f"B={B} H={H} Hkv={Hkv} S={S} d={d} {q.dtype} causal",
         "bound_bytes_ms": bytes_ms, "bound_ops_ms": flops_ms,
         "tflop_per_s": flops / (ms * 1e-3) / 1e12,
         "bound_share": max(bytes_ms, flops_ms) / ms,
         "ms_over_library": ms / lib_ms,
     }
+
+
+def flash_row(timing: dict, serve) -> dict:
+    """Kernel F's row: :func:`flash_timing` with the serve path's launches
+    and its check (i) on layer 0's captured q, k, v, of the same shape."""
+    q, k, _ = serve["qkv"]
+    got = (q.shape[0], q.shape[1], k.shape[1], q.shape[2], q.shape[3])
+    if got != FLASH_SHAPE:
+        raise AssertionError(f"serving q, k shape {got} != {FLASH_SHAPE}")
+    return {**timing, "launches": serve["launches"],
+            "max_abs_err": serve["err"],
+            "launches_per_prefill": serve["launches"]
+            // serve["result"]["prefill_calls"]}
 
 
 def kernel_table(run, scan, dev) -> list[dict]:
@@ -1994,6 +2050,289 @@ def client_fleet(dev) -> dict:
             "budget": budget, "run_s": t_run, "scan_s": t_scan}
 
 
+#: the tuner phase's store: the first TUNER_RECORDS of the main path's
+#: records (all of them where ``--records`` is smaller)
+TUNER_RECORDS = 1 << 18
+#: the tuner's panels (the JAX package's benchmarks/bench_tuner.py):
+#: point lookups on the routing key, then on the key the workload
+#: drifts onto
+PANEL_A = ("linear_score", 2, 97)
+PANEL_B = ("visits", 5, 990)
+
+
+def _latencies(readers) -> dict:
+    """p50/p99 (µs) and call count over some readers' calls."""
+    from repro_torch.benchmarks.bench_serve import pcts
+    lat = [x for r in readers for x in r.lat]
+    p50, p99 = pcts(lat)
+    return {"calls": len(lat), "p50_us": p50, "p99_us": p99}
+
+
+def store_serving(run, dev) -> dict:
+    """The store's serving plane under live ingest: a fresh 4-shard
+    ShardedCiaoStore, range-routed as the sharded plane is, wrapped in
+    CiaoServeEngine(device_backend="cuda", result_cache=ResultCache())
+    with the reference defaults (queue depth 64, one writer per shard,
+    a 0.02 s snapshot refresh, blocking backpressure).  One feeder
+    evaluates each of the main path's chunks with kernel A just before
+    ``ingest_chunk``; four readers loop over the 200 zipf queries until it
+    is done: two in device mode (kernel B over each snapshot's plane), one
+    in host mode, one through ``query_batch`` in slices of 64.  Every live
+    count is at most the main path's, and a live device reader launched
+    kernel B; after ``quiesce()`` every query in host, batch and device
+    mode equals the main path's count and device equals host in full
+    accounting."""
+    import torch
+    from repro_torch.benchmarks.bench_serve import (
+        Reader, bundle_report, live_ingest, run_readers,
+    )
+    from repro_torch.core import device_scan
+    from repro_torch.core.batch_scan import ResultCache
+    from repro_torch.core.shard import (
+        ShardedCiaoStore, ShardRouter, choose_routing_key,
+    )
+    from repro_torch.kernels import fused, scan_fused
+    from repro_torch.serve.store_engine import CiaoServeEngine
+
+    chunks, plan, engine = run["chunks"], run["plan"], run["engine"]
+    queries = run["queries"]
+    want = [r.count for r in run["results"]]
+    objs = [json.loads(chunks[0].record(i)) for i in range(800)]
+    router = ShardRouter.from_samples(4, choose_routing_key(plan), objs)
+    bvs = []
+
+    def evaluate(chunk, tier):
+        """kernel A, in the feeder, just before the submit"""
+        bv = engine.eval_fused(chunk, plan.clauses)
+        bvs.append(bv)
+        return bv
+
+    b_calls: dict[str, int] = {}
+    lock = threading.Lock()
+    scan_counts = device_scan.scan_counts
+
+    def noted(*args, **kw):
+        """kernel B's wrapper, noting the calling thread"""
+        name = threading.current_thread().name
+        with lock:
+            b_calls[name] = b_calls.get(name, 0) + 1
+        return scan_counts(*args, **kw)
+
+    def readers(tag: str, min_loops: int) -> list:
+        return [Reader(serve, queries, ("device",), min_loops=min_loops,
+                       name=f"{tag}-device-0"),
+                Reader(serve, queries, ("device",), min_loops=min_loops,
+                       name=f"{tag}-device-1"),
+                Reader(serve, queries, ("host",), min_loops=min_loops,
+                       name=f"{tag}-host"),
+                Reader(serve, queries, batch=64, min_loops=min_loops,
+                       name=f"{tag}-batch")]
+
+    store = ShardedCiaoStore(plan, router=router)
+    # ---- store serving: counters at 0 just before, read just after ----
+    torch.cuda.synchronize()
+    _zero_counters()
+    torch.cuda.reset_peak_memory_stats()
+    serve = CiaoServeEngine(store, device_backend="cuda",
+                            result_cache=ResultCache())
+    device_scan.scan_counts = noted
+    try:
+        live_readers = readers("live", 1)
+        live = live_ingest(serve, [(c, None, None) for c in chunks],
+                           live_readers, evaluate=evaluate)
+        bundles = bundle_report(serve.stats_report()["snapshots"])
+        b_live = scan_fused.launches
+        peak_live = torch.cuda.max_memory_allocated()
+        quiesced = run_readers(readers("quiesced", 2))
+        t0 = time.perf_counter()
+        res = {m: [serve.query(q, mode=m) for q in queries]
+               for m in ("host", "batch", "device")}
+        t_check = time.perf_counter() - t0
+        rep = serve.stats_report()["engine"]
+    finally:
+        device_scan.scan_counts = scan_counts
+        serve.close()
+    launches = {"pushdown": fused.launches, "scan": scan_fused.launches}
+    peak = torch.cuda.max_memory_allocated()
+    # -----------------------------------------------------------------------
+    n = len(chunks)
+    per = bundles["per_device_bundle"]
+    print(f"  engine: {rep['writers']} writers, queue depth 64, refresh "
+          f"0.02 s; {rep['submitted']} chunks submitted, {rep['enqueued']} "
+          f"slices enqueued, {rep['drained']} drained, {rep['errors']} "
+          f"errors")
+    print(f"  ingest through the engine: {live['wall_s'] / n * 1e3:.3f} ms "
+          f"per chunk to quiesced ({live['feed_s'] / n * 1e3:.3f} ms per "
+          f"submit, of which kernel A {live['eval_s'] / n * 1e3:.3f}); "
+          f"blocked {rep['blocked_s']:.3f} s on full queues")
+    print(f"  snapshot bundles built during ingest: {bundles['bundles']} "
+          f"(capture, the shard locks' wait included: mean "
+          f"{bundles['capture_s'] / max(1, bundles['bundles']) * 1e3:.1f} "
+          f"ms, max {bundles['capture_max_s'] * 1e3:.1f}), "
+          f"{bundles['device_bundles']} with a device scanner; per device "
+          f"bundle {per['uploads']:.1f} uploads, {per['upload_mib']:.2f} "
+          f"MiB, {per['sync_ms']:.2f} ms host in sync (totals "
+          f"{bundles['uploads']} uploads, {bundles['upload_mib']:.1f} MiB, "
+          f"{bundles['sync_s'] * 1e3:.1f} ms)")
+    lat = {"live": {}, "quiesced": {}}
+    for tag, rs in (("live", live_readers), ("quiesced", quiesced)):
+        for mode, group in (("device", rs[:2]), ("host", rs[2:3]),
+                            ("batch64", rs[3:])):
+            lat[tag][mode] = _latencies(group)
+        print(f"  {tag} latency, p50 / p99 ms: " + ", ".join(
+            f"{m} {v['p50_us'] / 1e3:.3f} / {v['p99_us'] / 1e3:.3f} "
+            f"({v['calls']} calls)" for m, v in lat[tag].items()))
+    print(f"  peak memory: {peak_live / 2**30:.2f} GiB during ingest, "
+          f"{peak / 2**30:.2f} GiB over the phase; quiesced checks "
+          f"{t_check:.1f} s")
+    print(f"  launches in this phase: {launches} (B {b_live} during ingest;"
+          f" by thread {dict(sorted(b_calls.items()))})")
+    for r in live_readers:
+        for qi, (_, hi) in r.counts.items():
+            if hi > want[qi]:
+                raise AssertionError(f"live {r.name}: {hi} > final "
+                                     f"{want[qi]}: {queries[qi].describe()}")
+    if rep["errors"] or rep["drained"] != rep["enqueued"] or \
+            rep["submitted"] != n:
+        raise AssertionError(f"engine counters: {rep}")
+    for m, rs in res.items():
+        if [r.count for r in rs] != want:
+            raise AssertionError(f"quiesced {m} counts != the main path's")
+    for q, d, h in zip(queries, res["device"], res["host"]):
+        if full_accounting(d) != full_accounting(h):
+            raise AssertionError(f"quiesced device != host: {q.describe()}")
+    if fused.launches != n:
+        raise AssertionError(f"{fused.launches} pushdown launches for {n} "
+                             f"chunks")
+    if scan_fused.launches != sum(b_calls.values()):
+        raise AssertionError(f"scan launches {scan_fused.launches} != "
+                             f"{sum(b_calls.values())} wrapper calls")
+    b_live_readers = sum(v for k, v in b_calls.items()
+                         if k.startswith("live-device-"))
+    if not b_live_readers:
+        raise AssertionError(f"no live device reader launched B: {b_calls}")
+    print(f"  every live count <= its final count; kernel B launched "
+          f"{b_live_readers} times by the live device readers; "
+          f"{len(queries)} quiesced queries equal to the main path's in "
+          f"host, batch and device mode, device == host in full accounting")
+    return {"launches": launches, "b_live": b_live, "b_calls": b_calls,
+            "router": router, "bvs": bvs, "live": live,
+            "bundles": bundles, "latency": lat, "peak_live": peak_live,
+            "peak": peak, "blocked_s": rep["blocked_s"]}
+
+
+def online_tuner(run, serving, dev, n_records: int, oracle) -> dict:
+    """The tuner after a workload drift (the JAX package's
+    benchmarks/bench_tuner.py): a 4-shard store range-routed on
+    linear_score, the first ``n_records`` of the store-serving phase's
+    chunks with their bitvectors; panel A (8 point lookups on
+    linear_score), then panel B (8 on visits) on the stale layout, whose
+    scans feed the query log; then CiaoServeEngine.start_tuner(
+    PhysicalDesignTuner(store), interval_s=0.02) while four device-mode
+    readers answer panel B until the migration finishes; then panel B
+    again.  Counts are held to FullScanBaseline (``oracle``, counted in
+    other processes) in every phase."""
+    import torch
+    from repro_torch.benchmarks import bench_tuner as bt
+    from repro_torch.benchmarks.bench_serve import bundle_report
+    from repro_torch.core.shard import ShardedCiaoStore, ShardedScanner
+    from repro_torch.core.tuner import PhysicalDesignTuner
+    from repro_torch.kernels import fused, scan_fused
+    from repro_torch.serve.store_engine import CiaoServeEngine
+
+    n = n_records // CHUNK
+    store = ShardedCiaoStore(run["plan"], router=serving["router"])
+    for chunk, bv in zip(run["chunks"][:n], serving["bvs"][:n]):
+        store.ingest_chunk(chunk, bv)
+    panel_a, panel_b = bt.panel(*PANEL_A), bt.panel(*PANEL_B)
+    want = finish_baseline(oracle)
+    want_a, want_b = want[:len(panel_a)], want[len(panel_a):]
+    split = {}
+    # ---- the tuner: counters at 0 just before, read just after ----
+    torch.cuda.synchronize()
+    _zero_counters()
+    torch.cuda.reset_peak_memory_stats()
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    first = bt.timed_panel(store, panel_a + panel_b, want, passes=1)
+    t_first = time.perf_counter() - t0
+    before = bt.timed_panel(store, panel_a, want_a, passes=6)
+    post_drift = bt.timed_panel(store, panel_b, want_b, passes=6)
+    serve = CiaoServeEngine(store, device_backend="cuda")
+    try:
+        def note_split(tag: str) -> None:
+            split[tag] = bt.plane_split(serve.snapshot(), dev)
+
+        tuner = PhysicalDesignTuner(store)
+        mig = bt.migrate_under_readers(
+            serve, tuner, panel_b, want_b, modes=("device",),
+            query_threads=4, quiesced_s=1.0, interval_s=0.02,
+            before_tuner=lambda: note_split("before"))
+        bundles = bundle_report(serve.stats_report()["snapshots"])
+        b_during = scan_fused.launches
+        serve.quiesce()
+        after_dev = [serve.query(q, mode="device").count for q in panel_b]
+        note_split("after")
+        b_after = scan_fused.launches - b_during
+        errors = serve.stats_report()["engine"]["errors"]
+    finally:
+        serve.close()
+    after = bt.timed_panel(store, panel_b, want_b, passes=6)
+    probe_scan = ShardedScanner(store, log_queries=False, telemetry=False)
+    pruned = sum(probe_scan.scan(q).shards_pruned for q in panel_b)
+    launches = {"pushdown": fused.launches, "scan": scan_fused.launches}
+    peak = torch.cuda.max_memory_allocated()
+    t_phase = time.perf_counter() - t_phase
+    # -----------------------------------------------------------------------
+    m = tuner.migration
+    recovery = after["qps"] / post_drift["qps"]
+    q99, d99 = mig["quiesced"]["p99_us"], mig["during"]["p99_us"]
+    print(f"  store: {store.stats.n_records} records in 4 shards, routed on "
+          f"{PANEL_A[0]!r}; first pass of both panels {t_first:.1f} s "
+          f"(raw promotion, columns, zone maps)")
+    print(f"  qps (host, one thread, 6 passes of 8): before (panel A) "
+          f"{before['qps']:.1f}, post-drift (panel B) "
+          f"{post_drift['qps']:.1f}, after {after['qps']:.1f}; recovery "
+          f"{recovery:.3f}x")
+    print(f"  tuner: {[e.describe() for e in tuner.history]}")
+    print(f"  migration: {m.rows_moved} rows moved, {m.rows_kept} kept, "
+          f"{m.segments_moved} items, {m.batches} batches in "
+          f"{mig['migrate_s']:.1f} s; shards pruned after: {pruned} over "
+          f"panel B")
+    print(f"  device readers (4): p99 {d99 / 1e3:.3f} ms during the "
+          f"migration ({mig['during']['queries']} queries) against "
+          f"{q99 / 1e3:.3f} ms quiesced ({mig['quiesced']['queries']}), "
+          f"{d99 / q99:.2f}x; p50 {mig['during']['p50_us'] / 1e3:.3f} / "
+          f"{mig['quiesced']['p50_us'] / 1e3:.3f} ms")
+    print(f"  rows on kernel B / host fallback: before the retune "
+          f"{split['before']}, after {split['after']}")
+    print(f"  snapshot bundles over the readers' phases: {bundles}")
+    print(f"  peak memory {peak / 2**30:.2f} GiB; launches in this phase: "
+          f"{launches} (B {b_during} through the migration, {b_after} "
+          f"after); phase {t_phase:.1f} s")
+    if not (first["counts_match"] and before["counts_match"]
+            and post_drift["counts_match"] and after["counts_match"]
+            and mig["counts_match"] and after_dev == want_b):
+        raise AssertionError("a tuner-phase count != FullScanBaseline")
+    if store.router.key != PANEL_B[0]:
+        raise AssertionError(f"router key {store.router.key!r}")
+    if m.batches < 2 or m.rows_moved <= 0:
+        raise AssertionError(f"migration not incremental: {m.batches} "
+                             f"batches, {m.rows_moved} rows moved")
+    if pruned <= 0 or errors:
+        raise AssertionError(f"{pruned} shards pruned after, {errors} "
+                             f"engine errors")
+    if b_during < 1 or b_after < 1:
+        raise AssertionError(f"B launches: {b_during} during, {b_after} "
+                             f"after the migration")
+    print(f"  counts equal to FullScanBaseline in every phase (its "
+          f"{len(want)} counts from other processes)")
+    return {"launches": launches, "b_during": b_during, "b_after": b_after,
+            "recovery": recovery, "p99_ratio": d99 / q99, "split": split,
+            "rows_moved": m.rows_moved, "batches": m.batches,
+            "phase_s": t_phase, "peak": peak}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--records", type=int, default=1 << 20,
@@ -2001,6 +2340,7 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     if args.records < CHUNK or args.records % CHUNK:
         ap.error("--records must be a positive multiple of 8192")
+    tuner_records = min(TUNER_RECORDS, args.records)
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2032,6 +2372,13 @@ def main(argv=None) -> int:
     split = split_path(run, dev)
     phase("wide scan batch: 200 uniform queries in one DeviceScanner batch")
     scan = wide_batch(run, dev)
+    # every profiler timing comes before the serve path: in this script's
+    # runs, traces that recorded no launch of their kernel (up to five in
+    # a row, a second apart) came only after the model had served
+    phase("kernels at main-path shapes")
+    rows = (kernel_table(run, scan, dev)
+            + split_kernel_rows(run, split, dev, reduce))
+    f_timing = flash_timing(dev)
     phase("sharded plane: the main path's records in 4 shards")
     t0 = time.perf_counter()
     sharded = sharded_plane(run, dev)
@@ -2040,6 +2387,22 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     fleet = client_fleet(dev)
     print(f"  phase {time.perf_counter() - t0:.1f} s")
+    from repro_torch.benchmarks.bench_tuner import panel
+    # the tuner phase's oracle, counted in other processes meanwhile
+    oracle = start_baseline(run["chunks"][:tuner_records // CHUNK],
+                            panel(*PANEL_A) + panel(*PANEL_B))
+    try:
+        phase("store serving: CiaoServeEngine, live ingest + device scans")
+        t0 = time.perf_counter()
+        serving = store_serving(run, dev)
+        print(f"  phase {time.perf_counter() - t0:.1f} s")
+        phase(f"online tuner: drift to 'visits', migration under device "
+              f"readers ({tuner_records} records)")
+        t0 = time.perf_counter()
+        tuned = online_tuner(run, serving, dev, tuner_records, oracle)
+        print(f"  phase {time.perf_counter() - t0:.1f} s")
+    finally:
+        oracle[0].shutdown(cancel_futures=True)
     phase("kernel F: flash attention vs plain version")
     check_flash(dev)
     phase(f"serve path: {' '.join(SERVE_ARGS)}")
@@ -2048,13 +2411,14 @@ def main(argv=None) -> int:
     serve_breakdown(dev)
     phase("exactness at full width: forward vs prefill + decode (f32)")
     exactness_f32(dev)
-    phase("kernels at main-path shapes")
-    rows = (kernel_table(run, scan, dev)
-            + split_kernel_rows(run, split, dev, reduce) + [flash_row(serve)])
+    rows.append(flash_row(f_timing, serve))
     # launches on this slice's paths, each read from its own phase
     rows[0]["launches_client_fleet"] = fleet["launches"]["pushdown"]
     rows[1]["launches_sharded_plane"] = sharded["launches"]["scan"]
     rows[1]["launches_client_fleet"] = fleet["launches"]["scan"]
+    for r, k in ((rows[0], "pushdown"), (rows[1], "scan")):
+        r["launches_store_serving"] = serving["launches"][k]
+        r["launches_tuner"] = tuned["launches"][k]
     c_row = next(r for r in rows if r["name"].startswith("bitvector_reduce"))
     c_row["launches_sharded_plane"] = sharded["launches"]["reduce"]
     c_row["launches_sharded_plane_by"] = {
@@ -2073,6 +2437,9 @@ def main(argv=None) -> int:
               f"{r['plain_ms']:.3f} ms; bound {r['bound_ms']:.5f} ms by "
               f"{r['bound_by']}{lib}; {r['launches']} launches on the path) "
               f"at {r['shape']}")
+    from repro_torch.benchmarks import bench_reduce
+    print(f"  profiler traces retried, no record of the kernel in them: "
+          f"{bench_reduce.missed or 'none'}")
     print(f"  total {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"kernels": rows}))

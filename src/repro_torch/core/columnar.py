@@ -580,6 +580,13 @@ class SegmentBuilder:
     amortize per-segment Python overhead).  ``view()`` materializes the
     open tail as a segment for the query path, cached until the next
     append, so scans between ingests pay the column build once.
+
+    Thread-safety: ``add``, ``seal`` and ``view`` change or read the open
+    tail under one lock per builder.  Live scans reach ``view()`` without
+    the store's ingest lock, so a view is built from copies of the lists
+    taken under that lock, and is cached only if no ``add`` or ``seal``
+    came in while it was built: a view never sees a half-appended chunk,
+    and the cached view is never older than the last append.
     """
 
     epoch: int
@@ -594,6 +601,8 @@ class SegmentBuilder:
         self._objs: list[dict] = []
         self._bits: list[np.ndarray] = []   # bool[n_covered, k] per chunk
         self._view: ColumnarSegment | None = None
+        self._version = 0                   # bumped by every add and seal
+        self._lock = threading.Lock()
 
     @property
     def n_rows(self) -> int:
@@ -606,40 +615,57 @@ class SegmentBuilder:
             raise ValueError(
                 f"bits shape {bits.shape} != ({self.n_covered}, "
                 f"{len(records)})")
-        self._view = None
-        self._records.extend(records)
-        self._objs.extend(objs)
-        self._bits.append(np.asarray(bits, bool))
-        if len(self._records) >= self.capacity:
-            return [self.seal()]
-        return []
+        with self._lock:
+            self._records.extend(records)
+            self._objs.extend(objs)
+            self._bits.append(np.asarray(bits, bool))
+            self._version += 1
+            self._view = None
+            if len(self._records) < self.capacity:
+                return []
+            tail = self._detach()
+        return [self._build(*tail)]
 
-    def _build(self) -> ColumnarSegment:
-        n = len(self._records)
-        if self._bits:
-            bits = np.concatenate(self._bits, axis=1)
-        else:
-            bits = np.zeros((self.n_covered, n), bool)
+    def _detach(self) -> tuple[list, list, list]:
+        """Take the open tail's lists and reset the builder (caller holds
+        ``_lock``)."""
+        tail = (self._records, self._objs, self._bits)
+        self._records, self._objs, self._bits = [], [], []
+        self._version += 1
+        self._view = None
+        return tail
+
+    def _build(self, records: list[bytes], objs: list[dict],
+               bits: list[np.ndarray]) -> ColumnarSegment:
+        n = len(records)
         return ColumnarSegment(
-            records=self._records, objs=self._objs,
-            bitvectors=bitvector.pack(bits) if n else
-            np.zeros((self.n_covered, 0), np.uint32),
+            records=records, objs=objs,
+            bitvectors=bitvector.pack(np.concatenate(bits, axis=1)) if n
+            else np.zeros((self.n_covered, 0), np.uint32),
             epoch=self.epoch, n_covered=self.n_covered, tier=self.tier,
             eager_keys=self.eager_keys,
         )
 
     def view(self) -> ColumnarSegment:
         """Query-path view of the open tail (cached until the next add)."""
-        if self._view is None:
-            self._view = self._build()
-        return self._view
+        with self._lock:
+            if self._view is not None:
+                return self._view
+            version = self._version
+            tail = (list(self._records), list(self._objs), list(self._bits))
+        seg = self._build(*tail)
+        with self._lock:
+            if self._version != version:
+                return seg           # an add or seal came in: don't cache
+            if self._view is None:
+                self._view = seg
+            return self._view
 
     def seal(self) -> ColumnarSegment:
         """Finalize and reset the builder."""
-        seg = self._build()
-        self._records, self._objs, self._bits = [], [], []
-        self._view = None
-        return seg
+        with self._lock:
+            tail = self._detach()
+        return self._build(*tail)
 
 
 def build_segments(records: Sequence[bytes], bits: np.ndarray, *,

@@ -18,7 +18,9 @@ host->device boundary again:
     later ``sync`` (uploads are counted, so tests can pin the
     steady-state transfer count at zero);
   * **instrumentation** — ``uploads`` / ``upload_bytes`` count every
-    host->device transfer of segment *column* payload.  Per-scan
+    host->device transfer of segment *column* payload; ``syncs``,
+    ``admitted`` and ``sync_s`` count the ``sync`` calls, the segments
+    they admitted and the host seconds spent in them.  Per-scan
     parameter tables (dictionary code lookups, substring LUTs, pushed
     masks) are O(terms x slots) and intentionally not counted as
     segment traffic — they are the query, not the data.
@@ -34,6 +36,7 @@ the *pushed masks* resolved per scan via ``store.pushed_by_epoch``.
 """
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass
 from typing import Sequence
 
@@ -86,6 +89,9 @@ class DeviceSegmentCache:
         self._tick = 0
         self.uploads = 0          # host->device segment-column transfers
         self.upload_bytes = 0
+        self.syncs = 0            # sync() calls
+        self.admitted = 0         # segments admitted by them
+        self.sync_s = 0.0         # host seconds in sync()
         self.evictions = 0
         # per-(segment, term) parameter memo: code tables & substring LUTs
         self._term_cache: dict[tuple[int, SimplePredicate], tuple] = {}
@@ -136,6 +142,7 @@ class DeviceSegmentCache:
         transfers; ingest-heavy phases re-admit the changed tails —
         that churn is counted by ``uploads``, not hidden.
         """
+        t0 = time.perf_counter()
         live: dict[int, tuple[ColumnarSegment, bool]] = {}
         for seg in store.blocks:
             live[id(seg)] = (seg, False)
@@ -149,6 +156,9 @@ class DeviceSegmentCache:
         if fresh:
             self._admit(fresh)
         self._enforce_budget()
+        self.syncs += 1
+        self.admitted += len(fresh)
+        self.sync_s += time.perf_counter() - t0
         return len(fresh)
 
     def _admit(self, pairs: Sequence[tuple[ColumnarSegment, bool]]) -> None:

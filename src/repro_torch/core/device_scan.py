@@ -44,6 +44,7 @@ data_version)``) and every scan is folded into the store's
 """
 from __future__ import annotations
 
+import threading
 import time
 from dataclasses import dataclass
 from typing import Sequence
@@ -117,6 +118,7 @@ class DeviceScanner:
         # queries; shares the store, so memoized segment state is shared
         self._host = DataSkippingScanner(store, log_queries=False,
                                          telemetry=False)
+        self._lock = threading.Lock()      # one scan_batch at a time
 
     # -- public API ---------------------------------------------------------
 
@@ -132,7 +134,15 @@ class DeviceScanner:
         imply a re-scan would promote nothing) and misses are compiled
         into one launch; fresh results are stored at the post-batch
         ``data_version``.
+
+        Calls from several threads run one at a time: the segment cache
+        updates its resident tensors and slot tables in place, so an
+        admission must not interleave with another call's launch.
         """
+        with self._lock:
+            return self._scan_batch(queries)
+
+    def _scan_batch(self, queries: Sequence[Query]) -> list[ScanResult]:
         t0 = time.perf_counter()
         store = self.store
         queries = tuple(queries)
@@ -350,6 +360,7 @@ class ShardedDeviceScanner:
                           telemetry=False)
             for s in store.shards
         ]
+        self._lock = threading.Lock()
 
     @property
     def caches(self) -> list[DeviceSegmentCache]:
@@ -359,6 +370,12 @@ class ShardedDeviceScanner:
         return self.scan_batch([q])[0]
 
     def scan_batch(self, queries: Sequence[Query]) -> list[ScanResult]:
+        """Scatter-gather of one batch; calls from several threads run one
+        at a time, as :meth:`DeviceScanner.scan_batch` does."""
+        with self._lock:
+            return self._scan_batch(queries)
+
+    def _scan_batch(self, queries: Sequence[Query]) -> list[ScanResult]:
         t0 = time.perf_counter()
         store = self.store
         queries = tuple(queries)

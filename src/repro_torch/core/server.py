@@ -445,11 +445,19 @@ class CiaoStore:
         tails in last-touched order (so ``blocks[-1]`` is the most recent
         ingest's coverage group).  Builder views are cached until their
         next append — repeated scans between ingests pay the column build
-        once."""
+        once.
+
+        Live scans call this without the ingest lock.  The sealed list is
+        read first, then the builders are listed in one step and viewed:
+        a tail sealed in between is in neither (a concurrent ingest can
+        only make the result miss rows, never count one twice), and its
+        builder's view is then empty and dropped."""
+        segs = list(self.segments)
         open_tails = sorted(
-            (b for b in self._builders.values() if b.n_rows),
+            (b for b in list(self._builders.values()) if b.n_rows),
             key=lambda b: b.touch_seq)
-        return self.segments + [b.view() for b in open_tails]
+        views = [b.view() for b in open_tails]
+        return segs + [v for v in views if v.n_rows]
 
     @property
     def jit_blocks(self) -> list[ColumnarSegment]:

@@ -13,8 +13,8 @@ functions and the cache length the serve entry point uses:
     cache is updated in place, so steady-state decode allocates no cache
     (the counterpart of the JAX package's donated cache).
 
-Sharded caches and parameter layouts come with the sharded plane
-(ROADMAP.md Queue 1, item 8).
+Sharded caches and parameter layouts come with the model mesh
+(ROADMAP.md Queue 1, item 14).
 """
 from __future__ import annotations
 
