@@ -57,8 +57,20 @@ budgets for different clients:
 
 at 2 chunks per client (the clients make their records in this process),
 every client's chunks at its assigned tier and every count equal to
-FullScanBaseline, before and after the replan.  Then the store's serving
-plane and its online tuner:
+FullScanBaseline, before and after the replan.  Then the paper's own
+evaluation, Figs 3-5 at 1.0 us/record (repro_torch.benchmarks):
+
+  the 9 dataset x workload cells (winlog, yelp, ycsb x A, B, C), 20,000
+  records and 60 queries each, through run_end_to_end
+    -> KernelEngine("cuda") on every 1,000-record chunk     [kernel A]
+    -> CiaoStore partial load, DataSkippingScanner (host)
+    -> DeviceScanner("cuda"), first and steady pass         [kernel B]
+
+every chunk's bitvectors bit-equal to NumpyEngine's, every count equal to
+FullScanBaseline's in host and device mode, the loading, query, end-to-end
+and overlapped speedups printed per cell; then bench_device at its quick
+size, its correctness gates held.  Then the store's serving plane and its
+online tuner:
 
   CiaoServeEngine(ShardedCiaoStore, 4 range shards, device_backend="cuda",
                   result_cache=ResultCache())
@@ -1583,17 +1595,10 @@ def scan_timing(scanner, prep, dev, numpy: bool = True) -> dict:
         lambda: scan_fused.scan_core_cuda(plane, params), 20)
     table_ms = host_ms(lambda: scan_fused.scan_table(params), 20)
     plain_ms = cuda_ms(lambda: scan_fused.scan_core(plane, params), 3)
+    from repro_torch.benchmarks.bench_device import scan_bytes
     n = scanner.cache._n_used
-    need = {scan_fused.KIND_PRESENCE: (("notn", 1),),
-            scan_fused.KIND_EXACT: (("scod", 4),),
-            scan_fused.KIND_SUBSTRING: (("scod", 4),),
-            scan_fused.KIND_KV: (("pres", 1), ("notn", 1), ("isb", 1),
-                                 ("numv", 1), ("rcod", 4))}
-    cells = {(int(k), a) for k, kind in zip(params.key_ids, params.kinds)
-             for a in need.get(int(kind), ())}
     Q, S1 = params.pushed_tbl.shape
-    nbytes = (sum(size for _, (_, size) in cells) * n + 8 * n
-              + sum(np.asarray(a).nbytes for a in params) + 2 * Q * S1 * 4)
+    nbytes = scan_bytes(params, n)
     return {
         "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
         "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
@@ -2050,6 +2055,89 @@ def client_fleet(dev) -> dict:
             "budget": budget, "run_s": t_run, "scan_s": t_scan}
 
 
+#: the end-to-end phase (paper Figs 3-5): the reference grid's records
+#: per cell and executed queries, at the paper's headline budget
+E2E_RECORDS = 20000
+E2E_QUERIES = 60
+E2E_BUDGET = 1.0
+
+
+def end_to_end(dev) -> dict:
+    """Paper Figs 3-5 at 1.0 us/record: the 9 dataset x workload cells of
+    ``repro_torch.benchmarks.bench_end_to_end`` at 20,000 records, each
+    through the port's ``run_end_to_end`` with KernelEngine("cuda")
+    (kernel A on every 1,000-record chunk) and DeviceScanner("cuda")
+    (kernel B, the first and the steady pass). Every chunk's packed
+    bitvectors are held bit for bit to NumpyEngine's and the loaded-row
+    count to NumpyEngine's load mask (so n_pushed and the loading ratio are
+    a NumpyEngine run's); every count, host and device, to
+    FullScanBaseline's (``run_end_to_end`` raises on a difference). Then
+    ``bench_device`` at its quick size, its correctness gates held."""
+    import torch
+    from repro_torch.benchmarks import bench_device, bench_end_to_end
+    from repro_torch.benchmarks.common import make_workload, run_end_to_end
+    from repro_torch.core.client import NumpyEngine
+    from repro_torch.data.datasets import generate_records
+    from repro_torch.kernels import fused, scan_fused
+    from repro_torch.kernels.engine import KernelEngine
+
+    records = {ds: generate_records(ds, E2E_RECORDS, seed=17)
+               for ds in bench_end_to_end.DATASETS}
+    workloads = {(ds, w): make_workload(ds, w)
+                 for ds in bench_end_to_end.DATASETS
+                 for w in bench_end_to_end.WORKLOADS}
+    numpy_engine = NumpyEngine()
+    # ---- the cells: counters at 0 just before, read just after ----
+    torch.cuda.synchronize()
+    _zero_counters()
+    engine = KernelEngine("cuda")
+    rows = []
+    for (ds, w), wl in workloads.items():
+        r = run_end_to_end(ds, wl, E2E_BUDGET, n_records=E2E_RECORDS,
+                           n_queries_exec=E2E_QUERIES, engine=engine,
+                           records=records[ds], scan_backend="cuda",
+                           hold_to=numpy_engine)
+        rows.append(bench_end_to_end.row(r))
+        print(f"  {ds}/{w}: {r.n_pushed} pushed, loading ratio "
+              f"{r.loading_ratio:.4f} ({r.held_chunks} chunks bit-equal to "
+              f"NumpyEngine); load x{r.loading_speedup:.2f}, query "
+              f"x{r.query_speedup:.2f}, e2e x{r.end_to_end_speedup:.2f}, "
+              f"overlapped x{r.end_to_end_overlapped_speedup:.2f}; device "
+              f"query first {r.device_first_s * 1e3:.1f} ms, steady "
+              f"{r.device_steady_s * 1e3:.1f} ms (x"
+              f"{r.device_query_speedup:.2f}); {len(r.counts)} counts == "
+              f"FullScanBaseline, host and device", flush=True)
+    launches = {"pushdown": fused.launches, "scan": scan_fused.launches}
+    # -----------------------------------------------------------------------
+    print(f"  launches in the 9 cells: {launches}")
+    if min(launches.values()) < 1:
+        raise AssertionError(f"a kernel was not launched: {launches}")
+    best = bench_end_to_end.best(rows)
+    print("  best: " + ", ".join(
+        f"{k} x{v['x']:.2f} ({v['dataset']}/{v['workload']})"
+        for k, v in best.items()) + " (paper: 21x / 23x / 19x)")
+    print("  e2e cells: " + json.dumps(
+        [{k: v for k, v in r.items() if k != "counts"} for r in rows]))
+
+    b_before = scan_fused.launches
+    out = bench_device.run(n_records=6144, repeats=2, quick=True,
+                           device="cuda")
+    if not out["counts_match"] or out["uploads_steady"] != 0 or \
+            not 0 < out["roofline_frac"] <= 1:
+        raise AssertionError(f"bench_device's correctness gates: "
+                             f"counts_match {out['counts_match']}, steady "
+                             f"uploads {out['uploads_steady']}, roofline "
+                             f"fraction {out['roofline_frac']}")
+    print(f"  bench_device (quick): counts exact, 0 steady uploads; x"
+          f"{out['speedup']:.2f} over numpy (quick floor 0.5), batch-of-8 "
+          f"x{out['batch8_speedup']:.2f} (quick floor 0.8), wrapper call "
+          f"{out['roofline']['measured_s'] * 1e6:.1f} us against a bytes "
+          f"bound of {out['roofline']['step_time_s'] * 1e6:.3f} us "
+          f"({scan_fused.launches - b_before} B launches)")
+    return {"launches": launches, "rows": rows, "best": best,
+            "device": out}
+
+
 #: the tuner phase's store: the first TUNER_RECORDS of the main path's
 #: records (all of them where ``--records`` is smaller)
 TUNER_RECORDS = 1 << 18
@@ -2387,6 +2475,11 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     fleet = client_fleet(dev)
     print(f"  phase {time.perf_counter() - t0:.1f} s")
+    phase(f"end to end (paper Figs 3-5): 9 cells at {E2E_BUDGET} us/record, "
+          f"{E2E_RECORDS} records, kernels A and B")
+    t0 = time.perf_counter()
+    e2e = end_to_end(dev)
+    print(f"  phase {time.perf_counter() - t0:.1f} s")
     from repro_torch.benchmarks.bench_tuner import panel
     # the tuner phase's oracle, counted in other processes meanwhile
     oracle = start_baseline(run["chunks"][:tuner_records // CHUNK],
@@ -2416,6 +2509,8 @@ def main(argv=None) -> int:
     rows[0]["launches_client_fleet"] = fleet["launches"]["pushdown"]
     rows[1]["launches_sharded_plane"] = sharded["launches"]["scan"]
     rows[1]["launches_client_fleet"] = fleet["launches"]["scan"]
+    rows[0]["launches_end_to_end"] = e2e["launches"]["pushdown"]
+    rows[1]["launches_end_to_end"] = e2e["launches"]["scan"]
     for r, k in ((rows[0], "pushdown"), (rows[1], "scan")):
         r["launches_store_serving"] = serving["launches"][k]
         r["launches_tuner"] = tuned["launches"][k]

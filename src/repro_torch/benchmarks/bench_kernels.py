@@ -130,8 +130,8 @@ def main(n_records: int = 4000, n_clauses: int = 12, repeats: int = 3,
             raise AssertionError(f"{name} disagrees with {engines[0][0]}")
         rows.append({
             "engine": name, "backend": backend,
-            "device": _device_name(backend),
-            "records_per_s": n_records / best,
+            "device": _device_name(backend), "interpret": False,
+            "records_per_s": int(n_records / best),
             "us_per_record": best / n_records * 1e6,
             "effective_GBps": chunk_bytes * n_clauses / best / 1e9,
         })

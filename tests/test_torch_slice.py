@@ -120,7 +120,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             else:
                 continue
             for n in names:
-                if n.split(".")[0] in ("jax", "jaxlib", "repro"):
+                if n.split(".")[0] in ("jax", "jaxlib", "repro", "benchmarks"):
                     bad.append(f"{path.relative_to(ROOT)}: {n}")
     assert not bad, bad
 
@@ -138,7 +138,14 @@ def test_import_walk_covers_every_port_module():
                 "data/tokenizer.py", "models/__init__.py", "models/layers.py",
                 "models/attention.py", "models/transformer.py",
                 "models/model.py", "models/convert.py", "serve/__init__.py",
-                "serve/engine.py", "launch/__init__.py", "launch/serve.py"):
+                "serve/engine.py", "launch/__init__.py", "launch/serve.py",
+                "benchmarks/common.py", "benchmarks/bench_end_to_end.py",
+                "benchmarks/bench_micro.py", "benchmarks/bench_cost_model.py",
+                "benchmarks/bench_selection.py", "benchmarks/bench_replan.py",
+                "benchmarks/bench_tiers.py", "benchmarks/bench_scan.py",
+                "benchmarks/bench_device.py", "benchmarks/bench_batch.py",
+                "benchmarks/bench_shard.py", "benchmarks/bench_skip.py",
+                "benchmarks/bench_schema.py", "benchmarks/run.py"):
         assert f"src/repro_torch/{mod}" in walked, mod
 
 
