@@ -105,6 +105,23 @@ checked by (i) layer 0's q, k, v captured from the serving prefill, F's
 output against the plain version, and (ii) in f32, forward logits at
 position S-1 against prefill(S-1) + one decode step (B=2, S=128).
 
+Then the training path, kernel F under a gradient (its forward, then the
+plain version's recompute under autograd in the backward):
+
+  (1) qwen3-1.7b at full width and 2 layers, f32 and bf16: Model.loss and
+      every gradient through F's autograd Function against autograd over
+      the plain version; every gradient finite and non-zero, the routes
+      within F's forward bounds of each leaf's max |g|;
+  (2) repro_torch.launch.train.main(["--arch", "qwen3-1.7b", "--batch",
+      "8", "--seq", "256", "--steps", "8"]): CIAO ingest (NumpyEngine
+      clients, work stealing), recipe batches, 28 layers with f32 master
+      parameters, bf16 compute, each layer checkpointed, AdamW; every loss
+      finite, every parameter leaf changed, F launched twice per layer per
+      step (the forward and the recompute); step ms, tokens/s, MFU, peak
+      memory;
+  (3) tests/test_train.py's crash at step 6 and resume to step 10, at the
+      reduced config, with the checkpoints in a temporary directory.
+
 Kernel C is also held at contiguous row slices off 16 bytes, rows 4-12
 bytes past 16 at W % 4 == 0, the one-block width +- 1 and a bytes-bound
 probe (P=12, W=2,097,152; not a path shape), and measured around its
@@ -127,6 +144,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import multiprocessing as mp
 import os
 import subprocess
@@ -1397,6 +1415,273 @@ def exactness_f32(dev) -> float:
     return err
 
 
+# ---------------------------------------------------------------------------
+# training: launch/train.py, Model.loss, kernel F under a gradient
+# ---------------------------------------------------------------------------
+
+TRAIN_ARGS = ["--arch", SERVE_ARCH, "--batch", "8", "--seq", "256",
+              "--steps", "8"]
+#: layers of the full-width model in the gradient-route check
+GRAD_LAYERS = 2
+# F's route (its forward, then autograd through the plain version) against
+# autograd through the plain version alone: F's forward bounds
+# (FLASH_TOL), taken relative to each leaf's max |g|
+GRAD_TOL = FLASH_TOL
+#: crash and resume at the reduced config: tests/test_train.py's arguments
+RESUME_ARGS = ["--arch", SERVE_ARCH, "--reduced", "--dataset", "ycsb",
+               "--steps", "10", "--batch", "2", "--seq", "64",
+               "--ckpt-every", "2", "--n-clients", "2",
+               "--chunks-per-client", "2", "--chunk-records", "64",
+               "--log-every", "5"]
+#: bytes of f32 training state per parameter: params, AdamW's m and v
+STATE_BYTES_PER_PARAM = 12
+
+
+def _leaf_names(tree, prefix: str = "") -> list[str]:
+    """Leaf paths of a nested dict in ``layers.tree_leaves`` order."""
+    if isinstance(tree, dict):
+        return [n for k in sorted(tree)
+                for n in _leaf_names(tree[k], f"{prefix}/{k}" if prefix
+                                     else k)]
+    return [prefix]
+
+
+def gradient_routes(dev) -> dict:
+    """(1) The loss and every gradient at full width and GRAD_LAYERS
+    layers, f32 and bf16, through F's autograd Function (the trainer's
+    route) and through autograd over the plain version; every gradient
+    finite and non-zero, the routes within GRAD_TOL of each leaf's max
+    |g|."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import ShapeConfig, get_config, make_batch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models.attention import flash_attention_plain
+    from repro_torch.models.layers import tree_leaves
+    from repro_torch.models.model import build_model
+    from repro_torch.train.train_step import value_and_grad
+
+    out = {}
+    for dt, tol in GRAD_TOL.items():
+        cfg = dataclasses.replace(get_config(SERVE_ARCH),
+                                  n_layers=GRAD_LAYERS, compute_dtype=dt)
+        model = build_model(cfg)
+        params = model.init(SEED, device=dev)
+        batch = {k: torch.from_numpy(v).to(dev) for k, v in make_batch(
+            cfg, ShapeConfig("grad", "train", 256, 8), seed=SEED).items()}
+        torch.cuda.synchronize()
+        fa.launches = 0
+        t0 = time.perf_counter()
+        loss_f, g_f = value_and_grad(model, params, batch)
+        torch.cuda.synchronize()
+        t_f = time.perf_counter() - t0
+        launches = fa.launches
+        t0 = time.perf_counter()
+        loss_p, g_p = value_and_grad(model, params, batch,
+                                     attention=flash_attention_plain)
+        torch.cuda.synchronize()
+        t_p = time.perf_counter() - t0
+        if fa.launches != launches:
+            raise AssertionError("the plain route launched kernel F")
+        worst, bad = 0.0, []
+        g_f, g_p = tree_leaves(g_f), tree_leaves(g_p)
+        for name, a, b in zip(_leaf_names(params), g_f, g_p):
+            if not all(torch.isfinite(g).all() and float(g.abs().max()) > 0
+                       for g in (a, b)):
+                bad.append(f"{name} (zero or not finite)")
+                continue
+            rel = float((a.float() - b.float()).abs().max()
+                        / b.float().abs().max())
+            worst = max(worst, rel)
+            if not rel <= tol:
+                bad.append(f"{name} ({rel:.3g})")
+        print(f"  (1) {dt}, {GRAD_LAYERS} layers at full width, B=8 S=256: "
+              f"loss {float(loss_f):.6f} (F) vs {float(loss_p):.6f} (plain);"
+              f" {len(g_f)} gradients, all finite and non-zero, F route vs "
+              f"plain max {worst:.3g} of the leaf's max |g| (tol {tol}); F "
+              f"launches {launches} ({GRAD_LAYERS} forward + {GRAD_LAYERS} "
+              f"in the checkpoint's recompute); {t_f * 1e3:.1f} ms vs "
+              f"{t_p * 1e3:.1f} ms (host clock)")
+        if bad or launches != 2 * GRAD_LAYERS:
+            raise AssertionError(f"gradient routes, {dt}: {bad}, F "
+                                 f"launches {launches}")
+        out[dt] = {"max_rel_err": worst, "launches": launches,
+                   "ms_f": t_f * 1e3, "ms_plain": t_p * 1e3}
+        del params, g_f, g_p
+    return out
+
+
+def train_full_width(dev, card: str) -> dict:
+    """(2) ``repro_torch.launch.train.main`` with TRAIN_ARGS: CIAO ingest,
+    then qwen3-1.7b at full width, f32 master parameters, bf16 compute,
+    AdamW.  Every loss finite, every parameter leaf changed, F launched on
+    every layer of every step (twice with remat "full": the forward and
+    the checkpoint's recompute)."""
+    import statistics
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import train
+    from repro_torch.models.layers import tree_leaves
+    from repro_torch.models.model import build_model
+
+    cfg = get_config(SERVE_ARCH)
+    n_params = build_model(cfg).param_count()
+    steps = int(TRAIN_ARGS[TRAIN_ARGS.index("--steps") + 1])
+    B = int(TRAIN_ARGS[TRAIN_ARGS.index("--batch") + 1])
+    S = int(TRAIN_ARGS[TRAIN_ARGS.index("--seq") + 1])
+    per_step = cfg.n_layers * (2 if cfg.remat == "full" else 1)
+    # ---- the training path: counters at 0 just before, read just after --
+    torch.cuda.synchronize()
+    _zero_counters()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    res = train.main(TRAIN_ARGS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = fa.launches
+    # -----------------------------------------------------------------------
+    peak = torch.cuda.max_memory_allocated(dev)
+    retries = torch.cuda.memory_stats(dev)["num_alloc_retries"]
+    reserved = torch.cuda.memory_reserved(dev)
+    trained = res.pop("params")
+    start = build_model(cfg).init(0, device=dev)     # main's --seed 0
+    same = [i for i, (a, b) in enumerate(zip(tree_leaves(start),
+                                             tree_leaves(trained)))
+            if torch.equal(a, b)]
+    del start, trained
+    step_ms = [t * 1e3 for t in res["step_s"]]
+    med = statistics.median(step_ms[2:])
+    tokens = B * S
+    mfu = 6 * n_params * tokens / (med * 1e-3) / BF16_FLOP_PER_S
+    print(f"  (2) {' '.join(TRAIN_ARGS)}: {res['steps_run']} steps in "
+          f"{wall:.1f} s (CIAO ingest and init included); step ms "
+          + ", ".join(f"{t:.1f}" for t in step_ms)
+          + f"; median after the first two {med:.3f} ms, "
+          f"{tokens / (med * 1e-3):.0f} tokens/s, MFU {mfu:.1%} (6 N tokens "
+          f"/ step time / 989 TFLOP/s, N {n_params:,}); peak "
+          f"max_memory_allocated {peak / 2**30:.2f} GiB, reserved "
+          f"{reserved / 2**30:.2f} GiB, allocator retries {retries}; {card}")
+    print(f"  loss first {res['first_loss']:.4f}, last "
+          f"{res['last_loss']:.4f} (warmup 100 steps: step {steps}'s lr is "
+          f"{steps}% of peak); kernel F launches {launches} "
+          f"({launches / steps:g} per step, {cfg.n_layers} layers x "
+          f"{per_step // cfg.n_layers}); loading ratio "
+          f"{res['loading_ratio']:.4f}")
+    if (res["steps_run"] != steps or res["device"] != "cuda"
+            or not all(math.isfinite(x) for x in res["losses"])):
+        raise AssertionError(f"training: {res}")
+    if same:
+        raise AssertionError(f"training left parameter leaves {same} as "
+                             "they were")
+    if launches != per_step * steps:
+        raise AssertionError(f"training: F launches {launches} != "
+                             f"{per_step} x {steps} steps")
+    return {"step_ms": step_ms, "median_ms": med, "tokens_per_s":
+            tokens / (med * 1e-3), "mfu": mfu, "peak_bytes": peak,
+            "launches": launches, "launches_per_step": launches // steps,
+            "param_count": n_params, "losses": res["losses"]}
+
+
+def crash_and_resume(n_params: int) -> dict:
+    """(3) tests/test_train.py's crash and resume, on the card, at the
+    reduced config."""
+    import tempfile
+
+    from repro_torch.launch import train
+    from repro_torch.train import checkpoint as ckpt
+
+    state_gb = n_params * STATE_BYTES_PER_PARAM / 1e9
+    print(f"  (3) the full-width state ({n_params:,} parameters x "
+          f"{STATE_BYTES_PER_PARAM} B = {state_gb:.1f} GB of f32 params, m "
+          f"and v) is not checkpointed in this script: writing it out and "
+          f"reading it back would take more than this phase's time; the "
+          f"crash and resume runs at the reduced config, as "
+          f"tests/test_train.py does")
+    with tempfile.TemporaryDirectory() as tmp:
+        d = os.path.join(tmp, "run")
+        args = RESUME_ARGS + ["--ckpt-dir", d]
+        try:
+            train.main(args + ["--fail-at-step", "6"])
+        except SystemExit as e:
+            if e.code != 42:
+                raise
+        else:
+            raise AssertionError("--fail-at-step 6 did not crash")
+        resumed_from = ckpt.latest_step(d)
+        res = train.main(args)
+        del res["params"]
+        if not (resumed_from is not None and 2 <= resumed_from <= 6
+                and 4 <= res["steps_run"] <= 8
+                and res["last_loss"] is not None
+                and ckpt.latest_step(d) == 10 and res["device"] == "cuda"):
+            raise AssertionError(f"crash and resume: from {resumed_from}, "
+                                 f"{res}")
+    print(f"  crashed at step 6, latest checkpoint step {resumed_from}, "
+          f"resumed and ran {res['steps_run']} steps to step 10 on "
+          f"{res['device']}; last loss {res['last_loss']:.4f}")
+    return {"resumed_from": resumed_from, "steps_run": res["steps_run"]}
+
+
+def flash_training_timing(dev) -> dict:
+    """Kernel F at the training shape (B 8, H 16/8, S 256, d 128, bf16),
+    CUDA events: its forward launch and its backward, the plain
+    version's recompute under autograd (FlashAttention.backward's
+    work)."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import attention as attn
+
+    B, S = 8, 256
+    _, H, Hkv, _, d = FLASH_SHAPE
+    rng = np.random.default_rng(SEED)
+    q, k, v, g = (torch.from_numpy(rng.normal(size=(B, S, h, d)).astype(
+        np.float32)).to(dev).to(torch.bfloat16) for h in (H, Hkv, Hkv, H))
+    pos = torch.arange(S, device=dev)
+
+    def backward():
+        qd, kd, vd = (t.detach().requires_grad_() for t in (q, k, v))
+        out = attn.flash_attention_plain(qd, kd, vd, q_positions=pos,
+                                         k_positions=pos)
+        torch.autograd.grad(out, (qd, kd, vd), g)
+
+    fwd = cuda_ms(lambda: fa.flash_attention(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)), 20)
+    bwd = cuda_ms(backward, 5)
+    print(f"  F at the training shape B={B} H={H}/{Hkv} S={S} d={d} bf16: "
+          f"forward {fwd:.4f} ms, backward (plain recompute + autograd) "
+          f"{bwd:.3f} ms (CUDA events)")
+    return {"shape": f"B={B} H={H} Hkv={Hkv} S={S} d={d} bfloat16 causal",
+            "forward_ms": fwd, "backward_recompute_ms": bwd}
+
+
+def training(dev, card: str) -> dict:
+    """The training phase: (1) gradient routes, (2) launch/train.py at
+    full width, (3) crash and resume; then F's times at the training
+    shape.  Frees what it allocated."""
+    import gc
+
+    import torch
+
+    def free() -> None:
+        # cached blocks of earlier phases' shapes would crowd the
+        # full-width state into allocator retries
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    free()
+    out = {"routes": gradient_routes(dev)}
+    free()
+    out["train"] = train_full_width(dev, card)
+    out["resume"] = crash_and_resume(out["train"]["param_count"])
+    out["flash"] = flash_training_timing(dev)
+    free()
+    return out
+
+
 #: kernel F's serving shape: batch, query heads, kv heads, prompt, head dim
 FLASH_SHAPE = (8, 16, 8, 512, 128)
 
@@ -2504,7 +2789,18 @@ def main(argv=None) -> int:
     serve_breakdown(dev)
     phase("exactness at full width: forward vs prefill + decode (f32)")
     exactness_f32(dev)
+    phase(f"training: gradient routes, {' '.join(TRAIN_ARGS)}, crash and "
+          "resume")
+    t0 = time.perf_counter()
+    trained = training(dev, card)
+    print(f"  phase {time.perf_counter() - t0:.1f} s")
     rows.append(flash_row(f_timing, serve))
+    rows[-1]["training"] = {
+        "launches": trained["train"]["launches"],
+        "launches_per_step": trained["train"]["launches_per_step"],
+        **trained["flash"],
+        "gradient_route_max_rel_err": {
+            dt: r["max_rel_err"] for dt, r in trained["routes"].items()}}
     # launches on this slice's paths, each read from its own phase
     rows[0]["launches_client_fleet"] = fleet["launches"]["pushdown"]
     rows[1]["launches_sharded_plane"] = sharded["launches"]["scan"]

@@ -10,7 +10,9 @@ so embedding tables of the assigned sizes are genuinely exercised.
 """
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
+from types import MappingProxyType
 
 import numpy as np
 
@@ -18,6 +20,19 @@ PAD_ID = 256
 BOS_ID = 257
 EOS_ID = 258
 N_SPECIALS = 3
+
+
+@functools.lru_cache(maxsize=8)
+def _pair_ids(vocab_size: int, pair_seed: int) -> MappingProxyType:
+    """Byte pair (a * 256 + b) -> its id, first pair of the table wins:
+    built once per (vocab size, seed), not per record.  At 151,936 ids the
+    table holds 65,536 pairs, and building it for every record made
+    tokenizing a recipe batch cost seconds of Python."""
+    pairs = ByteTokenizer(vocab_size, pair_seed)._pair_table()
+    table: dict[int, int] = {}
+    for i, (a, b) in enumerate(pairs):
+        table.setdefault(int(a) * 256 + int(b), 256 + N_SPECIALS + i)
+    return MappingProxyType(table)
 
 
 @dataclass(frozen=True)
@@ -40,12 +55,9 @@ class ByteTokenizer:
                add_bos: bool = True, add_eos: bool = True) -> np.ndarray:
         ids = np.frombuffer(data, dtype=np.uint8).astype(np.int32)
         if self.vocab_size > 256 + N_SPECIALS and len(ids) >= 2:
-            pairs = self._pair_table()
+            table = _pair_ids(self.vocab_size, self.pair_seed)
             # greedy non-overlapping fold of known pairs (vectorized probe)
             key = ids[:-1].astype(np.int64) * 256 + ids[1:]
-            table = {}
-            for i, (a, b) in enumerate(pairs):
-                table.setdefault(int(a) * 256 + int(b), 256 + N_SPECIALS + i)
             out = []
             i = 0
             while i < len(ids):

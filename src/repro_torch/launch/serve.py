@@ -12,7 +12,7 @@ Parameters are drawn from ``--seed`` (no weights are read) and cast once
 to the compute dtype.  One warm-up generation of one step runs first;
 the timed generation reports ``prefill_ms`` and ``decode_ms_per_step``
 from the host clock with the device synchronised around each step.
-Only ``--mesh-shape 1,1`` is accepted until the sharded plane is ported.
+Only ``--mesh-shape 1,1`` is accepted until the model mesh is ported.
 """
 from __future__ import annotations
 
@@ -64,7 +64,7 @@ def main(argv=None) -> dict:
     if any(int(n) != 1 for n in args.mesh_shape.split(",")):
         raise NotImplementedError(
             f"--mesh-shape {args.mesh_shape}: the port serves on one card; "
-            "meshes come with the sharded plane (ROADMAP.md Queue 1, item 8)")
+            "meshes come with the model mesh (ROADMAP.md Queue 1, item 14)")
 
     cfg = get_config(args.arch)
     if args.reduced:

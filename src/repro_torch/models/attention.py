@@ -2,7 +2,8 @@
 
 The port of the GQA and MHA parts of ``repro.models.attention``; MLA
 (``_mla_qkv``, ``attend_mla``, ``decode_attention_mla``) and cross
-attention come with their model families (ROADMAP.md Queue 5).
+attention come with their model families (ROADMAP.md Queue 1, items 17
+and 20).
 
   * :func:`flash_attention` — self-attention over a whole sequence.  On a
     CPU tensor it runs :func:`flash_attention_plain`, the chunked
@@ -11,7 +12,9 @@ attention come with their model families (ROADMAP.md Queue 5).
     tensor it launches kernel F (``csrc/flash_attention.cu``, wrapper
     :mod:`repro_torch.kernels.flash_attention`) where F's domain covers
     the call, and raises ``NotImplementedError`` where it does not: it
-    never runs the plain version on a card.
+    never runs the plain version on a card.  Where a gradient is wanted
+    it launches F through :class:`FlashAttention`, whose backward is the
+    gradient of :func:`flash_attention_plain`.
   * :func:`decode_attention_gqa` — one new token over the cache, returning
     partial softmax stats (o, m, l); :func:`combine_partials` normalises
     them.  Plain PyTorch on every device: the JAX package has no kernel
@@ -30,9 +33,9 @@ from .layers import RopeTables, Spec, rmsnorm, rope_tables, rotate
 NEG_INF = -1e30
 
 #: where the calls kernel F does not cover are planned (ROADMAP.md)
-_ROADMAP_LOCAL = "ROADMAP.md Queue 5, item 'local and hybrid'"
-_ROADMAP_MLA = "ROADMAP.md Queue 5, item 'MLA'"
-_ROADMAP_SHARDED = "ROADMAP.md Queue 1, item 8 (sharded plane)"
+_ROADMAP_LOCAL = "ROADMAP.md Queue 1, item 18 ('local and hybrid')"
+_ROADMAP_MLA = "ROADMAP.md Queue 1, item 17 ('MLA')"
+_ROADMAP_MESH = "ROADMAP.md Queue 1, item 14 (model mesh)"
 
 
 # ---------------------------------------------------------------------------
@@ -113,7 +116,8 @@ def flash_attention_plain(q, k, v, *, q_positions, k_positions,
 
     q: (B, Sq, H, qkd); k: (B, Sk, Hkv, qkd); v: (B, Sk, Hkv, vd).
     positions: int (Sq,) / (Sk,) absolute positions (mask + validity:
-    negative k_position == padding).  Scores, stats and the accumulator
+    negative k_position == padding), on any device (moved to q's: the
+    model hands them over on the CPU).  Scores, stats and the accumulator
     are f32; the result is in q's type.  ``p_dtype`` rounds p to that
     type before each chunk's P.V (l still sums the f32 p), as kernel F's
     bf16 route does with 64-key chunks.
@@ -124,6 +128,8 @@ def flash_attention_plain(q, k, v, *, q_positions, k_positions,
     Sk, Hkv, vd = k.shape[1], k.shape[2], v.shape[-1]
     G = H // Hkv
     scale = scale if scale is not None else qkd ** -0.5
+    q_positions = q_positions.to(q.device)
+    k_positions = k_positions.to(q.device)
 
     qc = min(q_chunk, Sq)
     kc = min(k_chunk, Sk)
@@ -186,6 +192,45 @@ def _is_iota(pos, n: int) -> bool:
                                               device=pos.device)))
 
 
+class FlashAttention(torch.autograd.Function):
+    """Kernel F with a gradient: ``FlashAttention.apply(q, k, v, causal,
+    q_chunk, k_chunk)`` in the model's ``(B, S, heads, d)`` layout,
+    positions 0..S-1.
+
+    The forward launches F through its wrapper, as a prefill does (on a
+    CPU tensor the wrapper runs F's plain version), and saves q, k and v.
+    The backward recomputes the attention with autograd through
+    :func:`flash_attention_plain`, at the call's chunk sizes, and returns
+    ``torch.autograd.grad`` of it.  This is the port of the JAX package's
+    training, which differentiates its chunked jnp attention
+    (``repro.models.attention.flash_attention``) by autodiff: the TPU
+    kernel ``flash_attention_tpu`` has no ``custom_vjp``, so no TPU
+    backward kernel exists to be ported.
+    """
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, q_chunk: int, k_chunk: int):
+        ctx.save_for_backward(q, k, v)
+        ctx.causal, ctx.chunks = causal, (q_chunk, k_chunk)
+        out = fa_kernel.flash_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            causal=causal)
+        return out.transpose(1, 2)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        q, k, v = (t.detach().requires_grad_() for t in ctx.saved_tensors)
+        with torch.enable_grad():
+            out = flash_attention_plain(
+                q, k, v,
+                q_positions=torch.arange(q.shape[1], device=q.device),
+                k_positions=torch.arange(k.shape[1], device=k.device),
+                mask_mode="causal" if ctx.causal else "none",
+                q_chunk=ctx.chunks[0], k_chunk=ctx.chunks[1])
+            dq, dk, dv = torch.autograd.grad(out, (q, k, v), grad_out)
+        return dq, dk, dv, None, None, None
+
+
 def flash_attention(q, k, v, *, q_positions, k_positions,
                     mask_mode: str = "causal", window: int = 0,
                     q_chunk: int = 1024, k_chunk: int = 1024,
@@ -199,7 +244,9 @@ def flash_attention(q, k, v, *, q_positions, k_positions,
     0..S-1 (what ``transformer.forward``/``prefill`` pass, on the CPU, so
     the check costs no device sync); the chunk sizes are the jnp path's
     tiling and do not change the result.  Any other call on a card raises
-    ``NotImplementedError``.
+    ``NotImplementedError``.  With grad mode on and q, k or v requiring
+    a gradient (training), F launches through :class:`FlashAttention`,
+    which carries the gradient; otherwise (serving) through its wrapper.
     """
     if q.device.type == "cpu":
         return flash_attention_plain(
@@ -221,9 +268,13 @@ def flash_attention(q, k, v, *, q_positions, k_positions,
             f"positions other than 0..S-1 on {q.device}: kernel F masks by "
             f"row and column index; offset or padded positions come with "
             f"{_ROADMAP_LOCAL}")
+    causal = mask_mode == "causal"
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return FlashAttention.apply(q, k, v, causal, q_chunk, k_chunk)
     out = fa_kernel.flash_attention(
         q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-        causal=mask_mode == "causal")
+        causal=causal)
     return out.transpose(1, 2)
 
 
@@ -253,11 +304,11 @@ class Partial(NamedTuple):
 
 def combine_partials(parts: Partial, axis_name: str | None = None):
     """Normalise partial softmax stats.  Merging across a mesh axis comes
-    with the sharded plane."""
+    with the model mesh."""
     if axis_name is not None:
         raise NotImplementedError(
             f"combining across mesh axis {axis_name!r} comes with "
-            f"{_ROADMAP_SHARDED}")
+            f"{_ROADMAP_MESH}")
     return parts.o / torch.clamp(parts.l, min=1e-30)[..., None]
 
 

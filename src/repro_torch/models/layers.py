@@ -47,17 +47,36 @@ def torch_dtype(name: str) -> torch.dtype:
     return dt
 
 
-def tree_map(fn, tree):
-    """``fn`` over the leaves of a nested dict."""
+def tree_map(fn, tree, *rest):
+    """``fn`` over the leaves of a nested dict and the matching leaves of
+    ``rest`` (nested dicts with the same keys)."""
     if isinstance(tree, dict):
-        return {k: tree_map(fn, v) for k, v in tree.items()}
-    return fn(tree)
+        return {k: tree_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
+    return fn(tree, *rest)
 
 
 def tree_leaves(tree) -> list:
+    """The leaves of a nested dict, dict keys sorted: JAX's leaf order."""
     if isinstance(tree, dict):
-        return [leaf for v in tree.values() for leaf in tree_leaves(v)]
+        return [leaf for k in sorted(tree) for leaf in tree_leaves(tree[k])]
     return [tree]
+
+
+def tree_unflatten(like, flat: list):
+    """``flat`` in the structure of ``like``: nested dicts (keys sorted, as
+    :func:`tree_leaves` lists them), tuples and lists (in order, as JAX
+    lists them)."""
+    it = iter(flat)
+
+    def walk(tree):
+        if isinstance(tree, dict):
+            return {k: walk(tree[k]) for k in sorted(tree)}
+        if isinstance(tree, (tuple, list)):
+            return type(tree)(walk(x) for x in tree)
+        return next(it)
+
+    return walk(like)
 
 
 def materialize(specs, generator: torch.Generator, device, dtype,

@@ -1,14 +1,16 @@
-"""Model API for serving: build once from a ModelConfig, use everywhere.
+"""Model API: build once from a ModelConfig, use everywhere.
 
     model = build_model(cfg)                    # refuses unported families
     params = model.init(seed, device="cuda")    # nested dict of tensors
-    params = model.compute_params(params)       # matrices in compute dtype
+    loss = model.loss(params, batch)            # f32 scalar, differentiable
+    params = model.compute_params(params)       # serving: matrices cast once
     logits, cache = model.prefill(params, {"tokens": tokens}, s_alloc=...)
     logits, cache = model.decode(params, cache, tokens, cur_index)
 
-The port of ``repro.models.model`` for the serving path; ``loss`` and the
-training plane come with the training slice.  Entry points run on the
-card unless the caller passes ``device="cpu"``, and raise without one.
+The port of ``repro.models.model`` for dense decoders.  ``batch`` holds
+``tokens`` (B, S) int and ``loss_mask`` (B, S) f32 tensors.  Entry points
+run on the card unless the caller passes ``device="cpu"``, and raise
+without one.
 """
 from __future__ import annotations
 
@@ -18,6 +20,19 @@ import torch
 
 from . import transformer
 from .layers import resolve_device
+
+
+def cross_entropy(logits, targets, mask, *, z_loss: float = 0.0):
+    """Mean CE over masked positions; f32 logsumexp; optional z-loss."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, targets[..., None].long())[..., 0]
+    nll = (lse - ll) * mask
+    denom = torch.clamp(mask.sum(), min=1.0)
+    loss = nll.sum() / denom
+    if z_loss:
+        loss = loss + z_loss * ((lse * mask) ** 2).sum() / denom
+    return loss
 
 
 @dataclass
@@ -35,6 +50,24 @@ class Model:
 
     def compute_params(self, values) -> dict:
         return transformer.compute_params(values, self.cfg)
+
+    # -- training ------------------------------------------------------------
+    def loss(self, values, batch, *, attention=None):
+        """Next-token CE of ``batch`` (logits shifted by one against the
+        tokens and mask), plus the forward's aux loss.  ``attention``: as
+        :func:`transformer.forward`'s."""
+        cfg = self.cfg
+        if cfg.family == "encdec":
+            raise NotImplementedError("the encdec loss comes with models/"
+                                      "encdec.py (ROADMAP.md Queue 1, item 20)")
+        if batch.get("extra_embeds") is not None:
+            raise NotImplementedError("extra_embeds come with the vision "
+                                      "frontend (ROADMAP.md Queue 1, item 21)")
+        logits, aux = transformer.forward(values, cfg, batch["tokens"],
+                                          attention=attention)
+        tgt, mask = batch["tokens"], batch["loss_mask"]
+        return cross_entropy(logits[:, :-1], tgt[:, 1:], mask[:, 1:],
+                             z_loss=cfg.z_loss) + aux
 
     # -- serving -------------------------------------------------------------
     def prefill(self, values, batch, *, s_alloc: int,

@@ -9,24 +9,34 @@ package's nested dicts, each group stacked on a leading layers axis.
 What differs from the JAX package, and why:
 
   * The layers run as a Python loop over views of the stacked
-    parameters.  ``scan_layers`` and ``remat`` shape what XLA compiles
-    and what a backward pass keeps; eager serving computes the same thing
-    without them, so they are read nowhere here.
+    parameters.  ``scan_layers`` shapes what XLA compiles and is read
+    nowhere here.  ``forward`` honours ``remat`` as the JAX package's
+    ``jax.checkpoint`` of each layer: ``"full"`` (every config's
+    default) runs each layer under ``torch.utils.checkpoint`` where a
+    gradient is wanted, so the backward recomputes the layer, kernel F
+    included; ``"none"`` keeps every activation.  The named-residual
+    policies ``"dots"`` and ``"save_block_io"`` raise
+    ``NotImplementedError`` (ROADMAP.md Queue 1, item 23).
+  * Training passes the f32 master parameters straight in: every use
+    casts a matrix to the compute dtype inside the graph, so gradients
+    reach the f32 leaves.  Serving casts them once first
+    (:func:`compute_params`), which gives the same results.
   * The cache is one preallocated tensor per group, written in place by
     ``prefill`` and ``decode_step``, which return the same dict: the
     counterpart of ``dynamic_update_slice`` with a donated cache.
   * ``constrain_act``/``constrain_seq`` and the flash-decoding path
     (``_use_sharded_decode``) do nothing off a mesh; they come with the
-    sharded plane (ROADMAP.md Queue 1, item 8).
+    model mesh (ROADMAP.md Queue 1, item 14).
   * Other block types and families (``moe_attn``, ``rec``, ``rwkv``, MLA,
     local attention, ``encdec``, ``extra_embeds``) raise
-    ``NotImplementedError`` (ROADMAP.md Queue 5).
+    ``NotImplementedError`` (ROADMAP.md Queue 1, items 16-21).
 """
 from __future__ import annotations
 
 from typing import NamedTuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from . import attention as attn
 from .layers import (
@@ -55,7 +65,7 @@ def check_ported(cfg) -> None:
     if why is not None:
         raise NotImplementedError(
             f"{cfg.name}: {why} is not ported yet; the port runs dense "
-            "decoders with full attention (ROADMAP.md Queue 5)")
+            "decoders with full attention (ROADMAP.md Queue 1, items 16-21)")
 
 
 def _block_spec(cfg, block_type: str) -> dict:
@@ -189,12 +199,13 @@ def _positions(S: int, cfg, device) -> _Positions:
                       rope_tables(dev, cfg.hd(), cfg.rope_theta))
 
 
-def _apply_block_seq(p, x, cfg, pos: _Positions, cache):
+def _apply_block_seq(p, x, cfg, pos: _Positions, cache, attention=None):
     """Full-sequence application of a ``dense_attn`` block; ``cache`` is
-    None (forward) or the layer's cache views, written in place."""
+    None (forward) or the layer's cache views, written in place;
+    ``attention`` as :func:`forward`'s."""
     h = rmsnorm(x, p["ln1"], cfg.norm_eps)
     q, k, v = attn._project_qkv(p["attn"], h, cfg, pos.rope)
-    a = attn.flash_attention(
+    a = (attention or attn.flash_attention)(
         q, k, v, q_positions=pos.host, k_positions=pos.host,
         mask_mode="causal", window=cfg.window,
         q_chunk=cfg.attn_q_chunk, k_chunk=cfg.attn_k_chunk,
@@ -239,17 +250,36 @@ def _layers(params, cfg, caches=None):
 def _embed_inputs(params, cfg, tokens, extra_embeds):
     if extra_embeds is not None:
         raise NotImplementedError("extra_embeds (the vlm/audio frontends) "
-                                  "are not ported yet (ROADMAP.md Queue 5)")
+                                  "are not ported yet (ROADMAP.md Queue 1, "
+                                  "item 21)")
     return embed_tokens(params["embed"], tokens, torch_dtype(cfg.compute_dtype))
 
 
-def forward(params, cfg, tokens, *, extra_embeds=None):
-    """Teacher-forced logits over the full sequence.  Returns (logits, aux)."""
+#: where the remat policies this port lacks are planned
+_ROADMAP_REMAT = "ROADMAP.md Queue 1, item 23 (remat policies)"
+
+
+def forward(params, cfg, tokens, *, extra_embeds=None, attention=None):
+    """Teacher-forced logits over the full sequence.  Returns (logits, aux).
+
+    ``attention`` replaces :func:`repro_torch.models.attention.
+    flash_attention` in every layer (same signature); ``chip_smoke.py``
+    passes ``flash_attention_plain`` to hold kernel F's gradient route
+    against autograd through the plain version on a card.
+    """
     check_ported(cfg)
+    if cfg.remat not in ("full", "none"):
+        raise NotImplementedError(
+            f"remat {cfg.remat!r}: the port runs 'full' (each layer "
+            f"recomputed in the backward) and 'none'; {_ROADMAP_REMAT}")
     x = _embed_inputs(params, cfg, tokens, extra_embeds)
     pos = _positions(x.shape[1], cfg, x.device)
     for p_l, _ in _layers(params, cfg):
-        x = _apply_block_seq(p_l, x, cfg, pos, None)
+        if cfg.remat == "full" and torch.is_grad_enabled():
+            x = checkpoint(_apply_block_seq, p_l, x, cfg, pos, None,
+                           attention, use_reentrant=False)
+        else:
+            x = _apply_block_seq(p_l, x, cfg, pos, None, attention)
     x = rmsnorm(x, params["ln_f"], cfg.norm_eps)
     logits = unembed(params["embed"], x, cfg.tied_embeddings)
     return logits, torch.zeros((), dtype=torch.float32, device=x.device)
@@ -293,7 +323,7 @@ def decode_step(params, cfg, caches, tokens, cur_index, *,
     check_ported(cfg)
     if axis_name is not None:
         raise NotImplementedError("decode across a mesh axis comes with the "
-                                  "sharded plane (ROADMAP.md Queue 1, item 8)")
+                                  "model mesh (ROADMAP.md Queue 1, item 14)")
     cur_index = int(cur_index)
     x = _embed_inputs(params, cfg, tokens[:, None], None)
     pos1 = torch.full((1,), cur_index, dtype=torch.int32, device=x.device)

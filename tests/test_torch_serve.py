@@ -173,12 +173,12 @@ def test_params_from_reference_checks_names_and_shapes():
     host = jax.tree.map(np.asarray, values)
     del host["ln_f"]
     with pytest.raises(ValueError, match="keys"):
-        params_from_reference(host, tcfg)
+        params_from_reference(host, tcfg, "cpu")
     host = jax.tree.map(np.asarray, values)
     host["group0"]["sub0"]["attn"]["wq"] = host["group0"]["sub0"]["attn"][
         "wq"][:1]
     with pytest.raises(ValueError, match="wq"):
-        params_from_reference(host, tcfg)
+        params_from_reference(host, tcfg, "cpu")
 
 
 def test_init_draws_mk_distributions():

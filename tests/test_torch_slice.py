@@ -145,7 +145,10 @@ def test_import_walk_covers_every_port_module():
                 "benchmarks/bench_tiers.py", "benchmarks/bench_scan.py",
                 "benchmarks/bench_device.py", "benchmarks/bench_batch.py",
                 "benchmarks/bench_shard.py", "benchmarks/bench_skip.py",
-                "benchmarks/bench_schema.py", "benchmarks/run.py"):
+                "benchmarks/bench_schema.py", "benchmarks/run.py",
+                "train/__init__.py", "train/optimizer.py",
+                "train/train_step.py", "train/checkpoint.py",
+                "launch/train.py", "benchmarks/bench_train.py"):
         assert f"src/repro_torch/{mod}" in walked, mod
 
 

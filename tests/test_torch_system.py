@@ -4,10 +4,12 @@ The first part runs the JAX package's ``tests/test_system.py`` on the
 port, every client chunk through the kernel engine's plain version
 (kernel A's): the pipeline's answers equal a full scan across budgets
 and workloads, the loading ratio tracks the pushed set's union
-selectivity, and a larger budget never selects a worse objective.  Its
-fourth test, CIAO feeding a train step, waits for the training slice.
+selectivity, a larger budget never selects a worse objective, and CIAO
+feeds a train step (on the CPU, attention through the plain version).
 The second part holds each pipeline against the JAX package's on the
-same records: the same plan, loading ratio and counts.
+same records: the same plan, loading ratio and counts; and the recipe
+batch and its train step's loss (within 1e-3 in the config's bf16, the
+bound of ``tests/test_torch_train.py``) against the JAX package's.
 """
 import json
 
@@ -89,6 +91,48 @@ def test_budget_monotone_objective():
     assert all(a <= b_ + 1e-9 for a, b_ in zip(objs, objs[1:])), objs
 
 
+def _train_step_on_recipe(tokens, mask):
+    """One port train step of the reduced qwen3-1.7b on a recipe batch,
+    from the JAX package's parameters; returns its metrics."""
+    import jax
+
+    from repro.models.layers import split
+    from repro.models.model import build_model as j_build_model
+    from repro_torch.configs import get_config
+    from repro_torch.models.convert import params_from_reference
+    from repro_torch.models.model import build_model
+    from repro_torch.train import optimizer as opt_mod
+    from repro_torch.train.optimizer import OptConfig
+    from repro_torch.train.train_step import make_train_step
+
+    cfg = get_config("qwen3-1.7b").reduced()
+    model = build_model(cfg)
+    values, _ = split(j_build_model(cfg).init(jax.random.PRNGKey(0)))
+    params = params_from_reference(jax.tree.map(np.asarray, values), cfg,
+                                   "cpu")
+    oc = OptConfig()
+    state = opt_mod.init(params, oc)
+    _, _, metrics = make_train_step(model, oc)(params, state, {
+        "tokens": torch.from_numpy(tokens),
+        "loss_mask": torch.from_numpy(mask)})
+    return values, metrics
+
+
+def test_ciao_feeds_training_end_to_end():
+    """CIAO store → recipe batches → one train step, loss finite."""
+    from repro_torch.core.predicates import Query
+    from repro_torch.data.pipeline import RecipeBatcher
+    from repro_torch.data.tokenizer import ByteTokenizer
+
+    wl, rep, store, base, _ = _pipeline("ycsb", 1.5)
+    recipe = Query((rep.plan.clauses[0],)) if rep.plan.n else Query(tuple())
+    tok = ByteTokenizer(vocab_size=512)
+    batcher = RecipeBatcher(store, tok, seq_len=64, batch_size=2)
+    tokens, mask = next(iter(batcher.batches(recipe)))
+    _, metrics = _train_step_on_recipe(tokens, mask)
+    assert np.isfinite(float(metrics["loss"]))
+
+
 # ---- held against the JAX package on the same inputs
 
 def _j_pipeline(dataset, budget, n=2000, n_queries=40, seed=0):
@@ -123,3 +167,38 @@ def test_pipeline_matches_jax(dataset, budget):
         r, jr = a.scan(q), b.scan(jq)
         assert (r.count, r.rows_scanned, r.rows_skipped, r.raw_parsed) == \
             (jr.count, jr.rows_scanned, jr.rows_skipped, jr.raw_parsed)
+
+
+def test_ciao_training_matches_jax():
+    """The recipe batch and its train step's loss equal the JAX
+    package's (same records, same parameters)."""
+    import jax
+
+    from repro.configs import get_config as j_get_config
+    from repro.data.pipeline import RecipeBatcher as JRecipeBatcher
+    from repro.data.tokenizer import ByteTokenizer as JByteTokenizer
+    from repro.models.model import build_model as j_build_model
+    from repro.train import optimizer as j_opt
+    from repro.train.train_step import make_train_step as j_make_train_step
+    from repro_torch.core.predicates import Query
+    from repro_torch.data.pipeline import RecipeBatcher
+    from repro_torch.data.tokenizer import ByteTokenizer
+
+    wl, rep, store, base, _ = _pipeline("ycsb", 1.5)
+    jwl, jrep, jstore = _j_pipeline("ycsb", 1.5)
+    recipe = Query((rep.plan.clauses[0],))
+    jrecipe = j_pred.Query((jrep.plan.clauses[0],))
+    tokens, mask = next(iter(RecipeBatcher(
+        store, ByteTokenizer(vocab_size=512), seq_len=64,
+        batch_size=2).batches(recipe)))
+    jtokens, jmask = next(iter(JRecipeBatcher(
+        jstore, JByteTokenizer(vocab_size=512), seq_len=64,
+        batch_size=2).batches(jrecipe)))
+    assert np.array_equal(tokens, jtokens) and np.array_equal(mask, jmask)
+    values, metrics = _train_step_on_recipe(tokens, mask)
+    jmodel = j_build_model(j_get_config("qwen3-1.7b").reduced())
+    oc = j_opt.OptConfig()
+    _, _, jmetrics = jax.jit(j_make_train_step(jmodel, oc))(
+        values, j_opt.init(values, oc),
+        {"tokens": jtokens, "loss_mask": jmask})
+    assert abs(float(metrics["loss"]) - float(jmetrics["loss"])) <= 1e-3
