@@ -103,7 +103,22 @@ model-serving path at full width:
 
 checked by (i) layer 0's q, k, v captured from the serving prefill, F's
 output against the plain version, and (ii) in f32, forward logits at
-position S-1 against prefill(S-1) + one decode step (B=2, S=128).
+position S-1 against prefill(S-1) + one decode step (B=2, S=128).  Then
+MoE, MLA and vision serving at published widths, each cut to 4 layers:
+
+  llama4-scout-17b-a16e (16 experts top-1 + shared) and deepseek-v3-671b
+  (MLA, 3 dense + 1 MoE layer of 256 experts top-8 + shared) through
+  launch.serve.main, internvl2-76b with 1,024 seeded patch embeddings
+  through make_serve_fns; batch 8, prompt 512, 32 greedy tokens
+    -> prefill: every attention layer on kernel F (deepseek-v3: qk head
+       dim 192, v zero-padded from 128)
+    -> the MoE layers: models/moe.py (routing, dispatch, experts)
+
+checked by (i) F on layer 0 against its plain version (the padded
+columns exactly 0), (ii) the first MoE layer's routing on the card
+against the CPU's from the same f32 logits and its f32 output against a
+per-expert loop, (iii) forward against prefill + decode in f32 at 2
+layers; each prefill's device time by kind from the profiler.
 
 Then the training path, kernel F under a gradient (its forward, then the
 plain version's recompute under autograd in the backward):
@@ -131,6 +146,11 @@ call from the profiler (exactly one kernel per bitvector_reduce call, and
 one upload, one kernel and one copy back per reduce_bitvectors call, or
 the run fails) and the probe beside its bytes bound.
 
+Kernel times come from the profiler.  Where five traces in a row record
+no device activity at all, the profiler is taken as lost: that time
+comes from CUDA events around the calls (the row's ms_from says so), and
+device-operation counts and breakdowns print "not measured".
+
 Any mismatch or fault raises (exit code != 0).
 
     python3 chip_smoke.py                  # one CUDA card, full size
@@ -157,6 +177,7 @@ SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "src")
 CHUNK = 8192
 SEED = 20240611
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM HBM3 (NVIDIA data sheet)
+NOT_TRACED = "not measured (the profiler recorded no device activity)"
 BF16_FLOP_PER_S = 989e12        # H100 SXM dense bf16 tensor cores (same)
 SERVE_ARCH = "qwen3-1.7b"
 SERVE_ARGS = ["--arch", SERVE_ARCH, "--batch", "8", "--prompt-len", "512",
@@ -250,9 +271,34 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
 
 def kernel_ms(fn, reps: int, name: str) -> float:
     """Device milliseconds per launch of the kernel ``name`` inside ``fn``,
-    from the profiler's CUDA activity (kernel time alone)."""
+    from the profiler's CUDA activity (kernel time alone), or between CUDA
+    events where the profiler was lost (:func:`ms_from`)."""
     from repro_torch.benchmarks import bench_reduce
     return bench_reduce.kernel_ms(fn, reps, name)
+
+
+def ms_from(name: str) -> str:
+    from repro_torch.benchmarks import bench_reduce
+    return bench_reduce.ms_from(name)
+
+
+def profiled(fn, mark: str):
+    """The profiler (CPU and CUDA) around one call of ``fn``, retried as
+    :func:`repro_torch.benchmarks.bench_reduce.trace` retries until a
+    trace records device time of an activity named by ``mark``; None
+    where the profiler was lost."""
+    from torch.autograd import DeviceType
+    from repro_torch.benchmarks import bench_reduce
+
+    def found(prof) -> bool:
+        return any(e.device_type == DeviceType.CUDA and mark in e.key
+                   and e.self_device_time_total > 0
+                   for e in prof.key_averages())
+
+    try:
+        return bench_reduce.trace(fn, 1, found, mark, cpu=True)
+    except bench_reduce.ProfilerLost:
+        return None
 
 
 def same_bits(a, b) -> int:
@@ -917,6 +963,8 @@ def reduce_numbers(dev) -> dict:
     from repro_torch.kernels import bitvector_ops
 
     def hold(got, want, what):
+        if got is None:         # the profiler was lost: nothing to hold
+            return
         if any(got[k] != want.get(k, 0) for k in bench_reduce.KINDS):
             raise AssertionError(f"device operations per {what} call "
                                  f"{got['rows']}, want {want}")
@@ -926,10 +974,12 @@ def reduce_numbers(dev) -> dict:
         k, c = r["kernel_call_ops"], r["call_ops"]
         print(f"  reduce at {shape}: kernel {r['kernel_ms']:.5f} ms; "
               f"reduce_bitvectors call {r['call_ms']:.4f} ms (host clock); "
-              f"device operations per bitvector_reduce call {k['rows']}, "
-              f"per reduce_bitvectors call {c['rows']}")
+              f"device operations per bitvector_reduce call "
+              f"{k['rows'] if k else NOT_TRACED}, per reduce_bitvectors call "
+              f"{c['rows'] if c else NOT_TRACED}")
         hold(k, {"kernels": 1}, "bitvector_reduce")
-        if not all("bitvector_reduce_kernel" in name for name in k["rows"]):
+        if k and not all("bitvector_reduce_kernel" in name
+                         for name in k["rows"]):
             raise AssertionError(f"a bitvector_reduce call launched another "
                                  f"kernel: {k['rows']}")
         hold(c, {"kernels": 1, "copies_to_device": 1, "copies_to_host": 1},
@@ -940,7 +990,7 @@ def reduce_numbers(dev) -> dict:
           f"{out['floor_ms']:.5f} ms")
     p = out["probe"]
     print(f"  reduce probe {p['shape']} (not a path shape): {p['ms']:.4f} "
-          f"ms, bound {p['bound_ms']:.4f} ms by bytes "
+          f"ms ({p['ms_from']}), bound {p['bound_ms']:.4f} ms by bytes "
           f"({p['bound_share']:.1%}); device ms per launch "
           f"{p['device_ms_per_launch']}")
     return out
@@ -1121,7 +1171,7 @@ def split_kernel_rows(run, split, dev, reduce) -> list[dict]:
             "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
             "library_ms": None, "library_note": why,
             "launches_phase_a": split["a"][counter],
-            "ms_from": "profiler", "wrapper_call_ms": cuda_ms(kern, 50),
+            "ms_from": ms_from(kname), "wrapper_call_ms": cuda_ms(kern, 50),
             "shape": shape,
         })
     c_row = next(r for r in rows if r["name"].startswith("bitvector_reduce"))
@@ -1165,6 +1215,7 @@ def split_kernel_rows(run, split, dev, reduce) -> list[dict]:
               f", M={pp.shape[1]}): {ms:.4f} ms (bound "
               f"{whole[ds]['bound_ms']:.5f} ms)")
     d_row["ms_whole_pool"] = whole
+    d_row["ms_from"] = ms_from("multi_match_kernel")   # with these timings
     print(f"  match at phase (b)'s shape, three profiler calls: "
           f"{[round(x, 5) for x in d_row['ms_calls']]} ms")
     return rows
@@ -1188,6 +1239,8 @@ def check_flash(dev) -> int:
         (2, 16, 8, 512, 512, 128, False),
         (2, 8, 4, 300, 700, 64, False), (2, 8, 4, 700, 300, 64, True),
         (2, 16, 8, 1000, 1000, 128, True), (3, 4, 4, 77, 77, 16, False),
+        (2, 16, 16, 512, 512, 192, True),             # MLA's qk head dim
+        (1, 8, 8, 300, 700, 192, False), (2, 4, 2, 130, 130, 192, True),
     ]
     worst = {"bf16p": 0.0}
     for i, (B, H, Hkv, Sq, Sk, d, causal) in enumerate(cases):
@@ -1309,8 +1362,6 @@ def serve_breakdown(dev) -> dict:
     import numpy as np
     import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    from repro_torch.benchmarks import bench_reduce
     from repro_torch.configs import get_config
     from repro_torch.models.model import build_model
     from repro_torch.serve.engine import make_serve_fns
@@ -1337,12 +1388,11 @@ def serve_breakdown(dev) -> dict:
             fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) / 3 * 1e3
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            time.sleep(bench_reduce.PAD_S)
-            fn()
-            torch.cuda.synchronize()
-            time.sleep(bench_reduce.PAD_S)
+        prof = profiled(fn, "flash_kernel" if name == "prefill" else "")
+        if prof is None:
+            print(f"  {name}: {wall:.3f} ms host clock; by kind {NOT_TRACED}")
+            out[name] = {"wall_ms": wall, "device_ms": None}
+            continue
         rows = [(e.key, e.self_device_time_total / 1e3, e.count)
                 for e in prof.key_averages()
                 if e.device_type == DeviceType.CUDA
@@ -1352,9 +1402,6 @@ def serve_breakdown(dev) -> dict:
                           if any(m in key for m in marks))
                    for k, marks in kinds}
         by_kind["other"] = busy - sum(by_kind.values())
-        if name == "prefill" and not by_kind["kernel F"] > 0:
-            raise AssertionError("the profiler found no kernel F in a "
-                                 "prefill: its name marks no longer match")
         launches = sum(n for _, _, n in rows)
         ops = sum(1 for e in prof.events()
                   if e.device_type == DeviceType.CPU and e.cpu_parent is None
@@ -1413,6 +1460,470 @@ def exactness_f32(dev) -> float:
     if not torch.isfinite(full).all():
         raise AssertionError("(ii) non-finite logits")
     return err
+
+
+# ---------------------------------------------------------------------------
+# MoE, MLA and vision serving: llama4-scout, deepseek-v3, internvl2
+# ---------------------------------------------------------------------------
+
+#: (arch, layers kept) at published widths: llama4 4 moe_attn layers
+#: (about 10.9 B bf16 params); deepseek-v3 3 dense_attn + 1 moe_attn
+#: (first_dense_layers kept at 3; about 15.1 B); internvl2 4 layers
+#: (about 5.5 B)
+MODEL_CUTS = (("llama4-scout-17b-a16e", 4), ("deepseek-v3-671b", 4),
+              ("internvl2-76b", 4))
+MODEL_BATCH, MODEL_PROMPT, MODEL_GEN = 8, 512, 32
+# (ii) the MoE layer's f32 output against a plain per-expert loop over
+# the same routing, relative to max |out| (f32 sums in another order)
+MOE_TOL = 1e-4
+#: (iii) layers at full width in f32 (deepseek-v3: 1 dense + 1 MoE)
+EXACT_LAYERS = 2
+#: kinds of a prefill's device time: kernel F, cuBLAS, the MoE's
+#: routing and data movement (index_add, gathers, top-k, cumsum; the
+#: embedding lookup's gather counts here too)
+MODEL_KINDS = (("kernel F", ("flash_kernel",)),
+               ("matmul", ("gemm", "nvjet", "xmma", "cutlass", "gemv")),
+               ("scatter/gather/top-k", ("index", "gather", "scatter",
+                                         "topk", "TopK", "sort", "Sort",
+                                         "scan", "cub")))
+
+
+def _free() -> None:
+    """Drop what earlier phases left cached on the card."""
+    import gc
+
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _cut_config(arch: str, n_layers: int, **kw):
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config(arch), n_layers=n_layers, **kw)
+
+
+def _extra_embeds(cfg, B: int, dev, dtype):
+    """Seeded stand-ins for the vision frontend's patch embeddings."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(SEED + 1)
+    return torch.from_numpy(rng.normal(size=(B, cfg.frontend_len, cfg.d_model))
+                            .astype(np.float32)).to(dev).to(dtype)
+
+
+def _vision_generate(cfg, dev) -> dict:
+    """What ``launch.serve.main`` does, with ``extra_embeds``: seeded bf16
+    weights, eight ycsb records as prompts, a warm-up generation of one
+    step, then prefill + ``MODEL_GEN`` greedy steps, each step timed on
+    the host clock with the device synchronised around it; the first
+    decode index is frontend_len + S."""
+    import torch
+    from repro_torch.data.datasets import generate_records
+    from repro_torch.data.tokenizer import ByteTokenizer
+    from repro_torch.models.model import build_model
+    from repro_torch.serve.engine import make_serve_fns
+
+    model = build_model(cfg)
+    params = model.compute_params(model.init(0, device=dev))
+    tok = ByteTokenizer(vocab_size=cfg.vocab_size)
+    recs = generate_records("ycsb", MODEL_BATCH, seed=0)
+    prompts = torch.from_numpy(tok.pad_batch(
+        [tok.encode(r, add_eos=False) for r in recs], MODEL_PROMPT)).to(dev)
+    inputs = {"tokens": prompts, "extra_embeds": _extra_embeds(
+        cfg, MODEL_BATCH, dev, torch.bfloat16)}
+    first = cfg.frontend_len + MODEL_PROMPT
+    fns = make_serve_fns(model, batch=MODEL_BATCH,
+                         seq_len=first + MODEL_GEN + 128)
+
+    def timed(fn, *args):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*args)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    def generate(n: int):
+        (logits, cache), pre = timed(fns["prefill"], params, inputs)
+        tok_ = torch.argmax(logits, dim=-1).to(torch.int32)
+        steps, out = [], []
+        for i in range(n):
+            out.append(tok_)
+            (logits, cache), dt = timed(fns["decode"], params, cache, tok_,
+                                        first + i)
+            tok_ = torch.argmax(logits, dim=-1).to(torch.int32)
+            steps.append(dt)
+        return torch.stack(out, dim=1), pre, steps
+
+    generate(1)                                          # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out, pre, steps = generate(MODEL_GEN)
+    wall = time.perf_counter() - t0
+    return {"batch": MODEL_BATCH, "generated": int(out.shape[1]),
+            "tokens_per_s": MODEL_BATCH * MODEL_GEN / wall, "wall_s": wall,
+            "prefill_ms": pre * 1e3,
+            "decode_ms_per_step": sum(steps) / len(steps) * 1e3,
+            "prefill_calls": 2, "device": str(dev)}
+
+
+def _moe_check(cfg, h, p, dev) -> dict:
+    """(ii) on the first MoE layer's captured input ``h`` and parameters
+    ``p``: the routing on the card and on the CPU from the same f32
+    logits (ids, pos, keep, slot equal exactly), then ``apply_moe`` in
+    f32 against a plain loop over the experts with that routing."""
+    import torch
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models.layers import silu
+
+    m = cfg.moe
+    T, d = h.shape[0] * h.shape[1], h.shape[2]
+    logits = h.reshape(T, d).float() @ p["router"].float()
+    got = moe_mod.route(logits, m)
+    want = moe_mod.route(logits.cpu(), m)
+    for name in ("ids", "pos", "keep", "slot"):
+        a, b = getattr(got, name).cpu(), getattr(want, name)
+        if not torch.equal(a, b):
+            n_bad = int((a != b).sum())
+            top = torch.topk(want.probs, m.top_k + 1, dim=-1).values
+            gap = float((top[:, -2] - top[:, -1]).min())
+            raise AssertionError(
+                f"(ii) routing on the card != on the CPU: {name} differs "
+                f"at {n_bad} places; smallest gap between the k-th and "
+                f"(k+1)-th probability {gap:.3g}")
+    gates_err = float((got.gates.cpu() - want.gates).abs().max())
+    dropped = int((~want.keep).sum())
+
+    x = h.float()
+    out, aux = moe_mod.apply_moe(p, x, cfg)
+    # the plain version: each kept assignment through its expert, weighted
+    xf = x.reshape(T, d)
+    ref = torch.zeros_like(xf)
+    keep = got.keep.view(T, m.top_k)
+    for e in range(m.n_experts):
+        t_idx, j_idx = torch.nonzero((got.ids == e) & keep, as_tuple=True)
+        if t_idx.numel() == 0:
+            continue
+        xe = xf[t_idx]
+        y = ((xe @ p["wi"][e].float()) * silu(xe @ p["wg"][e].float())
+             ) @ p["wo"][e].float()
+        ref.index_add_(0, t_idx, y * got.gates[t_idx, j_idx][:, None])
+    if m.n_shared_experts:
+        ref += ((xf @ p["shared_wi"].float())
+                * silu(xf @ p["shared_wg"].float())) @ p["shared_wo"].float()
+    torch.cuda.synchronize()
+    scale = float(ref.abs().max())
+    err = float((out.reshape(T, d) - ref).abs().max())
+    print(f"  (ii) first MoE layer, T={T}, E={m.n_experts}, top-{m.top_k}, "
+          f"C={got.C}: routing on the card == on the CPU (ids, pos, keep, "
+          f"slot; gates within {gates_err:.3g}), {dropped} of {T * m.top_k} "
+          f"assignments dropped; f32 apply_moe vs the per-expert loop: max "
+          f"abs err {err:.3g} of max |out| {scale:.3g} (tol {MOE_TOL} "
+          f"relative), aux {float(aux):.4g}")
+    if not (err <= MOE_TOL * scale) or not torch.isfinite(out).all():
+        raise AssertionError(f"(ii) apply_moe != the per-expert loop: {err}")
+    return {"C": got.C, "dropped": dropped, "gates_err": gates_err,
+            "max_rel_err": err / scale}
+
+
+def _prefill_breakdown(cfg, dev) -> dict:
+    """Device time of one warm prefill by kind (profiler), fresh seeded
+    weights of the cut config, as :func:`serve_breakdown`."""
+    import torch
+    from torch.autograd import DeviceType
+    from repro_torch.models.model import build_model
+    from repro_torch.serve.engine import make_serve_fns
+
+    model = build_model(cfg)
+    params = model.compute_params(model.init(SEED, device=dev))
+    B, S = MODEL_BATCH, MODEL_PROMPT
+    toks = torch.randint(0, cfg.vocab_size, (B, S), device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(SEED))
+    inputs = {"tokens": toks}
+    if cfg.frontend == "vision":
+        inputs["extra_embeds"] = _extra_embeds(cfg, B, dev, torch.bfloat16)
+    fns = make_serve_fns(model, batch=B,
+                         seq_len=cfg.frontend_len + S + MODEL_GEN)
+    fns["prefill"](params, inputs)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fns["prefill"](params, inputs)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    prof = profiled(lambda: fns["prefill"](params, inputs), "flash_kernel")
+    if prof is None:
+        print(f"  prefill breakdown: {wall:.3f} ms host clock; by kind "
+              f"{NOT_TRACED}")
+        return {"wall_ms": wall, "device_ms": None}
+    rows = [(e.key, e.self_device_time_total / 1e3, e.count)
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA
+            and e.self_device_time_total > 0]
+    busy = sum(ms for _, ms, _ in rows)
+    by_kind, left = {}, list(rows)
+    for kind, marks in MODEL_KINDS:
+        mine = [r for r in left if any(mk in r[0] for mk in marks)]
+        by_kind[kind] = sum(ms for _, ms, _ in mine)
+        left = [r for r in left if r not in mine]
+    by_kind["other"] = sum(ms for _, ms, _ in left)
+    launches = sum(n for _, _, n in rows)
+    print(f"  prefill breakdown: {wall:.3f} ms host clock, {busy:.3f} ms of "
+          f"kernels ({launches} launches; device idle {1 - busy / wall:.1%})"
+          f"; by kind " + ", ".join(f"{k} {v:.3f} ms"
+                                    for k, v in by_kind.items()))
+    for key, ms, n in sorted(rows, key=lambda r: -r[1])[:5]:
+        print(f"      {ms:8.3f} ms  x{n:<4d} {key[:90]}")
+    return {"wall_ms": wall, "device_ms": busy, "kernels": launches,
+            "idle_share": 1 - busy / wall, "by_kind_ms": by_kind}
+
+
+def serve_model(arch: str, n_layers: int, dev) -> dict:
+    """One configuration of the phase: its serve path (``launch.serve.
+    main``, or :func:`_vision_generate` with the frontend's embeddings),
+    counters at 0 just before and read just after, with (i) F on layer
+    0's captured q, k, v and (ii) on the first MoE layer's input; then
+    one profiled prefill."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    from repro_torch.launch import serve
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models.model import build_model
+
+    cfg = _cut_config(arch, n_layers)
+    full = serve.get_config(arch)
+    n_params = build_model(cfg).param_count()
+    shape = (f"MLA (q_lora {cfg.mla.q_lora_rank}, kv_lora "
+             f"{cfg.mla.kv_lora_rank}, qk {cfg.mla.qk_nope_head_dim}+"
+             f"{cfg.mla.qk_rope_head_dim}, v {cfg.mla.v_head_dim})"
+             if cfg.attention == "mla" else f"head dim {cfg.hd()}")
+    moe = (f"; MoE {cfg.moe.n_experts} experts top-{cfg.moe.top_k} + "
+           f"{cfg.moe.n_shared_experts} shared, ff {cfg.moe.d_ff_expert}, "
+           f"capacity_factor {cfg.moe.capacity_factor}"
+           if cfg.moe else "")
+    print(f"  {arch}: depth cut to {n_layers} of {full.n_layers} layers "
+          f"(groups {cfg.layer_groups()}); published widths: d_model "
+          f"{cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads, {shape}, "
+          f"d_ff {cfg.d_ff}, vocab {cfg.vocab_size}{moe}; frontend "
+          f"{cfg.frontend} ({cfg.frontend_len}); param_count {n_params:,} "
+          f"({n_params * 2 / 1e9:.1f} GB bf16; published "
+          f"{build_model(full).param_count():,})")
+
+    captured, moe_in = {}, {}
+    launch, apply_moe = fa.flash_attention, moe_mod.apply_moe
+
+    def capture(q, k, v, *, causal=True):
+        out = launch(q, k, v, causal=causal)
+        if not captured:
+            captured.update(q=q.clone(), k=k.clone(), v=v.clone(),
+                            out=out.clone())
+        return out
+
+    def capture_moe(p, x, c):
+        if not moe_in:
+            moe_in.update(h=x.clone(), p=p)
+        return apply_moe(p, x, c)
+
+    # ---- the serve path: counters at 0 just before, read just after ----
+    _free()
+    torch.cuda.synchronize()
+    _zero_counters()
+    torch.cuda.reset_peak_memory_stats(dev)
+    fa.flash_attention, moe_mod.apply_moe = capture, capture_moe
+    get_config = serve.get_config
+    serve.get_config = lambda a: cfg if a == arch else get_config(a)
+    try:
+        if cfg.frontend == "vision":
+            res = _vision_generate(cfg, dev)
+        else:
+            res = serve.main(["--arch", arch, "--batch", str(MODEL_BATCH),
+                              "--prompt-len", str(MODEL_PROMPT), "--gen",
+                              str(MODEL_GEN), "--device", str(dev)])
+    finally:
+        fa.flash_attention, moe_mod.apply_moe = launch, apply_moe
+        serve.get_config = get_config
+    torch.cuda.synchronize()
+    launches = fa.launches
+    # -----------------------------------------------------------------------
+    peak = torch.cuda.max_memory_allocated(dev)
+    per_prefill = launches / res["prefill_calls"]
+    print(f"  prefill {res['prefill_ms']:.3f} ms (warm), decode "
+          f"{res['decode_ms_per_step']:.3f} ms/step, "
+          f"{res['tokens_per_s']:.1f} tokens/s over {res['wall_s']:.3f} s "
+          f"(batch {res['batch']}, prompt {MODEL_PROMPT}"
+          + (f" + {cfg.frontend_len} patch embeddings" if cfg.frontend_len
+             else "") + f", {res['generated']} tokens each); peak "
+          f"max_memory_allocated {peak / 2**30:.2f} GiB")
+    print(f"  kernel F launches: {launches} in {res['prefill_calls']} "
+          f"prefills ({per_prefill:g} per prefill, {n_layers} attention "
+          f"layers)")
+    if res["generated"] != MODEL_GEN or per_prefill != n_layers:
+        raise AssertionError(f"{arch}: {res}, F launches {launches}")
+
+    # (i) F on layer 0's captured inputs against the plain version
+    q, k, v = captured["q"], captured["k"], captured["v"]
+    want = ref.flash_attention_ref(q, k, v)
+    err = float((captured["out"].float() - want.float()).abs().max())
+    pad = ""
+    if cfg.attention == "mla":
+        vd = cfg.mla.v_head_dim
+        if captured["out"][..., vd:].any() or v[..., vd:].any():
+            raise AssertionError("(i) the padded columns of v or o are not 0")
+        pad = (f"; v padded {vd} -> {q.shape[-1]}, o's columns past {vd} "
+               f"exactly 0")
+    print(f"  (i) layer 0: q {tuple(q.shape)} k {tuple(k.shape)} {q.dtype}, "
+          f"causal; F vs plain max abs err {err:.3g} (tol "
+          f"{FLASH_TOL['bfloat16']}){pad}")
+    if not (err <= FLASH_TOL["bfloat16"]):
+        raise AssertionError(f"(i) F != plain on layer 0: {err}")
+    del captured, q, k, v, want
+    out = {"result": res, "launches": launches, "peak_bytes": peak,
+           "param_count": n_params, "err": err, "layers": n_layers}
+    if cfg.moe is not None:
+        out["moe"] = _moe_check(cfg, moe_in["h"], moe_in["p"], dev)
+    del moe_in
+    _free()
+    out["breakdown"] = _prefill_breakdown(cfg, dev)
+    _free()
+    return out
+
+
+def exactness_model(arch: str, dev) -> float:
+    """(iii) f32 forward logits at S-1 against prefill(S-1) + decode, at
+    full width and ``EXACT_LAYERS`` layers (deepseek-v3: 1 dense + 1 MoE
+    layer, about 13.9 B f32 params, 56 GB), capacity_factor 16 as the
+    reference's ``test_decode_matches_forward``, TF32 off; nothing else
+    resident."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import cache_alloc_len, get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models import transformer
+    from repro_torch.models.model import build_model
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    kw = {"compute_dtype": "float32", "param_dtype": "float32"}
+    m = get_config(arch).moe
+    if m is not None:
+        kw["moe"] = dataclasses.replace(
+            m, capacity_factor=16.0,
+            first_dense_layers=min(m.first_dense_layers, 1))
+    cfg = _cut_config(arch, EXACT_LAYERS, **kw)
+    # decode routes B tokens with C = max(1, round(B k / E * 16)) slots an
+    # expert: deepseek-v3 (k 8 of E 256) gets C = 1 at B = 2, so two
+    # tokens sharing an expert would drop one in decode and not in the
+    # forward; at B = 1 no expert can get two
+    B, S = (1 if m is not None and moe_mod.capacity(2, cfg.moe) < 2
+            else 2), 128
+    _free()
+    model = build_model(cfg)
+    params = model.init(SEED, device=dev)
+    toks = torch.from_numpy(np.random.default_rng(SEED).integers(
+        0, cfg.vocab_size, size=(B, S)).astype(np.int32)).to(dev)
+    extra = (_extra_embeds(cfg, B, dev, torch.float32)
+             if cfg.frontend == "vision" else None)
+    F = cfg.frontend_len if extra is not None else 0
+    fa.launches = 0
+    full, _ = transformer.forward(params, cfg, toks, extra_embeds=extra)
+    last, cache = model.prefill(
+        params, {"tokens": toks[:, :S - 1], "extra_embeds": extra},
+        s_alloc=cache_alloc_len(F + S), cache_dtype=torch.float32)
+    dec, _ = model.decode(params, cache, toks[:, S - 1], F + S - 1)
+    torch.cuda.synchronize()
+    err = float((full[:, F + S - 1] - dec).abs().max())
+    err_pre = float((full[:, F + S - 2] - last).abs().max())
+    scale = float(full[:, F + S - 1].abs().max())
+    print(f"  (iii) {arch}, {EXACT_LAYERS} layers {cfg.layer_groups()}, "
+          f"{model.param_count():,} f32 params, B={B} S={S}"
+          + (f" + {F} patch embeddings" if F else "") + f": forward "
+          f"(kernel F f32, {fa.launches} launches with the prefill) vs "
+          f"prefill + decode: max abs err {err:.3g} at S-1, {err_pre:.3g} "
+          f"at S-2, logits up to {scale:.3g}; tol {EXACT_TOL}")
+    if not (err <= EXACT_TOL and err_pre <= EXACT_TOL):
+        raise AssertionError(f"(iii) {arch}: forward != prefill + decode: "
+                             f"{err}, {err_pre}")
+    if not torch.isfinite(full).all():
+        raise AssertionError(f"(iii) {arch}: non-finite logits")
+    del params, cache, full
+    _free()
+    return err
+
+
+def model_serving(dev) -> dict:
+    """The phase: each configuration's serve path, checks (i) and (ii) and
+    a profiled prefill, then (iii) for each; every model freed before the
+    next."""
+    out = {arch: serve_model(arch, n, dev) for arch, n in MODEL_CUTS}
+    for arch, _ in MODEL_CUTS:
+        out[arch]["exact_err"] = exactness_model(arch, dev)
+    return out
+
+
+#: kernel F at deepseek-v3's MLA prefill: batch, heads, prompt, qk and v
+#: head dims
+FLASH_MLA_SHAPE = (8, 128, 512, 192, 128)
+
+
+def flash_mla_timing(dev) -> dict:
+    """Kernel F at the MLA shape (v zero-padded to the qk head dim, as
+    ``attention.flash_kernel_padded_v`` hands it over), beside its plain
+    version and ``scaled_dot_product_attention`` at q/k 192, v 128.  The
+    bound counts MLA's function: q and k at 192, v and o at 128, causal
+    QK^T and P.V."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    from repro_torch.models.attention import pad_head_dim
+
+    B, H, S, dqk, dv = FLASH_MLA_SHAPE
+    rng = np.random.default_rng(SEED + 2)
+    q, k, v = (torch.from_numpy(rng.normal(size=(B, S, H, d)).astype(
+        np.float32)).to(dev).to(torch.bfloat16) for d in (dqk, dqk, dv))
+    vp = pad_head_dim(v, dqk)
+    q, k, v, vp = (t.transpose(1, 2) for t in (q, k, v, vp))
+    ms = kernel_ms(lambda: fa.flash_attention(q, k, vp), 20, "flash_kernel")
+    nbytes = (q.numel() + k.numel() + 2 * v.numel()) * q.element_size()
+    flops = B * H * S * S * (dqk + dv)        # 2 S^2 (dqk + dv) / 2 causal
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    flops_ms = flops / BF16_FLOP_PER_S * 1e3
+    lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+        q, k, v, is_causal=True), 20)
+    return {
+        "name": "flash_attention (MLA, d 192)", "route": "cuda",
+        "source": "src/repro_torch/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:78",
+        "ms": ms, "plain_ms": cuda_ms(
+            lambda: ref.flash_attention_ref(q, k, vp), 3),
+        "bound_ms": max(bytes_ms, flops_ms),
+        "bound_by": "bytes" if bytes_ms >= flops_ms else "operations",
+        "library_ms": lib_ms,
+        "library_note": "scaled_dot_product_attention(is_causal=True) at "
+                        "q/k 192, v 128, timed only",
+        "ms_from": ms_from("flash_kernel"), "wrapper_call_ms": cuda_ms(
+            lambda: fa.flash_attention(q, k, vp), 20),
+        "shape": f"B={B} H={H} Hkv={H} S={S} d={dqk} (v {dv} padded) "
+                 f"{q.dtype} causal",
+        "bound_bytes_ms": bytes_ms, "bound_ops_ms": flops_ms,
+        "tflop_per_s": flops / (ms * 1e-3) / 1e12,
+        "bound_share": max(bytes_ms, flops_ms) / ms,
+        "ms_over_library": ms / lib_ms,
+    }
+
+
+def flash_mla_row(timing: dict, served: dict) -> dict:
+    """F's MLA row: :func:`flash_mla_timing` with deepseek-v3's serve-path
+    launches and its check (i)."""
+    ds = served["deepseek-v3-671b"]
+    return {**timing, "launches": ds["launches"], "max_abs_err": ds["err"],
+            "launches_per_prefill": ds["launches"]
+            // ds["result"]["prefill_calls"]}
 
 
 # ---------------------------------------------------------------------------
@@ -1662,23 +2173,15 @@ def training(dev, card: str) -> dict:
     """The training phase: (1) gradient routes, (2) launch/train.py at
     full width, (3) crash and resume; then F's times at the training
     shape.  Frees what it allocated."""
-    import gc
-
-    import torch
-
-    def free() -> None:
-        # cached blocks of earlier phases' shapes would crowd the
-        # full-width state into allocator retries
-        gc.collect()
-        torch.cuda.empty_cache()
-
-    free()
+    # cached blocks of earlier phases' shapes would crowd the full-width
+    # state into allocator retries
+    _free()
     out = {"routes": gradient_routes(dev)}
-    free()
+    _free()
     out["train"] = train_full_width(dev, card)
     out["resume"] = crash_and_resume(out["train"]["param_count"])
     out["flash"] = flash_training_timing(dev)
-    free()
+    _free()
     return out
 
 
@@ -1721,7 +2224,7 @@ def flash_timing(dev) -> dict:
         "library_ms": lib_ms,
         "library_note": "scaled_dot_product_attention(is_causal=True, "
                         "enable_gqa=True), timed only",
-        "ms_from": "profiler", "wrapper_call_ms": cuda_ms(
+        "ms_from": ms_from("flash_kernel"), "wrapper_call_ms": cuda_ms(
             lambda: fa.flash_attention(q, k, v), 20),
         "shape": f"B={B} H={H} Hkv={Hkv} S={S} d={d} {q.dtype} causal",
         "bound_bytes_ms": bytes_ms, "bound_ops_ms": flops_ms,
@@ -1829,7 +2332,7 @@ def kernel_table(run, scan, dev) -> list[dict]:
         "ms": ms, "plain_ms": plain_ms,
         "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
         "library_ms": None,
-        "ms_from": "profiler", "wrapper_call_ms": call_ms,
+        "ms_from": ms_from("pushdown_kernel"), "wrapper_call_ms": call_ms,
         "shape": f"R={R} L={L} P={plan.n_preds} C={C}",
         "chunk_GB_per_s": data.numel() / (ms * 1e-3) / 1e9,
         "ms_whole_pool": whole, "ms_no_rows": ms_no_rows,
@@ -1844,7 +2347,8 @@ def kernel_table(run, scan, dev) -> list[dict]:
         "source": "src/repro_torch/csrc/scan.cu",
         "replaces": "src/repro/kernels/scan_fused.py:373",
         "launches": run["launches"]["scan"], **b_main,
-        "bound_by": "bytes", "library_ms": None, "ms_from": "profiler",
+        "bound_by": "bytes", "library_ms": None,
+        "ms_from": ms_from("scan_kernel"),
         "wide": b_wide,
     })
     return rows
@@ -2752,6 +3256,7 @@ def main(argv=None) -> int:
     rows = (kernel_table(run, scan, dev)
             + split_kernel_rows(run, split, dev, reduce))
     f_timing = flash_timing(dev)
+    f_mla_timing = flash_mla_timing(dev)
     phase("sharded plane: the main path's records in 4 shards")
     t0 = time.perf_counter()
     sharded = sharded_plane(run, dev)
@@ -2789,6 +3294,12 @@ def main(argv=None) -> int:
     serve_breakdown(dev)
     phase("exactness at full width: forward vs prefill + decode (f32)")
     exactness_f32(dev)
+    phase(f"MoE, MLA and vision serving: {', '.join(a for a, _ in MODEL_CUTS)}"
+          f" at published widths, batch {MODEL_BATCH}, prompt "
+          f"{MODEL_PROMPT}, {MODEL_GEN} tokens")
+    t0 = time.perf_counter()
+    served = model_serving(dev)
+    print(f"  phase {time.perf_counter() - t0:.1f} s")
     phase(f"training: gradient routes, {' '.join(TRAIN_ARGS)}, crash and "
           "resume")
     t0 = time.perf_counter()
@@ -2801,6 +3312,9 @@ def main(argv=None) -> int:
         **trained["flash"],
         "gradient_route_max_rel_err": {
             dt: r["max_rel_err"] for dt, r in trained["routes"].items()}}
+    rows[-1]["launches_moe_mla_vision"] = {
+        a: r["launches"] for a, r in served.items() if a != "deepseek-v3-671b"}
+    rows.append(flash_mla_row(f_mla_timing, served))
     # launches on this slice's paths, each read from its own phase
     rows[0]["launches_client_fleet"] = fleet["launches"]["pushdown"]
     rows[1]["launches_sharded_plane"] = sharded["launches"]["scan"]
@@ -2830,7 +3344,8 @@ def main(argv=None) -> int:
               f"at {r['shape']}")
     from repro_torch.benchmarks import bench_reduce
     print(f"  profiler traces retried, no record of the kernel in them: "
-          f"{bench_reduce.missed or 'none'}")
+          f"{bench_reduce.missed or 'none'}; calls that lost the profiler "
+          f"(no device activity in any trace): {bench_reduce.lost or 'none'}")
     print(f"  total {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"kernels": rows}))

@@ -48,59 +48,132 @@ KINDS = ("kernels", "copies_to_device", "copies_to_host", "copies_other",
 #: removed that in ``profiler_sessions.py``
 PAD_S = 0.25
 #: traces in a row that may miss the kernel asked for before
-#: :func:`device_activity` raises, each a second after the last
+#: :func:`trace` gives up, each :data:`RETRY_S` after the last
 TRACES = 5
+RETRY_S = 1.0
+#: the same, once the profiler has been lost in this process
+TRACES_AFTER_LOSS = 2
 #: traces that recorded no launch of the kernel asked for, by its mark
 missed: dict[str, int] = {}
+#: calls that gave up with no device activity recorded at all, by mark
+lost: dict[str, int] = {}
+#: :func:`kernel_ms` calls by kernel name, and those of them timed with
+#: CUDA events because the profiler was lost
+timed: dict[str, int] = {}
+event_timed: dict[str, int] = {}
+EVENTS = "CUDA events around the calls (the profiler recorded no device " \
+    "activity)"
 
 
-def device_activity(fn, reps: int, mark: str = "") -> dict:
-    """Every device activity the profiler records in ``reps`` calls of
-    ``fn`` (kernels, copies, memsets), per call: {name: (count, device
-    ms)}.  A trace that records none whose name holds ``mark`` is counted
-    in :data:`missed` and taken again a second later; after
-    :data:`TRACES` such traces in a row it raises, naming what the last
-    one did record."""
+class ProfilerLost(AssertionError):
+    """Every trace of a call recorded no device activity at all: the
+    profiler failed, not the code it traced."""
+
+
+def _device_events(prof) -> list:
     from torch.autograd import DeviceType
+    return [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.count]
+
+
+def trace(fn, reps: int, found, mark: str = "", cpu: bool = False):
+    """The profiler around ``reps`` calls of ``fn``, idling :data:`PAD_S`
+    inside before the first call and after the last synchronise.  A trace
+    for which ``found(prof)`` is false is counted in :data:`missed` and
+    taken again :data:`RETRY_S` later, up to :data:`TRACES` in a row (after a
+    loss, :data:`TRACES_AFTER_LOSS`).  Then it raises: :class:`ProfilerLost`
+    if the last trace recorded no device activity at all, else
+    ``AssertionError`` naming what it did record."""
     from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    for attempt in range(TRACES):
+    acts = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if cpu else [])
+    for attempt in range(TRACES_AFTER_LOSS if lost else TRACES):
         if attempt:
-            time.sleep(1.0)
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            time.sleep(RETRY_S)
+        with profile(activities=acts) as prof:
             time.sleep(PAD_S)
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
             time.sleep(PAD_S)
-        rows = {e.key: (e.count / reps, e.device_time_total / reps / 1e3)
-                for e in prof.key_averages()
-                if e.device_type == DeviceType.CUDA and e.count}
-        if any(mark in k and ms > 0 for k, (_, ms) in rows.items()):
-            return rows
+        if found(prof):
+            return prof
         missed[mark] = missed.get(mark, 0) + 1
+    events = _device_events(prof)
+    what = f"the profiler found no {mark or 'device activity'} in " \
+           f"{attempt + 1} traces"
+    if not events:
+        lost[mark] = lost.get(mark, 0) + 1
+        raise ProfilerLost(f"{what}; the last recorded no device activity")
     raise AssertionError(
-        f"the profiler found no {mark or 'device activity'} in {TRACES} "
-        f"traces; the last recorded {len(rows)} device activities: "
-        f"{dict(list(rows.items())[:6])}")
+        f"{what}; the last recorded {len(events)} device activities: "
+        f"{[e.key for e in events[:6]]}")
+
+
+def device_activity(fn, reps: int, mark: str = "") -> dict:
+    """Every device activity the profiler records in ``reps`` calls of
+    ``fn`` (kernels, copies, memsets), per call: {name: (count, device
+    ms)}, from a :func:`trace` that recorded one whose name holds
+    ``mark``."""
+    fn()
+    torch.cuda.synchronize()
+
+    def rows(prof) -> dict:
+        return {e.key: (e.count / reps, e.device_time_total / reps / 1e3)
+                for e in _device_events(prof)}
+
+    return rows(trace(fn, reps, lambda prof: any(
+        mark in k and ms > 0 for k, (_, ms) in rows(prof).items()), mark))
+
+
+def events_ms(fn, reps: int) -> float:
+    """Mean device milliseconds per call of ``fn``, between two CUDA
+    events around ``reps`` calls after one warm call."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / reps
 
 
 def kernel_ms(fn, reps: int, name: str) -> float:
     """Device milliseconds per launch of the kernel ``name`` inside ``fn``,
-    from the profiler's CUDA activity (kernel time alone)."""
-    return next(ms / n for k, (n, ms) in
-                device_activity(fn, reps, name).items() if name in k)
+    from the profiler's CUDA activity (kernel time alone); if the profiler
+    is lost (:class:`ProfilerLost`), per call of ``fn`` between CUDA
+    events, and :func:`ms_from` says so."""
+    timed[name] = timed.get(name, 0) + 1
+    try:
+        rows = device_activity(fn, reps, name)
+    except ProfilerLost:
+        event_timed[name] = event_timed.get(name, 0) + 1
+        return events_ms(fn, reps)
+    return next(ms / n for k, (n, ms) in rows.items() if name in k)
+
+
+def ms_from(name: str) -> str:
+    """Where the times :func:`kernel_ms` gave for ``name`` came from."""
+    n = event_timed.get(name, 0)
+    return "profiler" if not n else \
+        f"{EVENTS} in {n} of {timed[name]} timings, else the profiler"
 
 
 def device_ops(fn, traces: int = 5) -> dict:
     """The device operations of one call of ``fn``, by kind (:data:`KINDS`),
     with ``rows`` naming each: the fullest of ``traces`` traces of one
-    call (the profiler now and then drops a record, never adds one)."""
+    call (the profiler now and then drops a record, never adds one);
+    None if the profiler was lost before any of them."""
     best = None
     for _ in range(traces):
         got, rows = dict.fromkeys(KINDS, 0), {}
-        for name, (count, _) in device_activity(fn, 1).items():
+        try:
+            activity = device_activity(fn, 1)
+        except ProfilerLost:
+            break
+        for name, (count, _) in activity.items():
             kind = ("copies_to_device" if name.startswith("Memcpy HtoD") else
                     "copies_to_host" if name.startswith("Memcpy DtoH") else
                     "copies_other" if name.startswith("Memcpy") else
@@ -125,7 +198,8 @@ def host_ms(fn, reps: int) -> float:
 
 def measure(dev: torch.device, seed: int = 20240611) -> dict:
     """C's kernel time, call time and device operations per call at
-    :data:`SHAPES`, and the probe's time beside its bytes bound."""
+    :data:`SHAPES` (None where the profiler was lost), and the probe's
+    time beside its bytes bound."""
     from repro_torch.kernels import bitvector_ops, ops
 
     rng = np.random.default_rng(seed)
@@ -143,15 +217,20 @@ def measure(dev: torch.device, seed: int = 20240611) -> dict:
     P, W = PROBE
     t = torch.from_numpy(rng.integers(0, 2**32, (P, W),
                                       dtype=np.uint32)).to(dev)
+    probe = functools.partial(bitvector_ops.bitvector_reduce, t)
     # per launch of each kernel (a call launches each once), so a record
     # the profiler drops moves no time
-    per_launch = {k: ms / n for k, (n, ms) in device_activity(
-        lambda: bitvector_ops.bitvector_reduce(t), 20, MARK).items()}
-    ms = sum(v for k, v in per_launch.items() if MARK in k)
+    try:
+        per_launch = {k: ms / n for k, (n, ms) in
+                      device_activity(probe, 20, MARK).items()}
+        ms = sum(v for k, v in per_launch.items() if MARK in k)
+    except ProfilerLost:
+        per_launch, ms = None, events_ms(probe, 20)
     bound = (P * W * 4 + 2 * W * 4 + 4) / HBM_BYTES_PER_S * 1e3
     out["probe"] = {"shape": f"P={P} W={W}", "ms": ms, "bound_ms": bound,
                     "bound_by": "bytes", "bound_share": bound / ms,
-                    "device_ms_per_launch": per_launch}
+                    "device_ms_per_launch": per_launch,
+                    "ms_from": EVENTS if per_launch is None else "profiler"}
     return out
 
 

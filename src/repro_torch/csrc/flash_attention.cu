@@ -61,6 +61,14 @@
 //  * Causal: a block stops at the K tile past its last row.  On such a
 //    tile _kernel leaves m, l and acc unchanged (alpha = 1, p = 0), so
 //    the skip is exact.  The heaviest q tiles are launched first.
+//  * Head dims 16, 32, 64, 128 and 192, one template instance each per
+//    route.  d = 192 is MLA's qk head dim (deepseek-v3: nope 128 + rope
+//    64); its v head dim of 128 is zero-padded to 192 by the caller
+//    (repro_torch.models.attention.flash_kernel_padded_v), which leaves
+//    o's first 128 columns exact and the others 0.  Shared memory per
+//    block at d = 192: 128,000 B (bf16), 148,736 B (f32), both under the
+//    227 KB a block may opt into; the bf16 accumulator is 96 f32 a thread
+//    (64 at d = 128), which sets its register count.
 //  * GQA: q head h reads kv head h / G, the (Hkv, G) grouping of the
 //    JAX package.  q, k, v and o are read and written through strides
 //    (last dim contiguous), so (B, S, H, d) tensors need no copy.
@@ -251,7 +259,8 @@ constexpr int kStages = 2;                   // K/V ring depth
 constexpr float kLog2e = 1.4426950408889634f;
 
 // Row pitch in bf16 elements: 16 bytes of padding, so 8 consecutive rows
-// start on 8 distinct 16-byte bank groups for every d in {16, 32, 64, 128}
+// start on 8 distinct 16-byte bank groups for every d in {16, 32, 64, 128,
+// 192} (a pitch of 2d + 16 bytes is an odd number of 16-byte groups)
 template <int D>
 __host__ __device__ constexpr int pitch() { return D + 8; }
 
@@ -555,10 +564,12 @@ Launch pick(int dtype, int d) {
     case 32: return launch_f32<32>;
     case 64: return launch_f32<64>;
     case 128: return launch_f32<128>;
+    case 192: return launch_f32<192>;
     case 1016: return launch_mma<16>;
     case 1032: return launch_mma<32>;
     case 1064: return launch_mma<64>;
     case 1128: return launch_mma<128>;
+    case 1192: return launch_mma<192>;
     default: return nullptr;
   }
 }
@@ -569,8 +580,8 @@ extern "C" {
 
 // o[b, h, :Sq, :d] = attention of q[b, h] over k[b, h / G], v[b, h / G]
 // with G = H / Hkv.  dtype 0 = f32, 1 = bf16 (q, k, v and o alike); d one
-// of 16, 32, 64, 128; strides in elements, the last dim contiguous.  bf16
-// needs 16-byte aligned rows (base addresses and strides), which the
+// of 16, 32, 64, 128, 192; strides in elements, the last dim contiguous.
+// bf16 needs 16-byte aligned rows (base addresses and strides), which the
 // wrapper checks.  `device` is the CUDA ordinal the tensors and `stream`
 // belong to.  Returns the cudaError_t of the launch.
 int ciao_flash_attention(int device, int dtype, int d, const void* q,

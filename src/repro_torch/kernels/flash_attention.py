@@ -30,7 +30,7 @@ from . import cuda_build, ref
 launches = 0
 
 #: head dims the kernel is built for
-HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 128, 192)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _GRID_LIMIT = 65535             # gridDim.y (heads) and gridDim.z (batch)
 

@@ -1,9 +1,7 @@
-"""Attention: GQA / MQA / qk-norm / QKV bias, flash attention and decode.
+"""Attention: GQA / MQA / qk-norm / QKV bias / MLA, flash attention and decode.
 
-The port of the GQA and MHA parts of ``repro.models.attention``; MLA
-(``_mla_qkv``, ``attend_mla``, ``decode_attention_mla``) and cross
-attention come with their model families (ROADMAP.md Queue 1, items 17
-and 20).
+The port of ``repro.models.attention`` but cross attention, which comes
+with its model family (ROADMAP.md Queue 1, item 20).
 
   * :func:`flash_attention` — self-attention over a whole sequence.  On a
     CPU tensor it runs :func:`flash_attention_plain`, the chunked
@@ -12,13 +10,19 @@ and 20).
     tensor it launches kernel F (``csrc/flash_attention.cu``, wrapper
     :mod:`repro_torch.kernels.flash_attention`) where F's domain covers
     the call, and raises ``NotImplementedError`` where it does not: it
-    never runs the plain version on a card.  Where a gradient is wanted
-    it launches F through :class:`FlashAttention`, whose backward is the
+    never runs the plain version on a card.  A v head dim below the qk
+    head dim (MLA) is zero-padded up to it for F and the output cut back
+    (:func:`flash_kernel_padded_v`).  Where a gradient is wanted it
+    launches F through :class:`FlashAttention`, whose backward is the
     gradient of :func:`flash_attention_plain`.
   * :func:`decode_attention_gqa` — one new token over the cache, returning
     partial softmax stats (o, m, l); :func:`combine_partials` normalises
     them.  Plain PyTorch on every device: the JAX package has no kernel
     for it either.
+  * MLA (deepseek-v3): :func:`attend_mla`, the full-rank expansion for
+    prefill and training (kernel F at qk head dim nope + rope, v padded),
+    and :func:`decode_attention_mla`, the absorbed decode on the
+    compressed cache (plain f32, as the reference's jnp).
 """
 from __future__ import annotations
 
@@ -34,7 +38,6 @@ NEG_INF = -1e30
 
 #: where the calls kernel F does not cover are planned (ROADMAP.md)
 _ROADMAP_LOCAL = "ROADMAP.md Queue 1, item 18 ('local and hybrid')"
-_ROADMAP_MLA = "ROADMAP.md Queue 1, item 17 ('MLA')"
 _ROADMAP_MESH = "ROADMAP.md Queue 1, item 14 (model mesh)"
 
 
@@ -59,6 +62,27 @@ def init_attention(cfg) -> dict:
         p["q_norm"] = Spec((hd,), "zeros")
         p["k_norm"] = Spec((hd,), "zeros")
     return p
+
+
+def init_mla(cfg) -> dict:
+    """Parameter specs of one MLA attention block (deepseek-v3)."""
+    m = cfg.mla
+    d, H = cfg.d_model, cfg.n_heads
+    qk = m.qk_nope_head_dim + m.qk_rope_head_dim
+    return {
+        "wq_a": Spec((d, m.q_lora_rank)),
+        "q_norm": Spec((m.q_lora_rank,), "zeros"),
+        "wq_b": Spec((m.q_lora_rank, H, qk)),
+        "wkv_a": Spec((d, m.kv_lora_rank + m.qk_rope_head_dim)),
+        "kv_norm": Spec((m.kv_lora_rank,), "zeros"),
+        "wkv_b": Spec((m.kv_lora_rank, H, m.qk_nope_head_dim + m.v_head_dim)),
+        "wo": Spec((H, m.v_head_dim, d)),
+    }
+
+
+def rope_dim(cfg) -> int:
+    """Head dim that RoPE rotates: MLA's rope part, else the head dim."""
+    return cfg.mla.qk_rope_head_dim if cfg.attention == "mla" else cfg.hd()
 
 
 # ---------------------------------------------------------------------------
@@ -240,13 +264,13 @@ def flash_attention(q, k, v, *, q_positions, k_positions,
 
     On a CPU tensor this is :func:`flash_attention_plain`.  On a CUDA
     tensor it launches kernel F, which covers mask ``causal`` or
-    ``none``, the default scale, equal qk and v head dims and positions
-    0..S-1 (what ``transformer.forward``/``prefill`` pass, on the CPU, so
-    the check costs no device sync); the chunk sizes are the jnp path's
-    tiling and do not change the result.  Any other call on a card raises
-    ``NotImplementedError``.  With grad mode on and q, k or v requiring
-    a gradient (training), F launches through :class:`FlashAttention`,
-    which carries the gradient; otherwise (serving) through its wrapper.
+    ``none``, positions 0..S-1 (what ``transformer.forward``/``prefill``
+    pass, on the CPU, so the check costs no device sync), a v head dim
+    equal to the qk head dim or below it (zero-padded up to it, see
+    :func:`flash_kernel_padded_v`), and the default scale ``qkd ** -0.5``
+    (MLA's ``(nope + rope) ** -0.5`` is that scale); the chunk sizes are
+    the jnp path's tiling and do not change the result.  Any other call
+    on a card raises ``NotImplementedError``.
     """
     if q.device.type == "cpu":
         return flash_attention_plain(
@@ -258,17 +282,42 @@ def flash_attention(q, k, v, *, q_positions, k_positions,
         raise NotImplementedError(
             f"mask {mask_mode!r} on {q.device}: kernel F covers causal and "
             f"unmasked attention; local windows come with {_ROADMAP_LOCAL}")
-    if qkd != vd or (scale is not None and scale != qkd ** -0.5):
+    if vd > qkd or (scale is not None and scale != qkd ** -0.5):
         raise NotImplementedError(
             f"qk head dim {qkd}, v head dim {vd}, scale {scale} on "
-            f"{q.device}: kernel F takes equal head dims and the default "
-            f"scale; MLA comes with {_ROADMAP_MLA}")
+            f"{q.device}: kernel F takes a v head dim up to the qk head "
+            f"dim and the scale qk head dim ** -0.5 only")
     if not (_is_iota(q_positions, Sq) and _is_iota(k_positions, Sk)):
         raise NotImplementedError(
             f"positions other than 0..S-1 on {q.device}: kernel F masks by "
             f"row and column index; offset or padded positions come with "
             f"{_ROADMAP_LOCAL}")
-    causal = mask_mode == "causal"
+    out = flash_kernel_padded_v(q, k, v, causal=mask_mode == "causal",
+                                q_chunk=q_chunk, k_chunk=k_chunk)
+    return out if vd == qkd else out[..., :vd]
+
+
+def pad_head_dim(x, d: int):
+    """``x`` with its last dim zero-padded to ``d`` (itself if it has
+    ``d`` already)."""
+    return x if x.shape[-1] == d else _pad_to(x, d, x.dim() - 1)
+
+
+def flash_kernel_padded_v(q, k, v, *, causal: bool, q_chunk: int = 1024,
+                          k_chunk: int = 1024):
+    """Kernel F on q, k ``(B, S, heads, qkd)`` and v ``(B, S, Hkv, vd)``,
+    ``vd <= qkd``, with v zero-padded to ``qkd``; returns ``(B, Sq, H,
+    qkd)``, whose first ``vd`` columns are the attention over the
+    unpadded v and whose other columns are exactly 0 (p . 0 = 0, and the
+    scale and softmax read q and k alone).  Positions 0..S-1, scale
+    ``qkd ** -0.5``.
+
+    With grad mode on and q, k or v requiring a gradient (training), F
+    launches through :class:`FlashAttention`, which carries the gradient
+    (through the pad to v); otherwise (serving) through its wrapper.  On
+    CPU tensors the wrapper runs F's plain version.
+    """
+    v = pad_head_dim(v, q.shape[-1])
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
         return FlashAttention.apply(q, k, v, causal, q_chunk, k_chunk)
@@ -290,6 +339,65 @@ def attend_full(p, x, cfg, positions, *, mask_mode=None):
         q_chunk=cfg.attn_q_chunk, k_chunk=cfg.attn_k_chunk,
     )
     return _out_proj(out, p["wo"])
+
+
+# ---------------------------------------------------------------------------
+# MLA (deepseek-v3)
+# ---------------------------------------------------------------------------
+
+class MLAParts(NamedTuple):
+    """What :func:`_mla_qkv` projects: per-head q halves and the shared
+    compressed kv latent and rotated key (the MLA cache's contents)."""
+    q_nope: torch.Tensor    # (B, S, H, nope)
+    q_rope: torch.Tensor    # (B, S, H, rope), rotated
+    c_kv: torch.Tensor      # (B, S, kv_lora), normed
+    k_rope: torch.Tensor    # (B, S, 1, rope), rotated, shared by every head
+
+
+def _mla_qkv(p, x, cfg, rope: RopeTables) -> MLAParts:
+    """MLA's projections; ``rope`` holds the tables at x's positions over
+    the rope dims (:func:`rope_dim`)."""
+    m = cfg.mla
+    cq = rmsnorm(x @ p["wq_a"].to(x.dtype), p["q_norm"], cfg.norm_eps)
+    q = _proj(cq, p["wq_b"])
+    q_nope = q[..., : m.qk_nope_head_dim]
+    q_rope = rotate(q[..., m.qk_nope_head_dim:], rope)
+    kv = x @ p["wkv_a"].to(x.dtype)
+    c_kv = rmsnorm(kv[..., : m.kv_lora_rank], p["kv_norm"], cfg.norm_eps)
+    k_rope = rotate(kv[..., m.kv_lora_rank:][:, :, None, :], rope)
+    return MLAParts(q_nope, q_rope, c_kv, k_rope)
+
+
+def mla_scale(cfg) -> float:
+    m = cfg.mla
+    return (m.qk_nope_head_dim + m.qk_rope_head_dim) ** -0.5
+
+
+def _attend_mla_parts(p, parts: MLAParts, cfg, positions, attention=None):
+    """Full-rank MLA attention from :func:`_mla_qkv`'s parts: k = [k_nope,
+    k_rope on every head], v from ``wkv_b``, scale (nope + rope) ** -0.5,
+    then the output projection.  ``positions`` as
+    :func:`flash_attention`'s; ``attention`` replaces it (same
+    signature)."""
+    m = cfg.mla
+    kvb = _proj(parts.c_kv, p["wkv_b"])
+    k_nope = kvb[..., : m.qk_nope_head_dim]
+    v = kvb[..., m.qk_nope_head_dim:]
+    H = cfg.n_heads
+    k = torch.cat([k_nope, parts.k_rope.expand(
+        *parts.k_rope.shape[:2], H, m.qk_rope_head_dim)], dim=-1)
+    q = torch.cat([parts.q_nope, parts.q_rope], dim=-1)
+    out = (attention or flash_attention)(
+        q, k, v, q_positions=positions, k_positions=positions,
+        mask_mode="causal", q_chunk=cfg.attn_q_chunk,
+        k_chunk=cfg.attn_k_chunk, scale=mla_scale(cfg))
+    return _out_proj(out, p["wo"])
+
+
+def attend_mla(p, x, cfg, positions):
+    """Train/prefill MLA with full-rank expansion."""
+    rope = rope_tables(positions.to(x.device), rope_dim(cfg), cfg.rope_theta)
+    return _attend_mla_parts(p, _mla_qkv(p, x, cfg, rope), cfg, positions)
 
 
 # ---------------------------------------------------------------------------
@@ -334,3 +442,30 @@ def decode_attention_gqa(q, k_cache, v_cache, k_positions, *, window: int = 0,
     l_ = p_.sum(dim=-1)
     return Partial(o=o.reshape(B, H, -1), m=m.reshape(B, H),
                    l=l_.reshape(B, H))
+
+
+def decode_attention_mla(q_nope, q_rope, ckv_cache, krope_cache, k_positions,
+                         wkv_b, *, nope_dim: int, scale) -> Partial:
+    """Absorbed MLA decode on the compressed cache, in f32.
+
+    q_nope: (B, H, nope); q_rope: (B, H, rope); ckv_cache: (B, S,
+    kv_lora); krope_cache: (B, S, rope); wkv_b: (kv_lora, H, nope + vd)
+    as stored.  W_UK is folded into q, the scores are taken against the
+    latent cache, and W_UV is applied to the context: the cache stays
+    kv_lora + rope wide.  Returns partial stats.
+    """
+    wk = wkv_b[..., :nope_dim].float()             # (r, H, nope)
+    wv = wkv_b[..., nope_dim:].float()             # (r, H, vd)
+    q_abs = torch.einsum("bhn,rhn->bhr", q_nope.float(), wk)
+    s = (torch.einsum("bhr,bsr->bhs", q_abs, ckv_cache.float())
+         + torch.einsum("bhp,bsp->bhs", q_rope.float(), krope_cache.float())
+         ) * scale
+    valid = k_positions >= 0
+    s = torch.where(valid, s, NEG_INF)
+    m = s.amax(dim=-1)
+    shift = torch.where(m <= NEG_INF / 2, 0.0, m)
+    p_ = torch.exp(s - shift[..., None])
+    p_ = torch.where(valid, p_, 0.0)
+    ctx = torch.einsum("bhs,bsr->bhr", p_, ckv_cache.float())
+    o = torch.einsum("bhr,rhv->bhv", ctx, wv)
+    return Partial(o=o, m=m, l=p_.sum(dim=-1))

@@ -7,8 +7,10 @@
     logits, cache = model.prefill(params, {"tokens": tokens}, s_alloc=...)
     logits, cache = model.decode(params, cache, tokens, cur_index)
 
-The port of ``repro.models.model`` for dense decoders.  ``batch`` holds
-``tokens`` (B, S) int and ``loss_mask`` (B, S) f32 tensors.  Entry points
+The port of ``repro.models.model`` for decoders (dense, MoE, MLA, the
+vision frontend).  ``batch`` holds ``tokens`` (B, S) int and
+``loss_mask`` (B, S) f32 tensors, and for the vision frontend
+``extra_embeds`` (B, F, d), prepended to the token embeddings.  Entry points
 run on the card unless the caller passes ``device="cpu"``, and raise
 without one.
 """
@@ -54,17 +56,18 @@ class Model:
     # -- training ------------------------------------------------------------
     def loss(self, values, batch, *, attention=None):
         """Next-token CE of ``batch`` (logits shifted by one against the
-        tokens and mask), plus the forward's aux loss.  ``attention``: as
+        tokens and mask; the frontend's positions cut off first), plus the
+        forward's aux loss.  ``attention``: as
         :func:`transformer.forward`'s."""
         cfg = self.cfg
         if cfg.family == "encdec":
             raise NotImplementedError("the encdec loss comes with models/"
                                       "encdec.py (ROADMAP.md Queue 1, item 20)")
-        if batch.get("extra_embeds") is not None:
-            raise NotImplementedError("extra_embeds come with the vision "
-                                      "frontend (ROADMAP.md Queue 1, item 21)")
+        extra = batch.get("extra_embeds")
         logits, aux = transformer.forward(values, cfg, batch["tokens"],
+                                          extra_embeds=extra,
                                           attention=attention)
+        logits = logits[:, cfg.frontend_len if extra is not None else 0:]
         tgt, mask = batch["tokens"], batch["loss_mask"]
         return cross_entropy(logits[:, :-1], tgt[:, 1:], mask[:, 1:],
                              z_loss=cfg.z_loss) + aux
@@ -89,6 +92,18 @@ class Model:
     def param_count(self) -> int:
         """From shapes alone: no configuration is built to be counted."""
         return transformer.param_count(self.cfg)
+
+    def active_param_count(self) -> int:
+        """Activated params per token (MoE: top_k + shared of routed
+        layers), from shapes alone."""
+        cfg = self.cfg
+        total = self.param_count()
+        if cfg.moe is None:
+            return total
+        m = cfg.moe
+        per_expert = 3 * cfg.d_model * m.d_ff_expert
+        n_moe_layers = cfg.n_layers - m.first_dense_layers
+        return total - n_moe_layers * (m.n_experts - m.top_k) * per_expert
 
 
 def build_model(cfg) -> Model:

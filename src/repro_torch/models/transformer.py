@@ -1,10 +1,14 @@
-"""Decoder-only LM assembly for dense attention blocks.
+"""Decoder-only LM assembly: dense and MoE layers, full or MLA attention.
 
-The port of ``repro.models.transformer`` for ``dense_attn`` layer groups
-with full (causal) attention: ``init_params``, ``forward`` (teacher-forced
-logits), ``init_cache``, ``prefill`` (forward + cache emission) and
-``decode_step`` (one token).  Parameters and caches keep the JAX
-package's nested dicts, each group stacked on a leading layers axis.
+The port of ``repro.models.transformer`` for ``dense_attn`` and
+``moe_attn`` layer groups (deepseek-v3: dense layers, then MoE layers)
+with full (causal, GQA) or MLA attention, and the vision frontend's
+``extra_embeds`` prepended to the tokens: ``init_params``, ``forward``
+(teacher-forced logits and the MoE aux loss), ``init_cache`` (k/v, or
+MLA's compressed ``ckv``/``krope``), ``prefill`` (forward + cache
+emission) and ``decode_step`` (one token).  Parameters and caches keep
+the JAX package's nested dicts, each group stacked on a leading layers
+axis.
 
 What differs from the JAX package, and why:
 
@@ -27,9 +31,11 @@ What differs from the JAX package, and why:
   * ``constrain_act``/``constrain_seq`` and the flash-decoding path
     (``_use_sharded_decode``) do nothing off a mesh; they come with the
     model mesh (ROADMAP.md Queue 1, item 14).
-  * Other block types and families (``moe_attn``, ``rec``, ``rwkv``, MLA,
-    local attention, ``encdec``, ``extra_embeds``) raise
-    ``NotImplementedError`` (ROADMAP.md Queue 1, items 16-21).
+  * The expert-parallel MoE (``apply_moe_sharded``) comes with the model
+    mesh too; off a mesh the JAX package runs ``apply_moe``, as here.
+  * Other block types and families (``rec`` and local attention,
+    ``rwkv``, ``encdec``) raise ``NotImplementedError`` (ROADMAP.md
+    Queue 1, items 18-20).
 """
 from __future__ import annotations
 
@@ -39,50 +45,73 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from . import attention as attn
+from . import moe as moe_mod
 from .layers import (
     RopeTables, Spec, apply_mlp, count, embed_tokens, init_embeddings, init_mlp,
     materialize, rmsnorm, rope_tables, torch_dtype, tree_map, unembed,
 )
 
 #: leaves a norm reads in f32: never cast to the compute dtype
-NORM_KEYS = frozenset({"ln1", "ln2", "ln_f", "q_norm", "k_norm"})
+NORM_KEYS = frozenset({"ln1", "ln2", "ln_f", "q_norm", "k_norm", "kv_norm"})
+#: leaves the JAX package reads at their stored precision, whatever the
+#: compute dtype, so :func:`compute_params` keeps them as stored: the
+#: norms; the MoE router, which ``apply_moe`` casts to f32 (a bf16 copy of
+#: f32 master parameters would move the logits, and with them the top-k);
+#: MLA's ``wkv_b``, which the absorbed decode reads in f32
+KEEP_STORED = NORM_KEYS | {"router", "wkv_b"}
+
+#: where what this port refuses is planned (ROADMAP.md Queue 1)
+_ROADMAP_LOCAL = "ROADMAP.md Queue 1, item 18 (local and hybrid)"
+_ROADMAP_FAMILY = {"hybrid": _ROADMAP_LOCAL,
+                   "rwkv": "ROADMAP.md Queue 1, item 19 (rwkv)",
+                   "encdec": "ROADMAP.md Queue 1, item 20 (encdec)"}
 
 
 def check_ported(cfg) -> None:
-    """Raise ``NotImplementedError`` unless ``cfg`` is a dense decoder
-    with full attention: the families this port runs so far."""
+    """Raise ``NotImplementedError`` unless ``cfg`` is a decoder with full
+    or MLA attention (dense or MoE layers, with or without the vision
+    frontend): the families this port runs so far."""
     why = None
     if cfg.family != "decoder":
-        why = f"family {cfg.family!r}"
-    elif cfg.moe is not None:
-        why = "MoE layers (moe_attn)"
-    elif cfg.attention != "full":
-        why = f"{cfg.attention!r} attention"
-    elif cfg.frontend != "none":
-        why = f"the {cfg.frontend} frontend (extra_embeds)"
+        why = (f"family {cfg.family!r}", _ROADMAP_FAMILY.get(
+            cfg.family, "no ROADMAP.md item"))
+    elif cfg.attention not in ("full", "mla"):
+        why = (f"{cfg.attention!r} attention", _ROADMAP_LOCAL)
+    elif cfg.frontend not in ("none", "vision"):
+        why = (f"the {cfg.frontend} frontend", _ROADMAP_FAMILY["encdec"])
     elif cfg.block_pattern:
-        why = f"block pattern {cfg.block_pattern}"
+        why = (f"block pattern {cfg.block_pattern}", _ROADMAP_LOCAL)
     if why is not None:
         raise NotImplementedError(
-            f"{cfg.name}: {why} is not ported yet; the port runs dense "
-            "decoders with full attention (ROADMAP.md Queue 1, items 16-21)")
+            f"{cfg.name}: {why[0]} is not ported yet; the port runs decoders "
+            f"with full or MLA attention, dense or MoE ({why[1]})")
 
 
 def _block_spec(cfg, block_type: str) -> dict:
-    if block_type != "dense_attn":
-        raise NotImplementedError(f"block type {block_type!r} is not ported")
-    return {
+    if block_type not in ("dense_attn", "moe_attn"):
+        raise NotImplementedError(
+            f"block type {block_type!r} is not ported ({_ROADMAP_LOCAL})")
+    p = {
         "ln1": Spec((cfg.d_model,), "zeros"),
         "ln2": Spec((cfg.d_model,), "zeros"),
-        "attn": attn.init_attention(cfg),
-        "mlp": init_mlp(cfg.d_model, cfg.d_ff, cfg.act),
+        "attn": (attn.init_mla(cfg) if cfg.attention == "mla"
+                 else attn.init_attention(cfg)),
     }
+    if block_type == "moe_attn":
+        p["moe"] = moe_mod.init_moe(cfg)
+    else:
+        d_ff = cfg.d_ff
+        if cfg.moe is not None and cfg.moe.first_dense_layers:
+            d_ff = cfg.moe.d_ff_dense or cfg.d_ff
+        p["mlp"] = init_mlp(cfg.d_model, d_ff, cfg.act)
+    return p
 
 
 def param_specs(cfg) -> dict:
     """``{"embed", "ln_f", "group<i>": (layer spec, n_layers)}``; a layer
     spec is ``{"sub0": block}``, the JAX package's layout for a group of
-    one block type."""
+    one block type (deepseek-v3: ``dense_attn`` layers, then
+    ``moe_attn``)."""
     check_ported(cfg)
     p = {"embed": init_embeddings(cfg),
          "ln_f": Spec((cfg.d_model,), "zeros")}
@@ -130,12 +159,13 @@ def init_params(cfg, generator: torch.Generator, device) -> dict:
 def compute_params(params, cfg) -> dict:
     """``params`` with every matrix and bias cast once to the compute
     dtype.  Each use casts them so anyway, so the results are the same;
-    norm scales stay as they are, since a norm reads them in f32."""
+    the leaves of :data:`KEEP_STORED` stay as they are, since the JAX
+    package reads them at their stored precision."""
     dt = torch_dtype(cfg.compute_dtype)
 
     def walk(tree):
         return {k: (walk(v) if isinstance(v, dict)
-                    else v if k in NORM_KEYS or not v.is_floating_point()
+                    else v if k in KEEP_STORED or not v.is_floating_point()
                     else v.to(dt))
                 for k, v in tree.items()}
 
@@ -175,6 +205,23 @@ def _write_cache_kv(cache, k, v, positions) -> None:
     cache["pos"][:S].copy_(positions)
 
 
+def _write_cache_mla(cache, ckv, krope, positions) -> None:
+    """Prefill write of MLA's compressed cache (``ckv`` (B, S, kv_lora),
+    ``krope`` (B, S, rope)), in place, as :func:`_write_cache_kv`."""
+    alloc = cache["ckv"].shape[1]
+    S = ckv.shape[1]
+    if S >= alloc:
+        sel = slice(S - alloc, S)
+        shift = S % alloc
+        cache["ckv"].copy_(torch.roll(ckv[:, sel], shift, dims=1))
+        cache["krope"].copy_(torch.roll(krope[:, sel], shift, dims=1))
+        cache["pos"].copy_(torch.roll(positions[sel], shift, dims=0))
+        return
+    cache["ckv"][:, :S].copy_(ckv)
+    cache["krope"][:, :S].copy_(krope)
+    cache["pos"][:S].copy_(positions)
+
+
 def _add_then_norm(x, a, scale, eps: float):
     """``(x + a, rmsnorm(x + a))`` for a block's inner residual.  XLA
     fuses the JAX package's add into the norm after it and lets the norm
@@ -196,51 +243,84 @@ class _Positions(NamedTuple):
 def _positions(S: int, cfg, device) -> _Positions:
     dev = torch.arange(S, dtype=torch.int32, device=device)
     return _Positions(torch.arange(S, dtype=torch.int32), dev,
-                      rope_tables(dev, cfg.hd(), cfg.rope_theta))
+                      rope_tables(dev, attn.rope_dim(cfg), cfg.rope_theta))
 
 
-def _apply_block_seq(p, x, cfg, pos: _Positions, cache, attention=None):
-    """Full-sequence application of a ``dense_attn`` block; ``cache`` is
-    None (forward) or the layer's cache views, written in place;
-    ``attention`` as :func:`forward`'s."""
+def _ffn(p, h, cfg, block_type: str):
+    """The block's FFN: ``(out, aux)``, aux the MoE's load-balance loss
+    (0 for a dense block)."""
+    if block_type == "moe_attn":
+        return moe_mod.apply_moe(p["moe"], h, cfg)
+    return (apply_mlp(p["mlp"], h, cfg.act),
+            torch.zeros((), dtype=torch.float32, device=h.device))
+
+
+def _apply_block_seq(p, x, cfg, block_type: str, pos: _Positions, cache,
+                     attention=None):
+    """Full-sequence application of a ``dense_attn`` or ``moe_attn``
+    block; ``cache`` is None (forward) or the layer's cache views,
+    written in place; ``attention`` as :func:`forward`'s.  Returns (x,
+    aux)."""
     h = rmsnorm(x, p["ln1"], cfg.norm_eps)
-    q, k, v = attn._project_qkv(p["attn"], h, cfg, pos.rope)
-    a = (attention or attn.flash_attention)(
-        q, k, v, q_positions=pos.host, k_positions=pos.host,
-        mask_mode="causal", window=cfg.window,
-        q_chunk=cfg.attn_q_chunk, k_chunk=cfg.attn_k_chunk,
-    )
-    a = attn._out_proj(a, p["attn"]["wo"])
-    if cache is not None:
-        _write_cache_kv(cache, k, v, pos.device)
+    if cfg.attention == "mla":
+        parts = attn._mla_qkv(p["attn"], h, cfg, pos.rope)
+        a = attn._attend_mla_parts(p["attn"], parts, cfg, pos.host,
+                                   attention)
+        if cache is not None:
+            _write_cache_mla(cache, parts.c_kv, parts.k_rope[:, :, 0],
+                             pos.device)
+    else:
+        q, k, v = attn._project_qkv(p["attn"], h, cfg, pos.rope)
+        a = (attention or attn.flash_attention)(
+            q, k, v, q_positions=pos.host, k_positions=pos.host,
+            mask_mode="causal", window=cfg.window,
+            q_chunk=cfg.attn_q_chunk, k_chunk=cfg.attn_k_chunk,
+        )
+        a = attn._out_proj(a, p["attn"]["wo"])
+        if cache is not None:
+            _write_cache_kv(cache, k, v, pos.device)
     x, h = _add_then_norm(x, a, p["ln2"], cfg.norm_eps)
-    return x + apply_mlp(p["mlp"], h, cfg.act)
+    f, aux = _ffn(p, h, cfg, block_type)
+    return x + f, aux
 
 
-def _apply_block_decode(p, x, cfg, cache, cur_index: int, rope):
+def _apply_block_decode(p, x, cfg, block_type: str, cache, cur_index: int,
+                        rope):
     """One-token application; x: (B, 1, d); ``cache`` written in place."""
     h = rmsnorm(x, p["ln1"], cfg.norm_eps)
-    q, k, v = attn._project_qkv(p["attn"], h, cfg, rope)
-    # dynamic_update_slice clamps its start so the update fits
-    wslot = min(cur_index, cache["k"].shape[1] - 1)
-    cache["k"][:, wslot].copy_(k[:, 0])
-    cache["v"][:, wslot].copy_(v[:, 0])
-    cache["pos"][wslot] = cur_index
-    part = attn.decode_attention_gqa(q[:, 0], cache["k"], cache["v"],
-                                     cache["pos"], q_position=cur_index)
+    if cfg.attention == "mla":
+        parts = attn._mla_qkv(p["attn"], h, cfg, rope)
+        # dynamic_update_slice clamps its start so the update fits
+        wslot = min(cur_index, cache["ckv"].shape[1] - 1)
+        cache["ckv"][:, wslot].copy_(parts.c_kv[:, 0])
+        cache["krope"][:, wslot].copy_(parts.k_rope[:, 0, 0])
+        cache["pos"][wslot] = cur_index
+        part = attn.decode_attention_mla(
+            parts.q_nope[:, 0], parts.q_rope[:, 0], cache["ckv"],
+            cache["krope"], cache["pos"], p["attn"]["wkv_b"],
+            nope_dim=cfg.mla.qk_nope_head_dim, scale=attn.mla_scale(cfg))
+    else:
+        q, k, v = attn._project_qkv(p["attn"], h, cfg, rope)
+        wslot = min(cur_index, cache["k"].shape[1] - 1)
+        cache["k"][:, wslot].copy_(k[:, 0])
+        cache["v"][:, wslot].copy_(v[:, 0])
+        cache["pos"][wslot] = cur_index
+        part = attn.decode_attention_gqa(q[:, 0], cache["k"], cache["v"],
+                                         cache["pos"], q_position=cur_index)
     o = attn.combine_partials(part, None)
     a = attn._out_proj(o.to(x.dtype), p["attn"]["wo"])
     x, h = _add_then_norm(x, a[:, None], p["ln2"], cfg.norm_eps)
-    return x + apply_mlp(p["mlp"], h, cfg.act)
+    f, _ = _ffn(p, h, cfg, block_type)
+    return x + f
 
 
 def _layers(params, cfg, caches=None):
-    """(layer params, layer cache views or None) in order."""
-    for gi, (_, n) in enumerate(cfg.layer_groups()):
+    """(block type, layer params, layer cache views or None) in order."""
+    for gi, (gt, n) in enumerate(cfg.layer_groups()):
         ps = _unstack(params[f"group{gi}"], n)
         cs = [None] * n if caches is None else _unstack(caches[f"group{gi}"], n)
         for p_l, c_l in zip(ps, cs):
-            yield p_l["sub0"], (None if c_l is None else c_l["sub0"])
+            yield gt, p_l["sub0"], (None if c_l is None else c_l["sub0"])
 
 
 # ---------------------------------------------------------------------------
@@ -248,11 +328,13 @@ def _layers(params, cfg, caches=None):
 # ---------------------------------------------------------------------------
 
 def _embed_inputs(params, cfg, tokens, extra_embeds):
+    """Token embeddings in the compute dtype, with ``extra_embeds`` (B, F,
+    d) (the vision frontend's patch embeddings) cast and prepended."""
+    dt = torch_dtype(cfg.compute_dtype)
+    x = embed_tokens(params["embed"], tokens, dt)
     if extra_embeds is not None:
-        raise NotImplementedError("extra_embeds (the vlm/audio frontends) "
-                                  "are not ported yet (ROADMAP.md Queue 1, "
-                                  "item 21)")
-    return embed_tokens(params["embed"], tokens, torch_dtype(cfg.compute_dtype))
+        x = torch.cat([extra_embeds.to(dt), x], dim=1)
+    return x
 
 
 #: where the remat policies this port lacks are planned
@@ -260,7 +342,9 @@ _ROADMAP_REMAT = "ROADMAP.md Queue 1, item 23 (remat policies)"
 
 
 def forward(params, cfg, tokens, *, extra_embeds=None, attention=None):
-    """Teacher-forced logits over the full sequence.  Returns (logits, aux).
+    """Teacher-forced logits over the full sequence (``extra_embeds``
+    prepended).  Returns (logits, aux), aux the MoE layers' load-balance
+    losses summed.
 
     ``attention`` replaces :func:`repro_torch.models.attention.
     flash_attention` in every layer (same signature); ``chip_smoke.py``
@@ -274,43 +358,52 @@ def forward(params, cfg, tokens, *, extra_embeds=None, attention=None):
             f"recomputed in the backward) and 'none'; {_ROADMAP_REMAT}")
     x = _embed_inputs(params, cfg, tokens, extra_embeds)
     pos = _positions(x.shape[1], cfg, x.device)
-    for p_l, _ in _layers(params, cfg):
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for bt, p_l, _ in _layers(params, cfg):
         if cfg.remat == "full" and torch.is_grad_enabled():
-            x = checkpoint(_apply_block_seq, p_l, x, cfg, pos, None,
-                           attention, use_reentrant=False)
+            x, a = checkpoint(_apply_block_seq, p_l, x, cfg, bt, pos, None,
+                              attention, use_reentrant=False)
         else:
-            x = _apply_block_seq(p_l, x, cfg, pos, None, attention)
+            x, a = _apply_block_seq(p_l, x, cfg, bt, pos, None, attention)
+        aux = aux + a
     x = rmsnorm(x, params["ln_f"], cfg.norm_eps)
     logits = unembed(params["embed"], x, cfg.tied_embeddings)
-    return logits, torch.zeros((), dtype=torch.float32, device=x.device)
+    return logits, aux
 
 
 def init_cache(cfg, batch: int, s_alloc: int, dtype=torch.bfloat16,
                device="cpu") -> dict:
-    """Zeroed k/v caches with every position -1 (empty)."""
+    """Zeroed caches with every position -1 (empty): k/v per kv head, or
+    MLA's compressed ``ckv``/``krope``."""
     check_ported(cfg)
     caches = {}
     for gi, (_, n) in enumerate(cfg.layer_groups()):
-        shape = (n, batch, s_alloc, cfg.n_kv_heads, cfg.hd())
-        caches[f"group{gi}"] = {"sub0": {
-            "k": torch.zeros(shape, dtype=dtype, device=device),
-            "v": torch.zeros(shape, dtype=dtype, device=device),
-            "pos": torch.full((n, s_alloc), -1, dtype=torch.int32,
-                              device=device),
-        }}
+        if cfg.attention == "mla":
+            m = cfg.mla
+            shapes = {"ckv": (n, batch, s_alloc, m.kv_lora_rank),
+                      "krope": (n, batch, s_alloc, m.qk_rope_head_dim)}
+        else:
+            shape = (n, batch, s_alloc, cfg.n_kv_heads, cfg.hd())
+            shapes = {"k": shape, "v": shape}
+        cache = {k: torch.zeros(s, dtype=dtype, device=device)
+                 for k, s in shapes.items()}
+        cache["pos"] = torch.full((n, s_alloc), -1, dtype=torch.int32,
+                                  device=device)
+        caches[f"group{gi}"] = {"sub0": cache}
     return caches
 
 
 def prefill(params, cfg, tokens, *, s_alloc: int, cache_dtype=torch.bfloat16,
             extra_embeds=None):
-    """Forward over the prompt, emitting caches.  Returns (last_logits, cache)."""
+    """Forward over the prompt (``extra_embeds`` prepended), emitting
+    caches.  Returns (last_logits, cache)."""
     check_ported(cfg)
     x = _embed_inputs(params, cfg, tokens, extra_embeds)
     B, S = x.shape[:2]
     pos = _positions(S, cfg, x.device)
     caches = init_cache(cfg, B, s_alloc, cache_dtype, x.device)
-    for p_l, c_l in _layers(params, cfg, caches):
-        x = _apply_block_seq(p_l, x, cfg, pos, c_l)
+    for bt, p_l, c_l in _layers(params, cfg, caches):
+        x, _ = _apply_block_seq(p_l, x, cfg, bt, pos, c_l)
     x = rmsnorm(x[:, -1:], params["ln_f"], cfg.norm_eps)
     logits = unembed(params["embed"], x, cfg.tied_embeddings)
     return logits[:, 0], caches
@@ -327,9 +420,9 @@ def decode_step(params, cfg, caches, tokens, cur_index, *,
     cur_index = int(cur_index)
     x = _embed_inputs(params, cfg, tokens[:, None], None)
     pos1 = torch.full((1,), cur_index, dtype=torch.int32, device=x.device)
-    rope = rope_tables(pos1, cfg.hd(), cfg.rope_theta)
-    for p_l, c_l in _layers(params, cfg, caches):
-        x = _apply_block_decode(p_l, x, cfg, c_l, cur_index, rope)
+    rope = rope_tables(pos1, attn.rope_dim(cfg), cfg.rope_theta)
+    for bt, p_l, c_l in _layers(params, cfg, caches):
+        x = _apply_block_decode(p_l, x, cfg, bt, c_l, cur_index, rope)
     x = rmsnorm(x, params["ln_f"], cfg.norm_eps)
     logits = unembed(params["embed"], x, cfg.tied_embeddings)
     return logits[:, 0], caches

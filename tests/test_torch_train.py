@@ -550,8 +550,6 @@ def test_refusals_of_what_is_not_ported(monkeypatch):
         make_train_step(model, OptConfig(), grad_specs={})
     with pytest.raises(NotImplementedError, match="item 14"):
         train_mod.main(["--reduced", "--mesh-shape", "2,1", "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="item 21"):
-        model.loss(params, {**batch, "extra_embeds": torch.zeros(1)})
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         train_mod.main(["--reduced", "--steps", "1"])
