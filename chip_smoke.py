@@ -120,6 +120,27 @@ against the CPU's from the same f32 logits and its f32 output against a
 per-expert loop, (iii) forward against prefill + decode in f32 at 2
 layers; each prefill's device time by kind from the profiler.
 
+Then the recurrent, hybrid and encoder-decoder families at published
+widths:
+
+  recurrentgemma-9b cut to 8 layers (two rec, rec, attn periods and the
+  rec, rec remainder; batch 2, prompt 2,560, 16 tokens) and rwkv6-3b (32
+  layers; batch 4, prompt 64, 32 tokens) through launch.serve.main,
+  seamless-m4t-medium (12 + 12 layers, 1,024 seeded frames, 128 target
+  tokens, 32 generated) through make_serve_fns
+    -> recurrentgemma's local layers on kernel F's band (window 2,048,
+       head dim 256; the prompt runs past the window and the 2,176-slot
+       ring), its RG-LRU scans and RWKV's time loops as PyTorch ops
+    -> seamless: F unmasked over the frames, causal in the decoder,
+       unmasked with Sq != Sk for cross attention
+
+checked by (i) F's first call of each form against its plain version,
+(iii) forward against prefill + decode in f32 at 3, 2 and 2 + 2 layers;
+each prefill's device time by kind, and the recurrences' time between
+CUDA events.  Kernel F's band is also timed at recurrentgemma's prefill
+shape beside SDPA with a boolean band mask, with the ptxas registers and
+spills of the d = 256 instances.
+
 Then the training path, kernel F under a gradient (its forward, then the
 plain version's recompute under autograd in the backward):
 
@@ -1223,7 +1244,9 @@ def split_kernel_rows(run, split, dev, reduce) -> list[dict]:
 
 def check_flash(dev) -> int:
     """Kernel F against its plain versions: the TPU test shapes, the
-    serving shape, unmasked, Sq != Sk, ragged S; f32 (SIMT route) and
+    serving shape, unmasked, Sq != Sk, ragged S, d = 192 and 256, and the
+    causal band (local attention) at recurrentgemma's shape and others,
+    window 1 and window >= S (bit-equal to causal); f32 (SIMT route) and
     bf16 (tensor-core route, also against its own numerics); and the bf16
     route's refusal of rows that are not 16-byte aligned."""
     import numpy as np
@@ -1231,30 +1254,37 @@ def check_flash(dev) -> int:
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref
 
-    cases = [  # B, H, Hkv, Sq, Sk, d, causal
-        (2, 4, 2, 128, 128, 64, True), (1, 8, 8, 256, 256, 32, True),
-        (2, 4, 1, 64, 64, 128, False), (1, 2, 2, 96, 96, 16, True),
-        (1, 2, 2, 64, 64, 32, True),                  # the TPU bf16 test
-        (8, 16, 8, 512, 512, 128, True),              # the serving shape
-        (2, 16, 8, 512, 512, 128, False),
-        (2, 8, 4, 300, 700, 64, False), (2, 8, 4, 700, 300, 64, True),
-        (2, 16, 8, 1000, 1000, 128, True), (3, 4, 4, 77, 77, 16, False),
-        (2, 16, 16, 512, 512, 192, True),             # MLA's qk head dim
-        (1, 8, 8, 300, 700, 192, False), (2, 4, 2, 130, 130, 192, True),
+    cases = [  # B, H, Hkv, Sq, Sk, d, causal, window
+        (2, 4, 2, 128, 128, 64, True, 0), (1, 8, 8, 256, 256, 32, True, 0),
+        (2, 4, 1, 64, 64, 128, False, 0), (1, 2, 2, 96, 96, 16, True, 0),
+        (1, 2, 2, 64, 64, 32, True, 0),               # the TPU bf16 test
+        (8, 16, 8, 512, 512, 128, True, 0),           # the serving shape
+        (2, 16, 8, 512, 512, 128, False, 0),
+        (2, 8, 4, 300, 700, 64, False, 0), (2, 8, 4, 700, 300, 64, True, 0),
+        (2, 16, 8, 1000, 1000, 128, True, 0), (3, 4, 4, 77, 77, 16, False, 0),
+        (2, 16, 16, 512, 512, 192, True, 0),          # MLA's qk head dim
+        (1, 8, 8, 300, 700, 192, False, 0), (2, 4, 2, 130, 130, 192, True, 0),
+        (2, 16, 1, 512, 512, 256, True, 0),           # recurrentgemma's d
+        (1, 8, 8, 300, 700, 256, False, 0),
+        (1, 16, 1, 2560, 2560, 256, True, 2048),      # recurrentgemma's band
+        (2, 8, 2, 700, 700, 64, True, 128), (1, 4, 1, 300, 300, 256, True, 37),
+        (1, 4, 2, 200, 200, 64, True, 1),             # each row sees itself
+        (1, 4, 2, 150, 150, 128, True, 4096),         # window >= S: causal
     ]
     worst = {"bf16p": 0.0}
-    for i, (B, H, Hkv, Sq, Sk, d, causal) in enumerate(cases):
+    for i, (B, H, Hkv, Sq, Sk, d, causal, window) in enumerate(cases):
         rng = np.random.default_rng(100 + i)
         base = [torch.from_numpy(rng.normal(size=(B, S, h, d)).astype(
             np.float32)).to(dev) for S, h in ((Sq, H), (Sk, Hkv), (Sk, Hkv))]
         shape = (f"B={B} H={H} Hkv={Hkv} Sq={Sq} Sk={Sk} d={d} "
-                 f"causal={causal}")
+                 f"causal={causal} window={window}")
         for name, tol in FLASH_TOL.items():
             # (B, S, heads, d) handed over transposed, as the model does
             q, k, v = (a.to(getattr(torch, name)).transpose(1, 2)
                        for a in base)
-            got = fa.flash_attention(q, k, v, causal=causal)
-            want = ref.flash_attention_ref(q, k, v, causal=causal)
+            got = fa.flash_attention(q, k, v, causal=causal, window=window)
+            want = ref.flash_attention_ref(q, k, v, causal=causal,
+                                           window=window)
             torch.cuda.synchronize()
             err = float((got.float() - want.float()).abs().max())
             if not (err <= tol) or got.dtype != q.dtype:
@@ -1262,8 +1292,13 @@ def check_flash(dev) -> int:
                     f"flash kernel != plain version: {name} {shape}: max "
                     f"abs err {err} > {tol}")
             worst[name] = max(worst.get(name, 0.0), err)
+            if window >= Sq and not torch.equal(
+                    got, fa.flash_attention(q, k, v, causal=True)):
+                raise AssertionError(f"flash kernel: {name} {shape}: a "
+                                     f"window past S != causal")
             if name == "bfloat16":
-                want = ref.flash_attention_ref_bf16p(q, k, v, causal=causal)
+                want = ref.flash_attention_ref_bf16p(q, k, v, causal=causal,
+                                                     window=window)
                 rel = float(((got.float() - want.float()).abs()
                              / want.float().abs().clamp(min=1.0)).max())
                 if not (rel <= FLASH_BF16P_TOL):
@@ -1271,11 +1306,13 @@ def check_flash(dev) -> int:
                         f"flash kernel != its bf16 numerics: {shape}: "
                         f"{rel} > {FLASH_BF16P_TOL}")
                 worst["bf16p"] = max(worst["bf16p"], rel)
-    print(f"  {len(cases)} shapes: max abs err vs plain f32 "
-          f"{worst['float32']:.3g} (tol {FLASH_TOL['float32']}), bf16 "
-          f"{worst['bfloat16']:.3g} (tol {FLASH_TOL['bfloat16']}); bf16 vs "
-          f"ref.flash_attention_ref_bf16p {worst['bf16p']:.3g} of "
-          f"max(1, |o|) (tol {FLASH_BF16P_TOL:.3g})")
+    print(f"  {len(cases)} shapes ({sum(1 for c in cases if c[-1])} with a "
+          f"band, {sum(1 for c in cases if c[5] == 256)} at d = 256): max "
+          f"abs err vs plain f32 {worst['float32']:.3g} (tol "
+          f"{FLASH_TOL['float32']}), bf16 {worst['bfloat16']:.3g} (tol "
+          f"{FLASH_TOL['bfloat16']}); bf16 vs ref.flash_attention_ref_bf16p "
+          f"{worst['bf16p']:.3g} of max(1, |o|) (tol {FLASH_BF16P_TOL:.3g}); "
+          f"window >= S bit-equal to causal on both routes")
     # a q whose rows start 2 bytes off a 16-byte boundary is refused
     q = torch.zeros(1, 64 * 32 + 1, dtype=torch.bfloat16, device=dev)
     q = q[:, 1:].view(1, 1, 64, 32)
@@ -1287,6 +1324,36 @@ def check_flash(dev) -> int:
     else:
         raise AssertionError("flash kernel took misaligned bf16 rows")
     return 2 * len(cases)
+
+
+def ptxas_report(lib: str, mark: str) -> dict:
+    """Registers and spill bytes of the kernel entry of ``lib`` whose
+    mangled name holds ``mark``, from this run's ``ptxas -v`` report
+    (none where ``build/`` held the library already)."""
+    import re
+
+    from repro_torch.kernels import cuda_build
+    if lib not in cuda_build.build_logs:
+        return {"registers": None, "note": "not measured: the library was "
+                "built before this run"}
+    entry, out = "", {}
+    for line in cuda_build.build_logs[lib].splitlines():
+        if "Compiling entry function" in line:
+            entry = line
+            continue
+        if mark not in entry:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            out["spill_store_bytes"], out["spill_load_bytes"] = map(
+                int, m.groups())
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out["registers"] = int(m.group(1))
+    if "registers" not in out:
+        raise AssertionError(f"no ptxas report for {mark} in {lib}")
+    return out
 
 
 def serve_path(dev) -> dict:
@@ -1311,8 +1378,8 @@ def serve_path(dev) -> dict:
     captured = {}
     launch = fa.flash_attention
 
-    def capture(q, k, v, *, causal=True):
-        out = launch(q, k, v, causal=causal)
+    def capture(q, k, v, *, causal=True, window=0):
+        out = launch(q, k, v, causal=causal, window=window)
         if not captured:
             captured.update(q=q.clone(), k=k.clone(), v=v.clone(),
                             out=out.clone(), causal=causal)
@@ -1520,52 +1587,19 @@ def _vision_generate(cfg, dev) -> dict:
     the host clock with the device synchronised around it; the first
     decode index is frontend_len + S."""
     import torch
-    from repro_torch.data.datasets import generate_records
-    from repro_torch.data.tokenizer import ByteTokenizer
     from repro_torch.models.model import build_model
     from repro_torch.serve.engine import make_serve_fns
 
     model = build_model(cfg)
     params = model.compute_params(model.init(0, device=dev))
-    tok = ByteTokenizer(vocab_size=cfg.vocab_size)
-    recs = generate_records("ycsb", MODEL_BATCH, seed=0)
-    prompts = torch.from_numpy(tok.pad_batch(
-        [tok.encode(r, add_eos=False) for r in recs], MODEL_PROMPT)).to(dev)
-    inputs = {"tokens": prompts, "extra_embeds": _extra_embeds(
-        cfg, MODEL_BATCH, dev, torch.bfloat16)}
+    inputs = {"tokens": _record_prompts(cfg, MODEL_BATCH, MODEL_PROMPT, dev),
+              "extra_embeds": _extra_embeds(cfg, MODEL_BATCH, dev,
+                                            torch.bfloat16)}
     first = cfg.frontend_len + MODEL_PROMPT
     fns = make_serve_fns(model, batch=MODEL_BATCH,
                          seq_len=first + MODEL_GEN + 128)
-
-    def timed(fn, *args):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = fn(*args)
-        torch.cuda.synchronize()
-        return out, time.perf_counter() - t0
-
-    def generate(n: int):
-        (logits, cache), pre = timed(fns["prefill"], params, inputs)
-        tok_ = torch.argmax(logits, dim=-1).to(torch.int32)
-        steps, out = [], []
-        for i in range(n):
-            out.append(tok_)
-            (logits, cache), dt = timed(fns["decode"], params, cache, tok_,
-                                        first + i)
-            tok_ = torch.argmax(logits, dim=-1).to(torch.int32)
-            steps.append(dt)
-        return torch.stack(out, dim=1), pre, steps
-
-    generate(1)                                          # warm-up
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    out, pre, steps = generate(MODEL_GEN)
-    wall = time.perf_counter() - t0
-    return {"batch": MODEL_BATCH, "generated": int(out.shape[1]),
-            "tokens_per_s": MODEL_BATCH * MODEL_GEN / wall, "wall_s": wall,
-            "prefill_ms": pre * 1e3,
-            "decode_ms_per_step": sum(steps) / len(steps) * 1e3,
-            "prefill_calls": 2, "device": str(dev)}
+    return _generate_timed(fns, params, inputs, first, MODEL_BATCH,
+                           MODEL_GEN, dev)
 
 
 def _moe_check(cfg, h, p, dev) -> dict:
@@ -1627,9 +1661,13 @@ def _moe_check(cfg, h, p, dev) -> dict:
             "max_rel_err": err / scale}
 
 
-def _prefill_breakdown(cfg, dev) -> dict:
+def _prefill_breakdown(cfg, dev, B: int = MODEL_BATCH,
+                       S: int = MODEL_PROMPT) -> dict:
     """Device time of one warm prefill by kind (profiler), fresh seeded
-    weights of the cut config, as :func:`serve_breakdown`."""
+    weights of ``cfg`` at batch B and prompt S (the vision frontend's
+    embeddings, encdec's frames), as :func:`serve_breakdown`; where the
+    model has recurrences, their time between CUDA events in another
+    call (:func:`_recurrence_ms`)."""
     import torch
     from torch.autograd import DeviceType
     from repro_torch.models.model import build_model
@@ -1637,25 +1675,38 @@ def _prefill_breakdown(cfg, dev) -> dict:
 
     model = build_model(cfg)
     params = model.compute_params(model.init(SEED, device=dev))
-    B, S = MODEL_BATCH, MODEL_PROMPT
     toks = torch.randint(0, cfg.vocab_size, (B, S), device=dev,
                          generator=torch.Generator(device=dev).manual_seed(SEED))
     inputs = {"tokens": toks}
     if cfg.frontend == "vision":
         inputs["extra_embeds"] = _extra_embeds(cfg, B, dev, torch.bfloat16)
+    if cfg.family == "encdec":
+        inputs["frames"] = _frames(cfg, B, dev)
     fns = make_serve_fns(model, batch=B,
                          seq_len=cfg.frontend_len + S + MODEL_GEN)
-    fns["prefill"](params, inputs)
+
+    def prefill():
+        return fns["prefill"](params, inputs)
+
+    prefill()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    fns["prefill"](params, inputs)
+    prefill()
     torch.cuda.synchronize()
     wall = (time.perf_counter() - t0) * 1e3
-    prof = profiled(lambda: fns["prefill"](params, inputs), "flash_kernel")
+    out, rec = {"wall_ms": wall}, ""
+    if cfg.family in ("hybrid", "rwkv"):
+        rec_ms, n_rec, rec_wall = _recurrence_ms(prefill)
+        out.update(recurrence_ms=rec_ms, recurrences=n_rec,
+                   recurrence_share=rec_ms / rec_wall)
+        rec = (f"; recurrences {rec_ms:.3f} ms between CUDA events around "
+               f"{n_rec} scans in a call of {rec_wall:.3f} ms "
+               f"({rec_ms / rec_wall:.1%})")
+    prof = profiled(prefill, "flash_kernel" if _f_per_prefill(cfg) else "")
     if prof is None:
-        print(f"  prefill breakdown: {wall:.3f} ms host clock; by kind "
+        print(f"  prefill breakdown: {wall:.3f} ms host clock{rec}; by kind "
               f"{NOT_TRACED}")
-        return {"wall_ms": wall, "device_ms": None}
+        return {**out, "device_ms": None}
     rows = [(e.key, e.self_device_time_total / 1e3, e.count)
             for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA
@@ -1671,10 +1722,10 @@ def _prefill_breakdown(cfg, dev) -> dict:
     print(f"  prefill breakdown: {wall:.3f} ms host clock, {busy:.3f} ms of "
           f"kernels ({launches} launches; device idle {1 - busy / wall:.1%})"
           f"; by kind " + ", ".join(f"{k} {v:.3f} ms"
-                                    for k, v in by_kind.items()))
+                                    for k, v in by_kind.items()) + rec)
     for key, ms, n in sorted(rows, key=lambda r: -r[1])[:5]:
-        print(f"      {ms:8.3f} ms  x{n:<4d} {key[:90]}")
-    return {"wall_ms": wall, "device_ms": busy, "kernels": launches,
+        print(f"      {ms:8.3f} ms  x{n:<5d} {key[:90]}")
+    return {**out, "device_ms": busy, "kernels": launches,
             "idle_share": 1 - busy / wall, "by_kind_ms": by_kind}
 
 
@@ -1713,8 +1764,8 @@ def serve_model(arch: str, n_layers: int, dev) -> dict:
     captured, moe_in = {}, {}
     launch, apply_moe = fa.flash_attention, moe_mod.apply_moe
 
-    def capture(q, k, v, *, causal=True):
-        out = launch(q, k, v, causal=causal)
+    def capture(q, k, v, *, causal=True, window=0):
+        out = launch(q, k, v, causal=causal, window=window)
         if not captured:
             captured.update(q=q.clone(), k=k.clone(), v=v.clone(),
                             out=out.clone())
@@ -1924,6 +1975,407 @@ def flash_mla_row(timing: dict, served: dict) -> dict:
     return {**timing, "launches": ds["launches"], "max_abs_err": ds["err"],
             "launches_per_prefill": ds["launches"]
             // ds["result"]["prefill_calls"]}
+
+
+# ---------------------------------------------------------------------------
+# recurrent, hybrid and encoder-decoder serving: recurrentgemma, rwkv6,
+# seamless-m4t
+# ---------------------------------------------------------------------------
+
+#: kernel F's band at recurrentgemma's prefill: batch, heads, kv heads,
+#: prompt, head dim, window
+FLASH_BAND_SHAPE = (2, 16, 1, 2560, 256, 2048)
+#: (arch, layers kept, batch, prompt, generated tokens) at published
+#: widths: recurrentgemma cut to 8 layers, two (rec, rec, attn) periods
+#: and the (rec, rec) remainder group, its prompt past the window and the
+#: local layers' 2,176-slot ring (about 3.3 B params); rwkv6 and seamless
+#: (12 + 12 layers, over ENCDEC_FRAMES seeded frames) at full depth
+RECURRENT_RUNS = (("recurrentgemma-9b", 8, 2, 2560, 16),
+                  ("rwkv6-3b", 32, 4, 64, 32),
+                  ("seamless-m4t-medium", 24, 4, 128, 32))
+ENCDEC_FRAMES = 1024
+#: (iii) layers at full width in f32 and the prompt: recurrentgemma's
+#: (rec, rec, attn) at S 2,300, past its 2,176-slot ring; rwkv6 2 layers;
+#: seamless 2 + 2 layers over ENCDEC_FRAMES frames
+RECURRENT_EXACT = (("recurrentgemma-9b", 3, 2300), ("rwkv6-3b", 2, 128),
+                   ("seamless-m4t-medium", 2, 128))
+
+
+def _encdec_config(arch: str, per_stack: int, **kw):
+    """The published encdec config with ``per_stack`` encoder and decoder
+    layers."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config(arch), enc_layers=per_stack,
+                               dec_layers=per_stack, n_layers=2 * per_stack,
+                               **kw)
+
+
+def _f_per_prefill(cfg) -> int:
+    """Kernel F launches in one prefill: one per attention layer; encdec's
+    encoder layers, and its decoder layers twice (self and cross)."""
+    from repro_torch.models.transformer import _group_block_types
+    if cfg.family == "encdec":
+        return cfg.enc_layers + 2 * cfg.dec_layers
+    return sum(n * sum(bt in ("attn", "dense_attn", "moe_attn")
+                       for bt in _group_block_types(gt))
+               for gt, n in cfg.layer_groups())
+
+
+def _frames(cfg, B: int, dev):
+    """Seeded stand-ins for the audio frontend's frame embeddings (f32, as
+    ``configs.input_specs`` gives them)."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(SEED + 3)
+    return torch.from_numpy(rng.normal(size=(B, ENCDEC_FRAMES, cfg.d_model))
+                            .astype(np.float32)).to(dev)
+
+
+def _record_prompts(cfg, B: int, S: int, dev):
+    """``launch.serve``'s prompts: B ycsb records, byte-tokenized, padded to
+    S."""
+    import torch
+    from repro_torch.data.datasets import generate_records
+    from repro_torch.data.tokenizer import ByteTokenizer
+    tok = ByteTokenizer(vocab_size=cfg.vocab_size)
+    recs = generate_records("ycsb", B, seed=0)
+    return torch.from_numpy(tok.pad_batch(
+        [tok.encode(r, add_eos=False) for r in recs], S)).to(dev)
+
+
+def _encdec_generate(cfg, B: int, S: int, n_gen: int, dev) -> dict:
+    """What ``launch.serve.main`` does, with frames: seeded bf16 weights,
+    B ycsb records as the target prompts, ``ENCDEC_FRAMES`` seeded frames
+    through ``make_serve_fns``; a warm-up generation of one step, then
+    prefill + ``n_gen`` greedy steps, each timed on the host clock with
+    the device synchronised around it."""
+    from repro_torch.models.model import build_model
+    from repro_torch.serve.engine import make_serve_fns
+
+    model = build_model(cfg)
+    params = model.compute_params(model.init(0, device=dev))
+    inputs = {"frames": _frames(cfg, B, dev),
+              "tokens": _record_prompts(cfg, B, S, dev)}
+    fns = make_serve_fns(model, batch=B, seq_len=S + n_gen + 128)
+    return _generate_timed(fns, params, inputs, S, B, n_gen, dev)
+
+
+def _generate_timed(fns, params, inputs, first: int, B: int, n_gen: int,
+                    dev) -> dict:
+    """A warm-up generation of one step, then prefill + ``n_gen`` greedy
+    steps from decode index ``first``, each step timed on the host clock
+    with the device synchronised around it; ``launch.serve.main``'s
+    result dict."""
+    import torch
+
+    def timed(fn, *args):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*args)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    def generate(n: int):
+        (logits, cache), pre = timed(fns["prefill"], params, inputs)
+        tok_ = torch.argmax(logits, dim=-1).to(torch.int32)
+        steps, out = [], []
+        for i in range(n):
+            out.append(tok_)
+            (logits, cache), dt = timed(fns["decode"], params, cache, tok_,
+                                        first + i)
+            tok_ = torch.argmax(logits, dim=-1).to(torch.int32)
+            steps.append(dt)
+        return torch.stack(out, dim=1), pre, steps
+
+    generate(1)                                          # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out, pre, steps = generate(n_gen)
+    wall = time.perf_counter() - t0
+    return {"batch": B, "generated": int(out.shape[1]),
+            "tokens_per_s": B * n_gen / wall, "wall_s": wall,
+            "prefill_ms": pre * 1e3,
+            "decode_ms_per_step": sum(steps) / len(steps) * 1e3,
+            "prefill_calls": 2, "device": str(dev)}
+
+
+def _recurrence_ms(run) -> tuple[float, int, float]:
+    """Device milliseconds between CUDA events around every RG-LRU scan
+    (``rglru._prefix_scan``) and RWKV recurrence (``rwkv6._wkv_scan``) in
+    one call of ``run`` (the gaps where the device waits for the host's
+    launches included), how many there were, and that call's host-clock
+    milliseconds, the device synchronised around it."""
+    import torch
+    from repro_torch.models import rglru, rwkv6
+    events = []
+    scans = (rglru._prefix_scan, rwkv6._wkv_scan)
+
+    def timed(fn):
+        def call(*args):
+            start = torch.cuda.Event(enable_timing=True)
+            stop = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(*args)
+            stop.record()
+            events.append((start, stop))
+            return out
+        return call
+
+    rglru._prefix_scan, rwkv6._wkv_scan = (timed(f) for f in scans)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        run()
+        torch.cuda.synchronize()
+    finally:
+        rglru._prefix_scan, rwkv6._wkv_scan = scans
+    wall = (time.perf_counter() - t0) * 1e3
+    return sum(a.elapsed_time(b) for a, b in events), len(events), wall
+
+
+def serve_recurrent(arch: str, n_layers: int, B: int, S: int, n_gen: int,
+                    dev) -> dict:
+    """One configuration of the phase: its serve path (``launch.serve.
+    main`` with ``serve.get_config`` patched to the cut config, or
+    :func:`_encdec_generate` with frames), counters at 0 just before and
+    read just after, with (i) F on the first call of each form (causal,
+    band, unmasked, cross) against its plain version; then one profiled
+    prefill."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    from repro_torch.launch import serve
+    from repro_torch.models.model import build_model
+
+    full = serve.get_config(arch)
+    cfg = (_encdec_config(arch, n_layers // 2) if full.family == "encdec"
+           else _cut_config(arch, n_layers))
+    n_params = build_model(cfg).param_count()
+    if cfg.family == "encdec":
+        depth = (f"{cfg.enc_layers} encoder + {cfg.dec_layers} decoder "
+                 f"layers (not cut), {ENCDEC_FRAMES} seeded frames")
+    else:
+        depth = (f"depth {n_layers} of {full.n_layers} layers (groups "
+                 f"{cfg.layer_groups()})")
+    extra = (f", head dim {cfg.hd()}, window {cfg.window}, lru width "
+             f"{cfg.lru_width}" if cfg.family == "hybrid" else
+             f", head size {cfg.rwkv_head_size}" if cfg.family == "rwkv"
+             else f", head dim {cfg.hd()}")
+    print(f"  {arch} ({cfg.family}): {depth}; published widths: d_model "
+          f"{cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads{extra}, "
+          f"d_ff {cfg.d_ff}, vocab {cfg.vocab_size}; param_count "
+          f"{n_params:,} ({n_params * 2 / 1e9:.1f} GB bf16; published "
+          f"{build_model(full).param_count():,})")
+
+    captured = {}
+    launch = fa.flash_attention
+
+    def capture(q, k, v, *, causal=True, window=0):
+        out = launch(q, k, v, causal=causal, window=window)
+        form = (causal, window, q.shape[2] == k.shape[2])
+        if form not in captured:
+            captured[form] = (q.clone(), k.clone(), v.clone(), out.clone())
+        return out
+
+    # ---- the serve path: counters at 0 just before, read just after ----
+    _free()
+    torch.cuda.synchronize()
+    _zero_counters()
+    torch.cuda.reset_peak_memory_stats(dev)
+    fa.flash_attention = capture
+    get_config = serve.get_config
+    serve.get_config = lambda a: cfg if a == arch else get_config(a)
+    try:
+        if cfg.family == "encdec":
+            res = _encdec_generate(cfg, B, S, n_gen, dev)
+        else:
+            res = serve.main(["--arch", arch, "--batch", str(B),
+                              "--prompt-len", str(S), "--gen", str(n_gen),
+                              "--device", str(dev)])
+    finally:
+        fa.flash_attention = launch
+        serve.get_config = get_config
+    torch.cuda.synchronize()
+    launches = fa.launches
+    # -----------------------------------------------------------------------
+    peak = torch.cuda.max_memory_allocated(dev)
+    per_prefill = launches / res["prefill_calls"]
+    want_per = _f_per_prefill(cfg)
+    print(f"  prefill {res['prefill_ms']:.3f} ms (warm), decode "
+          f"{res['decode_ms_per_step']:.3f} ms/step, "
+          f"{res['tokens_per_s']:.1f} tokens/s over {res['wall_s']:.3f} s "
+          f"(batch {res['batch']}, prompt {S}, {res['generated']} tokens "
+          f"each); peak max_memory_allocated {peak / 2**30:.2f} GiB")
+    print(f"  kernel F launches: {launches} in {res['prefill_calls']} "
+          f"prefills ({per_prefill:g} per prefill; {want_per} attention "
+          f"calls per prefill)")
+    if res["generated"] != n_gen or per_prefill != want_per:
+        raise AssertionError(f"{arch}: {res}, F launches {launches}")
+
+    errs = {}
+    for (causal, window, square), (q, k, v, out) in sorted(captured.items()):
+        want = ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+        err = float((out.float() - want.float()).abs().max())
+        form = ("band" if window else "causal" if causal else
+                "unmasked" if square else "cross")
+        errs[form] = err
+        print(f"  (i) first {form} call: q {tuple(q.shape)} k "
+              f"{tuple(k.shape)} {q.dtype}, window {window}; F vs plain max "
+              f"abs err {err:.3g} (tol {FLASH_TOL['bfloat16']})")
+        if not (err <= FLASH_TOL["bfloat16"]):
+            raise AssertionError(f"(i) {arch}: F != plain ({form}): {err}")
+    want_forms = ({"band"} if cfg.family == "hybrid" else set()
+                  if cfg.family == "rwkv" else
+                  {"causal", "unmasked", "cross"})
+    if set(errs) != want_forms:
+        raise AssertionError(f"{arch}: F ran {sorted(errs)}, want "
+                             f"{sorted(want_forms)}")
+    del captured
+    out = {"result": res, "launches": launches, "peak_bytes": peak,
+           "param_count": n_params, "errs": errs, "layers": n_layers}
+    _free()
+    out["breakdown"] = _prefill_breakdown(cfg, dev, B, S)
+    _free()
+    return out
+
+
+def exactness_recurrent(arch: str, n_layers: int, S: int, dev) -> float:
+    """(iii) f32 forward logits at S-1 and S-2 against prefill(S-1) +
+    decode, at full width and ``n_layers`` layers, TF32 off; nothing
+    else resident."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import cache_alloc_len, get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import encdec, transformer
+    from repro_torch.models.model import build_model
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    kw = {"compute_dtype": "float32", "param_dtype": "float32"}
+    cfg = (_encdec_config(arch, n_layers, **kw)
+           if get_config(arch).family == "encdec"
+           else _cut_config(arch, n_layers, **kw))
+    B = 1
+    _free()
+    model = build_model(cfg)
+    params = model.init(SEED, device=dev)
+    toks = torch.from_numpy(np.random.default_rng(SEED).integers(
+        0, cfg.vocab_size, size=(B, S)).astype(np.int32)).to(dev)
+    fa.launches = 0
+    s_alloc = cache_alloc_len(S)
+    if cfg.family == "encdec":
+        frames = _frames(cfg, B, dev)
+        full, _ = encdec.forward(params, cfg, frames, toks)
+        last, cache = model.prefill(
+            params, {"frames": frames, "tokens": toks[:, :S - 1]},
+            s_alloc=s_alloc, cache_dtype=torch.float32)
+    else:
+        full, _ = transformer.forward(params, cfg, toks)
+        last, cache = model.prefill(params, {"tokens": toks[:, :S - 1]},
+                                    s_alloc=s_alloc,
+                                    cache_dtype=torch.float32)
+    dec, _ = model.decode(params, cache, toks[:, S - 1], S - 1)
+    torch.cuda.synchronize()
+    err = float((full[:, S - 1] - dec).abs().max())
+    err_pre = float((full[:, S - 2] - last).abs().max())
+    scale = float(full[:, S - 1].abs().max())
+    ring = ""
+    if cfg.family == "hybrid":
+        ring = (f", local ring {min(s_alloc, cfg.window + 128)} slots, "
+                f"window {cfg.window}")
+    print(f"  (iii) {arch}, f32, {model.param_count():,} params, B={B} "
+          f"S={S}{ring}: forward (kernel F f32, {fa.launches} launches with "
+          f"the prefill) vs prefill + decode: max abs err {err:.3g} at S-1, "
+          f"{err_pre:.3g} at S-2, logits up to {scale:.3g}; tol {EXACT_TOL}")
+    if not (err <= EXACT_TOL and err_pre <= EXACT_TOL):
+        raise AssertionError(f"(iii) {arch}: forward != prefill + decode: "
+                             f"{err}, {err_pre}")
+    if not torch.isfinite(full).all():
+        raise AssertionError(f"(iii) {arch}: non-finite logits")
+    del params, cache, full
+    _free()
+    return err
+
+
+def recurrent_serving(dev) -> dict:
+    """The phase: each configuration's serve path, check (i) and a
+    profiled prefill, then (iii) for each; every model freed before the
+    next."""
+    out = {arch: serve_recurrent(arch, n, B, S, g, dev)
+           for arch, n, B, S, g in RECURRENT_RUNS}
+    for arch, n, S in RECURRENT_EXACT:
+        out[arch]["exact_err"] = exactness_recurrent(arch, n, S, dev)
+    return out
+
+
+def flash_band_timing(dev) -> dict:
+    """Kernel F's band at recurrentgemma's prefill shape (bf16, window
+    2,048, d 256, MQA), beside its plain version and
+    ``scaled_dot_product_attention`` with a boolean band mask.  The bound
+    counts the band's pairs alone: 4 B H d per (query, key) pair with
+    0 <= q - k < window, over the bf16 tensor-core rate, against q, k, v
+    and o once over the memory rate; with the build's registers and
+    spills of the d = 256 instances."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+
+    B, H, Hkv, S, d, W = FLASH_BAND_SHAPE
+    rng = np.random.default_rng(SEED + 4)
+    q, k, v = (torch.from_numpy(rng.normal(size=(B, S, h, d)).astype(
+        np.float32)).to(dev).to(torch.bfloat16).transpose(1, 2)
+        for h in (H, Hkv, Hkv))
+    ms = kernel_ms(lambda: fa.flash_attention(q, k, v, window=W), 20,
+                   "flash_kernel")
+    pairs = sum(min(i + 1, W) for i in range(S))
+    nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+    flops = 4 * B * H * pairs * d
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    flops_ms = flops / BF16_FLOP_PER_S * 1e3
+    i = torch.arange(S, device=dev)
+    diff = i[:, None] - i[None, :]
+    band = (diff >= 0) & (diff < W)
+    lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+        q, k, v, attn_mask=band, enable_gqa=True), 10)
+    return {
+        "name": "flash_attention (band, d 256)", "route": "cuda",
+        "source": "src/repro_torch/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:78",
+        "ms": ms, "plain_ms": cuda_ms(
+            lambda: ref.flash_attention_ref(q, k, v, window=W), 3),
+        "bound_ms": max(bytes_ms, flops_ms),
+        "bound_by": "bytes" if bytes_ms >= flops_ms else "operations",
+        "library_ms": lib_ms,
+        "library_note": "scaled_dot_product_attention(attn_mask=band, "
+                        "enable_gqa=True), timed only",
+        "ms_from": ms_from("flash_kernel"), "wrapper_call_ms": cuda_ms(
+            lambda: fa.flash_attention(q, k, v, window=W), 20),
+        "shape": f"B={B} H={H} Hkv={Hkv} S={S} d={d} {q.dtype} window={W}",
+        "band_pairs_per_head": pairs,
+        "bound_bytes_ms": bytes_ms, "bound_ops_ms": flops_ms,
+        "tflop_per_s": flops / (ms * 1e-3) / 1e12,
+        "bound_share": max(bytes_ms, flops_ms) / ms,
+        "ms_over_library": ms / lib_ms,
+        "ptxas": {"flash_kernel_mma<256>": ptxas_report(
+                      "flash_attention", "flash_kernel_mmaILi256E"),
+                  "flash_kernel<256>": ptxas_report(
+                      "flash_attention", "flash_kernelILi256E")},
+    }
+
+
+def flash_band_row(timing: dict, served: dict) -> dict:
+    """F's band row: :func:`flash_band_timing` with recurrentgemma's
+    serve-path launches and its check (i) on the first band call."""
+    rg = served["recurrentgemma-9b"]
+    return {**timing, "launches": rg["launches"],
+            "max_abs_err": rg["errs"]["band"],
+            "launches_per_prefill": rg["launches"]
+            // rg["result"]["prefill_calls"]}
 
 
 # ---------------------------------------------------------------------------
@@ -3257,6 +3709,7 @@ def main(argv=None) -> int:
             + split_kernel_rows(run, split, dev, reduce))
     f_timing = flash_timing(dev)
     f_mla_timing = flash_mla_timing(dev)
+    f_band_timing = flash_band_timing(dev)
     phase("sharded plane: the main path's records in 4 shards")
     t0 = time.perf_counter()
     sharded = sharded_plane(run, dev)
@@ -3300,6 +3753,13 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     served = model_serving(dev)
     print(f"  phase {time.perf_counter() - t0:.1f} s")
+    phase("recurrent, hybrid and encoder-decoder serving: "
+          + ", ".join(f"{a} ({n} layers, batch {b}, prompt {p}, {g} tokens)"
+                      for a, n, b, p, g in RECURRENT_RUNS)
+          + " at published widths")
+    t0 = time.perf_counter()
+    recurrent = recurrent_serving(dev)
+    print(f"  phase {time.perf_counter() - t0:.1f} s")
     phase(f"training: gradient routes, {' '.join(TRAIN_ARGS)}, crash and "
           "resume")
     t0 = time.perf_counter()
@@ -3314,7 +3774,11 @@ def main(argv=None) -> int:
             dt: r["max_rel_err"] for dt, r in trained["routes"].items()}}
     rows[-1]["launches_moe_mla_vision"] = {
         a: r["launches"] for a, r in served.items() if a != "deepseek-v3-671b"}
+    rows[-1]["launches_recurrent_encdec"] = {
+        a: r["launches"] for a, r in recurrent.items()
+        if a != "recurrentgemma-9b"}
     rows.append(flash_mla_row(f_mla_timing, served))
+    rows.append(flash_band_row(f_band_timing, recurrent))
     # launches on this slice's paths, each read from its own phase
     rows[0]["launches_client_fleet"] = fleet["launches"]["pushdown"]
     rows[1]["launches_sharded_plane"] = sharded["launches"]["scan"]

@@ -1,5 +1,5 @@
-// Kernel F: causal or unmasked GQA self-attention with an online softmax,
-// over positions 0..S-1, scale d**-0.5.
+// Kernel F: causal, banded (local) or unmasked GQA attention with an online
+// softmax, over positions 0..S-1, scale d**-0.5.
 //
 // Replaces the TPU kernel src/repro/kernels/flash_attention.py::
 // flash_attention_tpu (body _kernel).  Same function; the TPU's grid
@@ -61,14 +61,36 @@
 //  * Causal: a block stops at the K tile past its last row.  On such a
 //    tile _kernel leaves m, l and acc unchanged (alpha = 1, p = 0), so
 //    the skip is exact.  The heaviest q tiles are launched first.
-//  * Head dims 16, 32, 64, 128 and 192, one template instance each per
-//    route.  d = 192 is MLA's qk head dim (deepseek-v3: nope 128 + rope
+//  * Band (window > 0, causal): key k is valid for query q iff
+//    0 <= q - k < window, the JAX package's mask_mode="local"
+//    (src/repro/models/attention.py::flash_attention; the TPU kernel has
+//    no window).  A block starts at the 64-key tile that holds key
+//    q0 - window + 1 (q0 its first row), skipping the tiles below it
+//    exactly as the causal skip above does, and masks the tiles that
+//    cross the band's lower edge as well as those that cross the
+//    diagonal.  tests/test_torch_flash_attention.py holds these
+//    expressions, in Python, to a numpy model of the mask: every valid
+//    pair is visited and every tile with an invalid pair masked.
+//    window = 0: no band.
+//  * Head dims 16, 32, 64, 128, 192 and 256, one template instance each
+//    per route.  d = 192 is MLA's qk head dim (deepseek-v3: nope 128 + rope
 //    64); its v head dim of 128 is zero-padded to 192 by the caller
 //    (repro_torch.models.attention.flash_kernel_padded_v), which leaves
 //    o's first 128 columns exact and the others 0.  Shared memory per
 //    block at d = 192: 128,000 B (bf16), 148,736 B (f32), both under the
 //    227 KB a block may opt into; the bf16 accumulator is 96 f32 a thread
 //    (64 at d = 128), which sets its register count.
+//  * d = 256 is recurrentgemma's head dim.  Shared memory: 168,960 B
+//    (bf16; pitch 528 B, still an odd number of 16-byte groups), 197,888 B
+//    (f32).  The bf16 accumulator is 128 f32 a thread; Q's fragments
+//    (another 64 registers at d = 256) are not kept in registers there but
+//    read again from shared memory by ldmatrix on every tile (kQRegs).
+//    ptxas still reports 255 registers and 64 bytes of spill, and one
+//    block fits an SM.  At recurrentgemma's prefill (B 2, H 16, Hkv 1,
+//    S 2,560, window 2,048) the band's operations bound it (4 B H d per
+//    valid pair: 0.104 ms at the bf16 tensor-core rate; q, k, v and o
+//    once: 0.027 ms); there the band skips 28 of the 820 causal tiles of
+//    a head.
 //  * GQA: q head h reads kv head h / G, the (Hkv, G) grouping of the
 //    JAX package.  q, k, v and o are read and written through strides
 //    (last dim contiguous), so (B, S, H, d) tensors need no copy.
@@ -90,6 +112,13 @@ struct Strides {
   long long b, h, s;
 };
 
+// First key of the first K/V tile a block of q rows [q0, q0 + kBM) visits:
+// 0, or with a band the 64-key tile that holds key q0 - window + 1.  (The
+// tiles end at min(Sk, q0 + kBM) when causal, at Sk otherwise.)
+__device__ __forceinline__ int first_key_tile(int q0, int window) {
+  return window > 0 ? max(0, q0 - window + 1) / kBN * kBN : 0;
+}
+
 // ---------------------------------------------------------------------------
 // f32 route: CUDA cores
 // ---------------------------------------------------------------------------
@@ -104,7 +133,7 @@ __global__ void __launch_bounds__(kThreads)
 flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
              const float* __restrict__ v, float* __restrict__ o, int G,
              int Sq, int Sk, Strides qs, Strides ks, Strides vs, Strides os,
-             float scale, bool causal) {
+             float scale, bool causal, int window) {
   constexpr int QP = D + 4;           // Q row pitch: rows ty, ty+1 apart
   constexpr int KP = D + 1;           // K row pitch: 16 rows on 16 banks
   constexpr int CJ = D / 16;          // output columns per thread
@@ -139,7 +168,7 @@ flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 
   const int k_end = causal ? min(Sk, q0 + kBM) : Sk;
-  for (int k0 = 0; k0 < k_end; k0 += kBN) {
+  for (int k0 = first_key_tile(q0, window); k0 < k_end; k0 += kBN) {
     __syncthreads();                  // Q stored; last tile's reads done
     for (int i = tid; i < kBN * D; i += kThreads) {
       const int r = i / D, c = i % D;
@@ -176,7 +205,8 @@ flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int kp = k0 + tx + 16 * j;
-        valid[j] = kp < Sk && (!causal || qp >= kp);
+        valid[j] = kp < Sk && (!causal || qp >= kp) &&
+                   (window == 0 || qp - kp < window);
         s[i][j] = valid[j] ? s[i][j] * scale : kNegInf;
         rmax = fmaxf(rmax, s[i][j]);
       }
@@ -236,7 +266,7 @@ template <int D>
 cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o,
                        int B, int H, int G, int Sq, int Sk, Strides qs,
                        Strides ks, Strides vs, Strides os, float scale,
-                       bool causal, cudaStream_t stream) {
+                       bool causal, int window, cudaStream_t stream) {
   const int smem = smem_floats<D>() * (int)sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
       flash_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -245,7 +275,7 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o,
   flash_kernel<D><<<grid, kThreads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(o), G, Sq, Sk, qs,
-      ks, vs, os, scale, causal);
+      ks, vs, os, scale, causal, window);
   return cudaGetLastError();
 }
 
@@ -260,7 +290,7 @@ constexpr float kLog2e = 1.4426950408889634f;
 
 // Row pitch in bf16 elements: 16 bytes of padding, so 8 consecutive rows
 // start on 8 distinct 16-byte bank groups for every d in {16, 32, 64, 128,
-// 192} (a pitch of 2d + 16 bytes is an odd number of 16-byte groups)
+// 192, 256} (a pitch of 2d + 16 bytes is an odd number of 16-byte groups)
 template <int D>
 __host__ __device__ constexpr int pitch() { return D + 8; }
 
@@ -350,9 +380,12 @@ flash_kernel_mma(const __nv_bfloat16* __restrict__ q,
                  const __nv_bfloat16* __restrict__ v,
                  __nv_bfloat16* __restrict__ o, int G, int Sq, int Sk,
                  Strides qs, Strides ks, Strides vs, Strides os,
-                 float scale_log2, bool causal) {
+                 float scale_log2, bool causal, int window) {
   constexpr int P = pitch<D>();
   constexpr int KS = D / 16;          // k-steps of QK^T
+  // Q's fragments stay in registers up to d = 192; at d = 256 they are
+  // read again from shared memory on every tile (see the note above)
+  constexpr bool kQRegs = D <= 192;
   constexpr int NT = kBN / 8;         // n8 tiles of a score row block
   constexpr int DT = D / 8;           // n8 tiles of the output
   extern __shared__ __align__(128) unsigned char smem_mma[];
@@ -375,11 +408,12 @@ flash_kernel_mma(const __nv_bfloat16* __restrict__ q,
 
   const int k_end = causal ? min(Sk, q0 + kBM) : Sk;
   const int n_tiles = (k_end + kBN - 1) / kBN;
+  const int t0 = first_key_tile(q0, window) / kBN;   // 0 without a band
 
   load_tile<D>(sQ, qb, qs.s, q0, Sq, tid);
   cp_async_commit();
-  load_tile<D>(sK, kb, ks.s, 0, Sk, tid);
-  load_tile<D>(sV, vb, vs.s, 0, Sk, tid);
+  load_tile<D>(sK, kb, ks.s, t0 * kBN, Sk, tid);
+  load_tile<D>(sV, vb, vs.s, t0 * kBN, Sk, tid);
   cp_async_commit();
 
   // ldmatrix row addresses of this lane.  A (Q): rows lane % 16, column
@@ -396,10 +430,12 @@ flash_kernel_mma(const __nv_bfloat16* __restrict__ q,
 
   cp_async_wait<1>();                 // Q has landed
   __syncthreads();
-  uint32_t qf[KS][4];
+  uint32_t qf[kQRegs ? KS : 1][4];
+  if constexpr (kQRegs) {
 #pragma unroll
-  for (int ks_ = 0; ks_ < KS; ++ks_)
-    ldmatrix_x4(qf[ks_], sQ + (a_row * P + ks_ * 16 + a_col) * 2);
+    for (int ks_ = 0; ks_ < KS; ++ks_)
+      ldmatrix_x4(qf[ks_], sQ + (a_row * P + ks_ * 16 + a_col) * 2);
+  }
 
   float acc[DT][4];
 #pragma unroll
@@ -411,11 +447,11 @@ flash_kernel_mma(const __nv_bfloat16* __restrict__ q,
 
   const int row0 = q0 + warp * 16 + g;   // this thread's rows: row0, row0+8
 
-  for (int t = 0; t < n_tiles; ++t) {
+  for (int t = t0; t < n_tiles; ++t) {
     const int k0 = t * kBN;
-    const uint32_t stage = (t & 1) * kTileBytes;
+    const uint32_t stage = ((t - t0) & 1) * kTileBytes;
     if (t + 1 < n_tiles) {            // prefetch the next tile
-      const uint32_t next = ((t + 1) & 1) * kTileBytes;
+      const uint32_t next = ((t - t0 + 1) & 1) * kTileBytes;
       load_tile<D>(sK + next, kb, ks.s, k0 + kBN, Sk, tid);
       load_tile<D>(sV + next, vb, vs.s, k0 + kBN, Sk, tid);
     }
@@ -431,18 +467,25 @@ flash_kernel_mma(const __nv_bfloat16* __restrict__ q,
       for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
 #pragma unroll
     for (int ks_ = 0; ks_ < KS; ++ks_) {
+      if constexpr (!kQRegs)
+        ldmatrix_x4(qf[0], sQ + (a_row * P + ks_ * 16 + a_col) * 2);
+      const uint32_t (&qa)[4] = qf[kQRegs ? ks_ : 0];
 #pragma unroll
       for (int np = 0; np < NT / 2; ++np) {
         uint32_t kf[4];
         ldmatrix_x4(kf, sK + stage +
                             ((np * 16 + k_row) * P + ks_ * 16 + k_col) * 2);
-        mma_bf16(s[2 * np], qf[ks_], kf[0], kf[1]);
-        mma_bf16(s[2 * np + 1], qf[ks_], kf[2], kf[3]);
+        mma_bf16(s[2 * np], qa, kf[0], kf[1]);
+        mma_bf16(s[2 * np + 1], qa, kf[2], kf[3]);
       }
     }
 
-    // ---- scale to the log2 domain; mask only where a tile needs it ----
-    const bool mask = (causal && k0 + kBN - 1 > q0 + warp * 16) ||
+    // ---- scale to the log2 domain; mask only where a tile needs it: it
+    // crosses the diagonal of this warp's 16 rows, the band's lower edge
+    // (key row - window, for the warp's last row), or Sk ----
+    const int wrow = q0 + warp * 16;
+    const bool mask = (causal && k0 + kBN - 1 > wrow) ||
+                      (window > 0 && k0 <= wrow + 15 - window) ||
                       k0 + kBN > Sk;
 #pragma unroll
     for (int j = 0; j < NT; ++j)
@@ -455,7 +498,9 @@ flash_kernel_mma(const __nv_bfloat16* __restrict__ q,
         for (int e = 0; e < 4; ++e) {
           const int key = k0 + j * 8 + 2 * tig + (e & 1);
           const int row = row0 + (e >> 1) * 8;
-          if (key >= Sk || (causal && key > row)) s[j][e] = kNegInf;
+          if (key >= Sk || (causal && key > row) ||
+              (window > 0 && row - key >= window))
+            s[j][e] = kNegInf;
         }
     }
 
@@ -513,6 +558,7 @@ flash_kernel_mma(const __nv_bfloat16* __restrict__ q,
     }
     __syncthreads();                  // this stage is refilled next round
   }
+  cp_async_wait<0>();                 // no copy in flight past the loop
 
   // ---- out = acc / max(l, 1e-30), rounded once to bf16 ----
 #pragma unroll
@@ -538,7 +584,7 @@ template <int D>
 cudaError_t launch_mma(const void* q, const void* k, const void* v, void* o,
                        int B, int H, int G, int Sq, int Sk, Strides qs,
                        Strides ks, Strides vs, Strides os, float scale,
-                       bool causal, cudaStream_t stream) {
+                       bool causal, int window, cudaStream_t stream) {
   constexpr int smem = smem_bytes_mma<D>();
   cudaError_t err = cudaFuncSetAttribute(
       flash_kernel_mma<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -548,13 +594,14 @@ cudaError_t launch_mma(const void* q, const void* k, const void* v, void* o,
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
-      G, Sq, Sk, qs, ks, vs, os, scale * kLog2e, causal);
+      G, Sq, Sk, qs, ks, vs, os, scale * kLog2e, causal, window);
   return cudaGetLastError();
 }
 
 using Launch = cudaError_t (*)(const void*, const void*, const void*, void*,
                                int, int, int, int, int, Strides, Strides,
-                               Strides, Strides, float, bool, cudaStream_t);
+                               Strides, Strides, float, bool, int,
+                               cudaStream_t);
 
 // the instance for (dtype, d): 0 = f32 on the CUDA cores, 1 = bf16 on the
 // tensor cores; nullptr where there is none
@@ -565,11 +612,13 @@ Launch pick(int dtype, int d) {
     case 64: return launch_f32<64>;
     case 128: return launch_f32<128>;
     case 192: return launch_f32<192>;
+    case 256: return launch_f32<256>;
     case 1016: return launch_mma<16>;
     case 1032: return launch_mma<32>;
     case 1064: return launch_mma<64>;
     case 1128: return launch_mma<128>;
     case 1192: return launch_mma<192>;
+    case 1256: return launch_mma<256>;
     default: return nullptr;
   }
 }
@@ -580,7 +629,9 @@ extern "C" {
 
 // o[b, h, :Sq, :d] = attention of q[b, h] over k[b, h / G], v[b, h / G]
 // with G = H / Hkv.  dtype 0 = f32, 1 = bf16 (q, k, v and o alike); d one
-// of 16, 32, 64, 128, 192; strides in elements, the last dim contiguous.
+// of 16, 32, 64, 128, 192, 256; strides in elements, the last dim
+// contiguous.  window > 0 (with causal) keeps keys 0 <= q - k < window;
+// 0 is no band.
 // bf16 needs 16-byte aligned rows (base addresses and strides), which the
 // wrapper checks.  `device` is the CUDA ordinal the tensors and `stream`
 // belong to.  Returns the cudaError_t of the launch.
@@ -591,9 +642,10 @@ int ciao_flash_attention(int device, int dtype, int d, const void* q,
                          long long ksh, long long kss, long long vsb,
                          long long vsh, long long vss, long long osb,
                          long long osh, long long oss, float scale,
-                         int causal, void* stream) {
+                         int causal, int window, void* stream) {
   if (B == 0 || H == 0 || Sq == 0) return 0;
   if (Hkv <= 0 || H % Hkv) return cudaErrorInvalidValue;
+  if (window < 0 || (window > 0 && !causal)) return cudaErrorInvalidValue;
   const Launch launch = pick(dtype, d);
   if (launch == nullptr) return cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
@@ -601,7 +653,7 @@ int ciao_flash_attention(int device, int dtype, int d, const void* q,
   const Strides qs{qsb, qsh, qss}, ks{ksb, ksh, kss}, vs{vsb, vsh, vss},
       os{osb, osh, oss};
   return launch(q, k, v, o, B, H, H / Hkv, Sq, Sk, qs, ks, vs, os, scale,
-                causal != 0, (cudaStream_t)stream);
+                causal != 0, window, (cudaStream_t)stream);
 }
 
 const char* ciao_error_string(int err) {

@@ -1,4 +1,4 @@
-"""Kernel F: causal or unmasked GQA flash attention.
+"""Kernel F: causal, banded (local) or unmasked GQA flash attention.
 
 Wrapper of the hand-written CUDA kernel in ``csrc/flash_attention.cu``,
 the port of the TPU kernel ``repro.kernels.flash_attention.
@@ -16,7 +16,9 @@ base address or strides are not multiples of 16 bytes.
 The TPU kernel's ``q_block``/``k_block`` are its tiling, and it raises
 when S does not divide them.  The port takes any ``Sq`` and ``Sk`` and
 masks the ragged tile, so on every shape where the TPU kernel is defined
-the two compute the same function.
+the two compute the same function.  ``window`` adds the causal band of
+the JAX package's ``mask_mode="local"`` (the TPU kernel has none): key
+``k`` is valid for query ``q`` iff ``0 <= q - k < window``.
 """
 from __future__ import annotations
 
@@ -30,7 +32,7 @@ from . import cuda_build, ref
 launches = 0
 
 #: head dims the kernel is built for
-HEAD_DIMS = (16, 32, 64, 128, 192)
+HEAD_DIMS = (16, 32, 64, 128, 192, 256)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _GRID_LIMIT = 65535             # gridDim.y (heads) and gridDim.z (batch)
 
@@ -41,7 +43,7 @@ def _lib() -> ctypes.CDLL:
     return cuda_build.load("flash_attention", {
         "ciao_flash_attention": (
             [_I, _I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I]
-            + [_L] * 12 + [ctypes.c_float, _I, _P], _I),
+            + [_L] * 12 + [ctypes.c_float, _I, _I, _P], _I),
     })
 
 
@@ -82,20 +84,24 @@ def _check_rows_aligned(**tensors: torch.Tensor) -> None:
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True) -> torch.Tensor:
+                    causal: bool = True, window: int = 0) -> torch.Tensor:
     """Attention of ``q (B, H, Sq, d)`` over ``k, v (B, Hkv, Sk, d)``.
 
     Query head ``h`` reads kv head ``h // (H // Hkv)``; the scale is
     ``d ** -0.5``; ``causal`` masks key ``j > i`` for query ``i``
-    (positions 0..S-1).  f32 or bf16, q, k and v alike; scores, stats and
-    the accumulator in f32 (on a card, bf16 rounds p to bf16 for P.V);
-    the result ``(B, H, Sq, d)`` in q's type, laid out in memory as q is
-    (views whose last dim is contiguous are read through their strides,
-    without a copy).
+    (positions 0..S-1), and ``window > 0`` also key ``j <= i - window``
+    (a band needs ``causal``; 0 is no band).  f32 or bf16, q, k and v
+    alike; scores, stats and the accumulator in f32 (on a card, bf16
+    rounds p to bf16 for P.V); the result ``(B, H, Sq, d)`` in q's type,
+    laid out in memory as q is (views whose last dim is contiguous are
+    read through their strides, without a copy).
     """
     _check(q, k, v)
+    if window < 0 or (window and not causal):
+        raise ValueError(f"window {window}: a band is causal with window "
+                         f">= 1 (0 is no band)")
     if q.device.type == "cpu":
-        return ref.flash_attention_ref(q, k, v, causal=causal)
+        return ref.flash_attention_ref(q, k, v, causal=causal, window=window)
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
     global launches
@@ -116,7 +122,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         dev.index, _DTYPES[q.dtype], d, q.data_ptr(), k.data_ptr(),
         v.data_ptr(), out.data_ptr(), B, H, Hkv, Sq, Sk,
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-        *out.stride()[:3], d ** -0.5, int(bool(causal)),
+        *out.stride()[:3], d ** -0.5, int(bool(causal)), int(window),
         torch.cuda.current_stream(dev).cuda_stream)
     cuda_build.check_launch(lib, err, "flash_attention")
     with cuda_build.counter_lock:

@@ -12,7 +12,7 @@ comparison in ``chip_smoke.py``; no path calls them on a card.
   * ``bitvector_reduce_ref`` — AND/OR/popcount over packed rows
     (``csrc/bitvector_reduce.cu``, wrapper
     :mod:`repro_torch.kernels.bitvector_ops`);
-  * ``flash_attention_ref`` — causal or unmasked GQA attention
+  * ``flash_attention_ref`` — causal, banded or unmasked GQA attention
     (``csrc/flash_attention.cu``, wrapper
     :mod:`repro_torch.kernels.flash_attention`), and
     ``flash_attention_ref_bf16p``, the numerics of that kernel's bf16
@@ -173,13 +173,13 @@ def bitvector_reduce_ref(bitvecs: torch.Tensor):
     return and_w, bitvector.torch_or_many(bitvecs), count
 
 
-def flash_attention_ref(q, k, v, *, causal: bool = True):
+def flash_attention_ref(q, k, v, *, causal: bool = True, window: int = 0):
     """Plain version of kernel F in its ``(B, H, S, d)`` layout.
 
     The model's chunked attention
     (:func:`repro_torch.models.attention.flash_attention_plain`) over
-    positions 0..S-1, through transposes, with mask ``causal`` or
-    ``none``.
+    positions 0..S-1, through transposes, with mask ``causal``, ``none``
+    or, for ``window > 0``, ``local`` (keys ``0 <= q - k < window``).
     """
     from repro_torch.models import attention   # the model imports kernels
 
@@ -188,7 +188,7 @@ def flash_attention_ref(q, k, v, *, causal: bool = True):
         q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
         q_positions=torch.arange(Sq, dtype=torch.int32, device=q.device),
         k_positions=torch.arange(Sk, dtype=torch.int32, device=q.device),
-        mask_mode="causal" if causal else "none")
+        mask_mode=attention.kernel_mask_mode(causal, window), window=window)
     return out.transpose(1, 2)
 
 
@@ -196,7 +196,8 @@ def flash_attention_ref(q, k, v, *, causal: bool = True):
 FLASH_KEY_TILE = 64
 
 
-def flash_attention_ref_bf16p(q, k, v, *, causal: bool = True):
+def flash_attention_ref_bf16p(q, k, v, *, causal: bool = True,
+                              window: int = 0):
     """Plain version of kernel F's bf16 route: :func:`flash_attention_ref`
     over the kernel's 64-key tiles, with p rounded to bf16 before each
     tile's P.V, where the tensor-core kernel rounds it (l sums the f32 p).
@@ -208,6 +209,6 @@ def flash_attention_ref_bf16p(q, k, v, *, causal: bool = True):
         q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
         q_positions=torch.arange(Sq, dtype=torch.int32, device=q.device),
         k_positions=torch.arange(Sk, dtype=torch.int32, device=q.device),
-        mask_mode="causal" if causal else "none", k_chunk=FLASH_KEY_TILE,
-        p_dtype=torch.bfloat16)
+        mask_mode=attention.kernel_mask_mode(causal, window), window=window,
+        k_chunk=FLASH_KEY_TILE, p_dtype=torch.bfloat16)
     return out.transpose(1, 2)

@@ -1,16 +1,17 @@
-"""Attention: GQA / MQA / qk-norm / QKV bias / MLA, flash attention and decode.
+"""Attention: GQA / MQA / qk-norm / QKV bias / local window / cross / MLA,
+flash attention and decode.
 
-The port of ``repro.models.attention`` but cross attention, which comes
-with its model family (ROADMAP.md Queue 1, item 20).
+The port of ``repro.models.attention``.
 
-  * :func:`flash_attention` — self-attention over a whole sequence.  On a
+  * :func:`flash_attention` — attention over a whole sequence.  On a
     CPU tensor it runs :func:`flash_attention_plain`, the chunked
     online-softmax version of the JAX package's jnp path, with every mask
     mode (causal, local, none) and ``-1``-padded positions.  On a CUDA
     tensor it launches kernel F (``csrc/flash_attention.cu``, wrapper
     :mod:`repro_torch.kernels.flash_attention`) where F's domain covers
-    the call, and raises ``NotImplementedError`` where it does not: it
-    never runs the plain version on a card.  A v head dim below the qk
+    the call (causal, local as F's band, unmasked with Sq != Sk for
+    cross attention), and raises where it does not: it never runs the
+    plain version on a card.  A v head dim below the qk
     head dim (MLA) is zero-padded up to it for F and the output cut back
     (:func:`flash_kernel_padded_v`).  Where a gradient is wanted it
     launches F through :class:`FlashAttention`, whose backward is the
@@ -36,8 +37,7 @@ from .layers import RopeTables, Spec, rmsnorm, rope_tables, rotate
 
 NEG_INF = -1e30
 
-#: where the calls kernel F does not cover are planned (ROADMAP.md)
-_ROADMAP_LOCAL = "ROADMAP.md Queue 1, item 18 ('local and hybrid')"
+#: where what this module refuses is planned (ROADMAP.md)
 _ROADMAP_MESH = "ROADMAP.md Queue 1, item 14 (model mesh)"
 
 
@@ -45,8 +45,9 @@ _ROADMAP_MESH = "ROADMAP.md Queue 1, item 14 (model mesh)"
 # init
 # ---------------------------------------------------------------------------
 
-def init_attention(cfg) -> dict:
-    """Parameter specs of one GQA attention block."""
+def init_attention(cfg, *, cross: bool = False) -> dict:
+    """Parameter specs of one GQA attention block; a cross-attention block
+    (``cross``, encdec) has the same layout, as in the JAX package."""
     d, H, Hkv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd()
     p = {
         "wq": Spec((d, H, hd)),
@@ -218,8 +219,8 @@ def _is_iota(pos, n: int) -> bool:
 
 class FlashAttention(torch.autograd.Function):
     """Kernel F with a gradient: ``FlashAttention.apply(q, k, v, causal,
-    q_chunk, k_chunk)`` in the model's ``(B, S, heads, d)`` layout,
-    positions 0..S-1.
+    q_chunk, k_chunk[, window])`` in the model's ``(B, S, heads, d)``
+    layout, positions 0..S-1 (``window > 0``: the causal band).
 
     The forward launches F through its wrapper, as a prefill does (on a
     CPU tensor the wrapper runs F's plain version), and saves q, k and v.
@@ -233,12 +234,14 @@ class FlashAttention(torch.autograd.Function):
     """
 
     @staticmethod
-    def forward(ctx, q, k, v, causal: bool, q_chunk: int, k_chunk: int):
+    def forward(ctx, q, k, v, causal: bool, q_chunk: int, k_chunk: int,
+                window: int = 0):
         ctx.save_for_backward(q, k, v)
-        ctx.causal, ctx.chunks = causal, (q_chunk, k_chunk)
+        ctx.mask = kernel_mask_mode(causal, window)
+        ctx.window, ctx.chunks = window, (q_chunk, k_chunk)
         out = fa_kernel.flash_attention(
             q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-            causal=causal)
+            causal=causal, window=window)
         return out.transpose(1, 2)
 
     @staticmethod
@@ -249,10 +252,15 @@ class FlashAttention(torch.autograd.Function):
                 q, k, v,
                 q_positions=torch.arange(q.shape[1], device=q.device),
                 k_positions=torch.arange(k.shape[1], device=k.device),
-                mask_mode="causal" if ctx.causal else "none",
+                mask_mode=ctx.mask, window=ctx.window,
                 q_chunk=ctx.chunks[0], k_chunk=ctx.chunks[1])
             dq, dk, dv = torch.autograd.grad(out, (q, k, v), grad_out)
-        return dq, dk, dv, None, None, None
+        return dq, dk, dv, None, None, None, None
+
+
+def kernel_mask_mode(causal: bool, window: int) -> str:
+    """Kernel F's (causal, window) as a mask mode."""
+    return "local" if window else "causal" if causal else "none"
 
 
 def flash_attention(q, k, v, *, q_positions, k_positions,
@@ -263,8 +271,9 @@ def flash_attention(q, k, v, *, q_positions, k_positions,
     :func:`flash_attention_plain`).
 
     On a CPU tensor this is :func:`flash_attention_plain`.  On a CUDA
-    tensor it launches kernel F, which covers mask ``causal`` or
-    ``none``, positions 0..S-1 (what ``transformer.forward``/``prefill``
+    tensor it launches kernel F, which covers mask ``causal``, ``local``
+    (F's band; ``window`` must be at least 1, else ``ValueError``) and
+    ``none`` (also with Sq != Sk), positions 0..S-1 (what the models
     pass, on the CPU, so the check costs no device sync), a v head dim
     equal to the qk head dim or below it (zero-padded up to it, see
     :func:`flash_kernel_padded_v`), and the default scale ``qkd ** -0.5``
@@ -278,10 +287,11 @@ def flash_attention(q, k, v, *, q_positions, k_positions,
             mask_mode=mask_mode, window=window, q_chunk=q_chunk,
             k_chunk=k_chunk, scale=scale)
     Sq, qkd, Sk, vd = q.shape[1], q.shape[-1], k.shape[1], v.shape[-1]
-    if mask_mode not in ("causal", "none"):
-        raise NotImplementedError(
-            f"mask {mask_mode!r} on {q.device}: kernel F covers causal and "
-            f"unmasked attention; local windows come with {_ROADMAP_LOCAL}")
+    if mask_mode not in ("causal", "local", "none"):
+        raise ValueError(f"unknown mask_mode {mask_mode!r}")
+    if mask_mode == "local" and window < 1:
+        raise ValueError(f"local attention with window {window}: kernel "
+                         f"F's band needs a window of at least 1")
     if vd > qkd or (scale is not None and scale != qkd ** -0.5):
         raise NotImplementedError(
             f"qk head dim {qkd}, v head dim {vd}, scale {scale} on "
@@ -290,10 +300,11 @@ def flash_attention(q, k, v, *, q_positions, k_positions,
     if not (_is_iota(q_positions, Sq) and _is_iota(k_positions, Sk)):
         raise NotImplementedError(
             f"positions other than 0..S-1 on {q.device}: kernel F masks by "
-            f"row and column index; offset or padded positions come with "
-            f"{_ROADMAP_LOCAL}")
-    out = flash_kernel_padded_v(q, k, v, causal=mask_mode == "causal",
-                                q_chunk=q_chunk, k_chunk=k_chunk)
+            f"row and column index, and no model of the port passes others")
+    out = flash_kernel_padded_v(
+        q, k, v, causal=mask_mode != "none",
+        window=window if mask_mode == "local" else 0, q_chunk=q_chunk,
+        k_chunk=k_chunk)
     return out if vd == qkd else out[..., :vd]
 
 
@@ -303,14 +314,14 @@ def pad_head_dim(x, d: int):
     return x if x.shape[-1] == d else _pad_to(x, d, x.dim() - 1)
 
 
-def flash_kernel_padded_v(q, k, v, *, causal: bool, q_chunk: int = 1024,
-                          k_chunk: int = 1024):
+def flash_kernel_padded_v(q, k, v, *, causal: bool, window: int = 0,
+                          q_chunk: int = 1024, k_chunk: int = 1024):
     """Kernel F on q, k ``(B, S, heads, qkd)`` and v ``(B, S, Hkv, vd)``,
     ``vd <= qkd``, with v zero-padded to ``qkd``; returns ``(B, Sq, H,
     qkd)``, whose first ``vd`` columns are the attention over the
     unpadded v and whose other columns are exactly 0 (p . 0 = 0, and the
     scale and softmax read q and k alone).  Positions 0..S-1, scale
-    ``qkd ** -0.5``.
+    ``qkd ** -0.5``; ``window > 0`` is F's causal band.
 
     With grad mode on and q, k or v requiring a gradient (training), F
     launches through :class:`FlashAttention`, which carries the gradient
@@ -320,10 +331,11 @@ def flash_kernel_padded_v(q, k, v, *, causal: bool, q_chunk: int = 1024,
     v = pad_head_dim(v, q.shape[-1])
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
-        return FlashAttention.apply(q, k, v, causal, q_chunk, k_chunk)
+        return FlashAttention.apply(q, k, v, causal, q_chunk, k_chunk,
+                                    window)
     out = fa_kernel.flash_attention(
         q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-        causal=causal)
+        causal=causal, window=window)
     return out.transpose(1, 2)
 
 
@@ -338,6 +350,23 @@ def attend_full(p, x, cfg, positions, *, mask_mode=None):
         mask_mode=mode, window=cfg.window,
         q_chunk=cfg.attn_q_chunk, k_chunk=cfg.attn_k_chunk,
     )
+    return _out_proj(out, p["wo"])
+
+
+def _cross_qkv(p, x, memory):
+    """Cross attention's q from x and k, v from the encoder's memory (no
+    rotary embedding)."""
+    return _proj(x, p["wq"]), _proj(memory, p["wk"]), _proj(memory, p["wv"])
+
+
+def attend_cross(p, x, memory, cfg):
+    """Cross-attention: queries from x (B, Sq, d), keys and values from
+    the encoder's memory (B, Sk, d); unmasked."""
+    q, k, v = _cross_qkv(p, x, memory)
+    out = flash_attention(
+        q, k, v, q_positions=torch.arange(x.shape[1], dtype=torch.int32),
+        k_positions=torch.arange(memory.shape[1], dtype=torch.int32),
+        mask_mode="none", q_chunk=cfg.attn_q_chunk, k_chunk=cfg.attn_k_chunk)
     return _out_proj(out, p["wo"])
 
 

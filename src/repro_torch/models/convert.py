@@ -17,13 +17,15 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from . import transformer
 from .layers import resolve_device
+from .model import family_module
 
 
 def params_from_reference(values: dict, cfg, device="cuda") -> dict:
-    """The JAX package's parameter values as the port's tensors."""
-    return _convert(values, transformer.param_shapes(cfg),
+    """The JAX package's parameter values as the port's tensors: every
+    family's tree (decoder groups, the hybrid's ``rec`` and ``attn``
+    blocks, RWKV's ``tm``/``cm``, encdec's ``enc``/``dec`` stacks)."""
+    return _convert(values, family_module(cfg).param_shapes(cfg),
                     resolve_device(device))
 
 
@@ -32,7 +34,7 @@ def opt_state_from_reference(state: dict, cfg, device="cuda") -> dict:
     moment trees checked against the parameters' shapes, ``step`` a 0-d
     int32 tensor."""
     dev = resolve_device(device)
-    shapes = transformer.param_shapes(cfg)
+    shapes = family_module(cfg).param_shapes(cfg)
     allowed = {"m", "v", "f", "ef", "step"}
     if not set(state) <= allowed or "step" not in state:
         raise ValueError(f"optimizer state keys {sorted(state)}: expected "

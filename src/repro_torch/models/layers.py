@@ -7,7 +7,9 @@ returns a tree of :class:`Spec` leaves (shape and distribution), which
 explicit device, so a parameter count (:func:`count`) never allocates.
 The distributions are those of ``mk``: normal times ``fan_in ** -0.5``
 (``fan_in`` the product of all but the last dim of one layer's shape, the
-first dim of a vector), embeddings times 0.02, norms and biases zero.
+first dim of a vector), embeddings times 0.02, norms and biases zero,
+RWKV's output-norm scale one, and the RG-LRU's ``lam`` as Griffin draws
+it (``rglru.py``).
 ``torch.Generator`` cannot give ``jax.random``'s numbers; tests that
 compare the two packages convert the JAX package's parameters
 (:mod:`repro_torch.models.convert`).
@@ -26,8 +28,12 @@ import torch.nn.functional as F
 
 class Spec(NamedTuple):
     shape: tuple[int, ...]
-    init: str = "normal"               # normal | zeros
+    init: str = "normal"               # normal | zeros | ones | lru_lambda
     scale: float | None = None         # None -> fan_in ** -0.5
+
+
+#: the RG-LRU's c: a = exp(-c softplus(lam) r) (``rglru.py``)
+LRU_C = 8.0
 
 
 def resolve_device(device) -> torch.device:
@@ -90,6 +96,14 @@ def materialize(specs, generator: torch.Generator, device, dtype,
         shape = lead + tuple(s.shape)
         if s.init == "zeros":
             return torch.zeros(shape, dtype=dtype, device=device)
+        if s.init == "ones":
+            return torch.ones(shape, dtype=dtype, device=device)
+        if s.init == "lru_lambda":
+            # Griffin: a = exp(-c softplus(lam)) ~ U[0.9, 0.999] at r = 1,
+            # so lam = softplus^-1(-log(u) / c)
+            u = torch.rand(shape, generator=generator, dtype=dtype,
+                           device=device) * (0.999 - 0.9) + 0.9
+            return torch.log(torch.expm1(-torch.log(u) / LRU_C))
         if s.init != "normal":
             raise ValueError(f"unknown init {s.init!r}")
         fan_in = (s.shape[0] if len(s.shape) == 1
@@ -108,6 +122,43 @@ def count(specs, n_layers: int = 1) -> int:
     return n_layers * sum(math.prod(s.shape) for s in tree_leaves(specs))
 
 
+class Stacked(NamedTuple):
+    """A model entry of ``n`` layers: ``tree`` is one layer's spec tree,
+    stacked on a leading layers axis."""
+    tree: dict
+    n: int
+
+
+def _entries(specs: dict):
+    """(name, spec tree, layers or None) of a model's top-level specs."""
+    for name, spec in specs.items():
+        if isinstance(spec, Stacked):
+            yield name, spec.tree, spec.n
+        else:
+            yield name, spec, None
+
+
+def model_count(specs: dict) -> int:
+    """Parameters of a model's specs, :class:`Stacked` entries times their
+    layers (nothing allocated)."""
+    return sum(count(tree, n or 1) for _, tree, n in _entries(specs))
+
+
+def model_shapes(specs: dict) -> dict:
+    """Every parameter's shape, :class:`Stacked` entries with their layers
+    axis."""
+    return {name: tree_map(lambda s, lead=(() if n is None else (n,)):
+                           lead + tuple(s.shape), tree)
+            for name, tree, n in _entries(specs)}
+
+
+def model_materialize(specs: dict, generator: torch.Generator, device,
+                      dtype) -> dict:
+    """Draw every parameter of a model's specs (:func:`materialize`)."""
+    return {name: materialize(tree, generator, device, dtype, n)
+            for name, tree, n in _entries(specs)}
+
+
 # ---------------------------------------------------------------------------
 # norms
 # ---------------------------------------------------------------------------
@@ -118,6 +169,17 @@ def rmsnorm(x, scale, eps: float = 1e-6):
     var = x.square().mean(dim=-1, keepdim=True)
     y = x * torch.rsqrt(var + eps)
     return (y * (1.0 + scale.float())).to(dtype)
+
+
+def groupnorm_heads(x, scale, bias, eps: float = 1e-5):
+    """GroupNorm over (..., H, hd) per head (RWKV output norm): f32, biased
+    variance, in x's type."""
+    dtype = x.dtype
+    x = x.float()
+    mean = x.mean(dim=-1, keepdim=True)
+    var = x.var(dim=-1, unbiased=False, keepdim=True)
+    y = (x - mean) * torch.rsqrt(var + eps)
+    return (y * scale.float() + bias.float()).to(dtype)
 
 
 # ---------------------------------------------------------------------------

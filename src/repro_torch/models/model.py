@@ -1,18 +1,20 @@
 """Model API: build once from a ModelConfig, use everywhere.
 
-    model = build_model(cfg)                    # refuses unported families
+    model = build_model(cfg)
     params = model.init(seed, device="cuda")    # nested dict of tensors
     loss = model.loss(params, batch)            # f32 scalar, differentiable
     params = model.compute_params(params)       # serving: matrices cast once
     logits, cache = model.prefill(params, {"tokens": tokens}, s_alloc=...)
     logits, cache = model.decode(params, cache, tokens, cur_index)
 
-The port of ``repro.models.model`` for decoders (dense, MoE, MLA, the
-vision frontend).  ``batch`` holds ``tokens`` (B, S) int and
-``loss_mask`` (B, S) f32 tensors, and for the vision frontend
-``extra_embeds`` (B, F, d), prepended to the token embeddings.  Entry points
-run on the card unless the caller passes ``device="cpu"``, and raise
-without one.
+The port of ``repro.models.model``: decoders (dense, MoE, MLA, local
+attention, the vision frontend), hybrid (RG-LRU and local attention) and
+RWKV in ``transformer.py``, the encoder-decoder in ``encdec.py``.
+``batch`` holds ``tokens`` (B, S) int and ``loss_mask`` (B, S) f32
+tensors, for the vision frontend ``extra_embeds`` (B, F, d), prepended to
+the token embeddings, and for encdec ``frames`` (B, S_src, d), the
+encoder's input.  Entry points run on the card unless the caller passes
+``device="cpu"``, and raise without one.
 """
 from __future__ import annotations
 
@@ -20,8 +22,14 @@ from dataclasses import dataclass
 
 import torch
 
-from . import transformer
+from . import encdec, transformer
 from .layers import resolve_device
+
+
+def family_module(cfg):
+    """The module that builds ``cfg``'s family: ``encdec`` or
+    ``transformer`` (every other family)."""
+    return encdec if cfg.family == "encdec" else transformer
 
 
 def cross_entropy(logits, targets, mask, *, z_loss: float = 0.0):
@@ -48,7 +56,7 @@ class Model:
         dev = resolve_device(device)
         gen = torch.Generator(device=dev)
         gen.manual_seed(seed)
-        return transformer.init_params(self.cfg, gen, dev)
+        return family_module(self.cfg).init_params(self.cfg, gen, dev)
 
     def compute_params(self, values) -> dict:
         return transformer.compute_params(values, self.cfg)
@@ -58,16 +66,17 @@ class Model:
         """Next-token CE of ``batch`` (logits shifted by one against the
         tokens and mask; the frontend's positions cut off first), plus the
         forward's aux loss.  ``attention``: as
-        :func:`transformer.forward`'s."""
+        :func:`transformer.forward`'s (decoders only)."""
         cfg = self.cfg
         if cfg.family == "encdec":
-            raise NotImplementedError("the encdec loss comes with models/"
-                                      "encdec.py (ROADMAP.md Queue 1, item 20)")
-        extra = batch.get("extra_embeds")
-        logits, aux = transformer.forward(values, cfg, batch["tokens"],
-                                          extra_embeds=extra,
-                                          attention=attention)
-        logits = logits[:, cfg.frontend_len if extra is not None else 0:]
+            logits, aux = encdec.forward(values, cfg, batch["frames"],
+                                         batch["tokens"])
+        else:
+            extra = batch.get("extra_embeds")
+            logits, aux = transformer.forward(values, cfg, batch["tokens"],
+                                              extra_embeds=extra,
+                                              attention=attention)
+            logits = logits[:, cfg.frontend_len if extra is not None else 0:]
         tgt, mask = batch["tokens"], batch["loss_mask"]
         return cross_entropy(logits[:, :-1], tgt[:, 1:], mask[:, 1:],
                              z_loss=cfg.z_loss) + aux
@@ -75,23 +84,34 @@ class Model:
     # -- serving -------------------------------------------------------------
     def prefill(self, values, batch, *, s_alloc: int,
                 cache_dtype=torch.bfloat16):
+        cfg = self.cfg
+        if cfg.family == "encdec":
+            return encdec.prefill(values, cfg, batch["frames"],
+                                  batch["tokens"], s_alloc=s_alloc,
+                                  cache_dtype=cache_dtype)
         return transformer.prefill(
-            values, self.cfg, batch["tokens"], s_alloc=s_alloc,
+            values, cfg, batch["tokens"], s_alloc=s_alloc,
             cache_dtype=cache_dtype, extra_embeds=batch.get("extra_embeds"))
 
-    def init_cache(self, batch_size: int, s_alloc: int, *,
+    def init_cache(self, batch_size: int, s_alloc: int, *, s_cross: int = 0,
                    cache_dtype=torch.bfloat16, device="cuda"):
+        """Zeroed caches; ``s_cross`` is the encoder memory's length
+        (encdec only)."""
+        dev = resolve_device(device)
+        if self.cfg.family == "encdec":
+            return encdec.init_cache(self.cfg, batch_size, s_alloc, s_cross,
+                                     cache_dtype, dev)
         return transformer.init_cache(self.cfg, batch_size, s_alloc,
-                                      cache_dtype, resolve_device(device))
+                                      cache_dtype, dev)
 
     def decode(self, values, cache, tokens, cur_index, *, axis_name=None):
-        return transformer.decode_step(values, self.cfg, cache, tokens,
-                                       cur_index, axis_name=axis_name)
+        return family_module(self.cfg).decode_step(
+            values, self.cfg, cache, tokens, cur_index, axis_name=axis_name)
 
     # -- accounting ----------------------------------------------------------
     def param_count(self) -> int:
         """From shapes alone: no configuration is built to be counted."""
-        return transformer.param_count(self.cfg)
+        return family_module(self.cfg).param_count(self.cfg)
 
     def active_param_count(self) -> int:
         """Activated params per token (MoE: top_k + shared of routed
@@ -107,7 +127,7 @@ class Model:
 
 
 def build_model(cfg) -> Model:
-    """A :class:`Model`; ``NotImplementedError`` for a family the port does
-    not run yet."""
+    """A :class:`Model`; ``NotImplementedError`` for a family or attention
+    that no configuration has (``transformer.check_ported``)."""
     transformer.check_ported(cfg)
     return Model(cfg)

@@ -1,14 +1,18 @@
-"""Decoder-only LM assembly: dense and MoE layers, full or MLA attention.
+"""Decoder-only LM assembly: dense, MoE, hybrid (RG-LRU and local
+attention) and RWKV layers, full, local or MLA attention.
 
-The port of ``repro.models.transformer`` for ``dense_attn`` and
-``moe_attn`` layer groups (deepseek-v3: dense layers, then MoE layers)
-with full (causal, GQA) or MLA attention, and the vision frontend's
-``extra_embeds`` prepended to the tokens: ``init_params``, ``forward``
-(teacher-forced logits and the MoE aux loss), ``init_cache`` (k/v, or
-MLA's compressed ``ckv``/``krope``), ``prefill`` (forward + cache
-emission) and ``decode_step`` (one token).  Parameters and caches keep
-the JAX package's nested dicts, each group stacked on a leading layers
-axis.
+The port of ``repro.models.transformer``: ``init_params``, ``forward``
+(teacher-forced logits and the MoE aux loss), ``init_cache`` (k/v,
+MLA's compressed ``ckv``/``krope``, a ring of ``window + 128`` slots for
+local attention, the RG-LRU's ``h``/``conv`` and RWKV's ``S``/``x_tm``/
+``x_cm`` states), ``prefill`` (forward + cache emission) and
+``decode_step`` (one token), with the vision frontend's
+``extra_embeds`` prepended to the tokens.  Layer groups are the JAX
+package's ``cfg.layer_groups()``: one block type, or a ``pattern:``
+of several (recurrentgemma: ``rec, rec, attn`` repeated, then the
+remainder).  Parameters and caches keep the JAX package's nested dicts,
+each group stacked on a leading layers axis, one ``sub<i>`` per block
+of the pattern.  The encoder-decoder family is ``encdec.py``.
 
 What differs from the JAX package, and why:
 
@@ -16,8 +20,8 @@ What differs from the JAX package, and why:
     parameters.  ``scan_layers`` shapes what XLA compiles and is read
     nowhere here.  ``forward`` honours ``remat`` as the JAX package's
     ``jax.checkpoint`` of each layer: ``"full"`` (every config's
-    default) runs each layer under ``torch.utils.checkpoint`` where a
-    gradient is wanted, so the backward recomputes the layer, kernel F
+    default) runs each block under ``torch.utils.checkpoint`` where a
+    gradient is wanted, so the backward recomputes the block, kernel F
     included; ``"none"`` keeps every activation.  The named-residual
     policies ``"dots"`` and ``"save_block_io"`` raise
     ``NotImplementedError`` (ROADMAP.md Queue 1, item 23).
@@ -33,9 +37,6 @@ What differs from the JAX package, and why:
     model mesh (ROADMAP.md Queue 1, item 14).
   * The expert-parallel MoE (``apply_moe_sharded``) comes with the model
     mesh too; off a mesh the JAX package runs ``apply_moe``, as here.
-  * Other block types and families (``rec`` and local attention,
-    ``rwkv``, ``encdec``) raise ``NotImplementedError`` (ROADMAP.md
-    Queue 1, items 18-20).
 """
 from __future__ import annotations
 
@@ -46,114 +47,110 @@ from torch.utils.checkpoint import checkpoint
 
 from . import attention as attn
 from . import moe as moe_mod
+from . import rglru as rglru_mod
+from . import rwkv6 as rwkv_mod
 from .layers import (
-    RopeTables, Spec, apply_mlp, count, embed_tokens, init_embeddings, init_mlp,
-    materialize, rmsnorm, rope_tables, torch_dtype, tree_map, unembed,
+    RopeTables, Spec, Stacked, apply_mlp, embed_tokens, init_embeddings,
+    init_mlp, model_count, model_materialize, model_shapes, rmsnorm,
+    rope_tables, torch_dtype, unembed,
 )
 
 #: leaves a norm reads in f32: never cast to the compute dtype
-NORM_KEYS = frozenset({"ln1", "ln2", "ln_f", "q_norm", "k_norm", "kv_norm"})
+NORM_KEYS = frozenset({"ln1", "ln2", "ln_f", "q_norm", "k_norm", "kv_norm",
+                       "ln_x", "ln_enc"})
 #: leaves the JAX package reads at their stored precision, whatever the
 #: compute dtype, so :func:`compute_params` keeps them as stored: the
 #: norms; the MoE router, which ``apply_moe`` casts to f32 (a bf16 copy of
 #: f32 master parameters would move the logits, and with them the top-k);
-#: MLA's ``wkv_b``, which the absorbed decode reads in f32
-KEEP_STORED = NORM_KEYS | {"router", "wkv_b"}
+#: MLA's ``wkv_b``, which the absorbed decode reads in f32; the RG-LRU's
+#: ``lam`` and RWKV's ``decay``, ``bonus`` and output norm, read in f32
+KEEP_STORED = NORM_KEYS | {"router", "wkv_b", "lam", "decay", "bonus",
+                           "ln_x_scale", "ln_x_bias"}
 
-#: where what this port refuses is planned (ROADMAP.md Queue 1)
-_ROADMAP_LOCAL = "ROADMAP.md Queue 1, item 18 (local and hybrid)"
-_ROADMAP_FAMILY = {"hybrid": _ROADMAP_LOCAL,
-                   "rwkv": "ROADMAP.md Queue 1, item 19 (rwkv)",
-                   "encdec": "ROADMAP.md Queue 1, item 20 (encdec)"}
+FAMILIES = ("decoder", "hybrid", "rwkv", "encdec")
+ATTENTIONS = ("full", "local", "mla")
 
 
 def check_ported(cfg) -> None:
-    """Raise ``NotImplementedError`` unless ``cfg`` is a decoder with full
-    or MLA attention (dense or MoE layers, with or without the vision
-    frontend): the families this port runs so far."""
-    why = None
-    if cfg.family != "decoder":
-        why = (f"family {cfg.family!r}", _ROADMAP_FAMILY.get(
-            cfg.family, "no ROADMAP.md item"))
-    elif cfg.attention not in ("full", "mla"):
-        why = (f"{cfg.attention!r} attention", _ROADMAP_LOCAL)
-    elif cfg.frontend not in ("none", "vision"):
-        why = (f"the {cfg.frontend} frontend", _ROADMAP_FAMILY["encdec"])
-    elif cfg.block_pattern:
-        why = (f"block pattern {cfg.block_pattern}", _ROADMAP_LOCAL)
-    if why is not None:
+    """Raise ``NotImplementedError`` for a family or attention that no
+    configuration of the JAX package has (:data:`FAMILIES`,
+    :data:`ATTENTIONS`): the port runs every one it has."""
+    if cfg.family not in FAMILIES or cfg.attention not in ATTENTIONS:
         raise NotImplementedError(
-            f"{cfg.name}: {why[0]} is not ported yet; the port runs decoders "
-            f"with full or MLA attention, dense or MoE ({why[1]})")
+            f"{cfg.name}: family {cfg.family!r} with {cfg.attention!r} "
+            f"attention; the port runs the families {FAMILIES} with "
+            f"{ATTENTIONS} attention")
+
+
+def _group_block_types(group_type: str) -> list[str]:
+    """The block types of one layer of a group: ``pattern:a,b,c`` or one
+    type."""
+    if group_type.startswith("pattern:"):
+        return group_type.split(":", 1)[1].split(",")
+    return [group_type]
+
+
+def is_local(cfg, block_type: str) -> bool:
+    """Whether an attention block attends within ``cfg.window`` (local
+    attention, or a hybrid's ``attn`` block with a window), the JAX
+    package's rule."""
+    return cfg.attention == "local" or (block_type == "attn"
+                                        and bool(cfg.window))
 
 
 def _block_spec(cfg, block_type: str) -> dict:
-    if block_type not in ("dense_attn", "moe_attn"):
-        raise NotImplementedError(
-            f"block type {block_type!r} is not ported ({_ROADMAP_LOCAL})")
-    p = {
-        "ln1": Spec((cfg.d_model,), "zeros"),
-        "ln2": Spec((cfg.d_model,), "zeros"),
-        "attn": (attn.init_mla(cfg) if cfg.attention == "mla"
-                 else attn.init_attention(cfg)),
-    }
-    if block_type == "moe_attn":
-        p["moe"] = moe_mod.init_moe(cfg)
+    p = {"ln1": Spec((cfg.d_model,), "zeros"),
+         "ln2": Spec((cfg.d_model,), "zeros")}
+    if block_type in ("dense_attn", "moe_attn", "attn"):
+        p["attn"] = (attn.init_mla(cfg) if cfg.attention == "mla"
+                     else attn.init_attention(cfg))
+        if block_type == "moe_attn":
+            p["moe"] = moe_mod.init_moe(cfg)
+        else:
+            d_ff = cfg.d_ff
+            if cfg.moe is not None and cfg.moe.first_dense_layers:
+                d_ff = cfg.moe.d_ff_dense or cfg.d_ff
+            p["mlp"] = init_mlp(cfg.d_model, d_ff, cfg.act)
+    elif block_type == "rec":
+        p["rec"] = rglru_mod.init_rglru_block(cfg)
+        p["mlp"] = init_mlp(cfg.d_model, cfg.d_ff, cfg.act)
+    elif block_type == "rwkv":
+        p["tm"] = rwkv_mod.init_rwkv_time_mix(cfg)
+        p["cm"] = rwkv_mod.init_rwkv_channel_mix(cfg)
     else:
-        d_ff = cfg.d_ff
-        if cfg.moe is not None and cfg.moe.first_dense_layers:
-            d_ff = cfg.moe.d_ff_dense or cfg.d_ff
-        p["mlp"] = init_mlp(cfg.d_model, d_ff, cfg.act)
+        raise ValueError(f"unknown block type {block_type!r}")
     return p
 
 
 def param_specs(cfg) -> dict:
-    """``{"embed", "ln_f", "group<i>": (layer spec, n_layers)}``; a layer
-    spec is ``{"sub0": block}``, the JAX package's layout for a group of
-    one block type (deepseek-v3: ``dense_attn`` layers, then
-    ``moe_attn``)."""
+    """``{"embed", "ln_f", "group<i>": Stacked(layer spec, n_layers)}``; a
+    layer spec is ``{"sub<i>": block}``, one block per type of the group's
+    pattern, the JAX package's layout (deepseek-v3: ``dense_attn``
+    layers, then ``moe_attn``; recurrentgemma: ``rec, rec, attn``
+    layers, then ``rec, rec``)."""
     check_ported(cfg)
     p = {"embed": init_embeddings(cfg),
          "ln_f": Spec((cfg.d_model,), "zeros")}
     for gi, (gt, n) in enumerate(cfg.layer_groups()):
-        p[f"group{gi}"] = ({"sub0": _block_spec(cfg, gt)}, n)
+        p[f"group{gi}"] = Stacked({f"sub{i}": _block_spec(cfg, bt) for i, bt
+                                   in enumerate(_group_block_types(gt))}, n)
     return p
 
 
 def param_count(cfg) -> int:
     """Parameters of ``cfg``, from shapes alone (nothing allocated)."""
-    total = 0
-    for name, spec in param_specs(cfg).items():
-        if name.startswith("group"):
-            total += count(spec[0], spec[1])
-        else:
-            total += count(spec)
-    return total
+    return model_count(param_specs(cfg))
 
 
 def param_shapes(cfg) -> dict:
     """Every parameter's shape, stacked groups with their layers axis."""
-    out = {}
-    for name, spec in param_specs(cfg).items():
-        if name.startswith("group"):
-            tree, n = spec
-            out[name] = tree_map(lambda s: (n,) + tuple(s.shape), tree)
-        else:
-            out[name] = tree_map(lambda s: tuple(s.shape), spec)
-    return out
+    return model_shapes(param_specs(cfg))
 
 
 def init_params(cfg, generator: torch.Generator, device) -> dict:
     """Draw every parameter in ``cfg.param_dtype`` on ``device``."""
-    dtype = torch_dtype(cfg.param_dtype)
-    out = {}
-    for name, spec in param_specs(cfg).items():
-        if name.startswith("group"):
-            tree, n = spec
-            out[name] = materialize(tree, generator, device, dtype, n)
-        else:
-            out[name] = materialize(spec, generator, device, dtype)
-    return out
+    return model_materialize(param_specs(cfg), generator, device,
+                             torch_dtype(cfg.param_dtype))
 
 
 def compute_params(params, cfg) -> dict:
@@ -251,16 +248,48 @@ def _ffn(p, h, cfg, block_type: str):
     (0 for a dense block)."""
     if block_type == "moe_attn":
         return moe_mod.apply_moe(p["moe"], h, cfg)
-    return (apply_mlp(p["mlp"], h, cfg.act),
-            torch.zeros((), dtype=torch.float32, device=h.device))
+    return apply_mlp(p["mlp"], h, cfg.act), _zero_aux(h)
+
+
+def _zero_aux(x):
+    return torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def _write_state(cache, new: dict) -> None:
+    """A recurrent block's new state into its cache views, in place."""
+    for k, v in new.items():
+        cache[k].copy_(v)
+
+
+def _apply_recurrent(p, x, cfg, block_type: str, state):
+    """A ``rec`` or ``rwkv`` block over x (B, S, d) from ``state`` (the
+    layer's cache views, or None: zeros), which it overwrites with the
+    state after the last step.  Returns x."""
+    h = rmsnorm(x, p["ln1"], cfg.norm_eps)
+    if block_type == "rec":
+        r, new = rglru_mod.rglru_block(p["rec"], h, cfg, state=state)
+        x, h = _add_then_norm(x, r, p["ln2"], cfg.norm_eps)
+        x = x + apply_mlp(p["mlp"], h, cfg.act)
+    else:
+        st = state if state is not None else rwkv_mod.init_rwkv_state(
+            cfg, x.shape[0], x.device)
+        t, tstate = rwkv_mod.time_mix(p["tm"], h, cfg, st)
+        x, h = _add_then_norm(x, t, p["ln2"], cfg.norm_eps)
+        c, cstate = rwkv_mod.channel_mix(p["cm"], h, st)
+        x = x + c
+        new = {**tstate, **cstate}
+    if state is not None:
+        _write_state(state, new)
+    return x
 
 
 def _apply_block_seq(p, x, cfg, block_type: str, pos: _Positions, cache,
                      attention=None):
-    """Full-sequence application of a ``dense_attn`` or ``moe_attn``
-    block; ``cache`` is None (forward) or the layer's cache views,
-    written in place; ``attention`` as :func:`forward`'s.  Returns (x,
-    aux)."""
+    """Full-sequence application of one block; ``cache`` is None
+    (forward) or the layer's cache views, written in place; ``attention``
+    as :func:`forward`'s.  Returns (x, aux)."""
+    if block_type in ("rec", "rwkv"):
+        return _apply_recurrent(p, x, cfg, block_type, cache), _zero_aux(x)
     h = rmsnorm(x, p["ln1"], cfg.norm_eps)
     if cfg.attention == "mla":
         parts = attn._mla_qkv(p["attn"], h, cfg, pos.rope)
@@ -273,8 +302,9 @@ def _apply_block_seq(p, x, cfg, block_type: str, pos: _Positions, cache,
         q, k, v = attn._project_qkv(p["attn"], h, cfg, pos.rope)
         a = (attention or attn.flash_attention)(
             q, k, v, q_positions=pos.host, k_positions=pos.host,
-            mask_mode="causal", window=cfg.window,
-            q_chunk=cfg.attn_q_chunk, k_chunk=cfg.attn_k_chunk,
+            mask_mode="local" if is_local(cfg, block_type) else "causal",
+            window=cfg.window, q_chunk=cfg.attn_q_chunk,
+            k_chunk=cfg.attn_k_chunk,
         )
         a = attn._out_proj(a, p["attn"]["wo"])
         if cache is not None:
@@ -284,14 +314,23 @@ def _apply_block_seq(p, x, cfg, block_type: str, pos: _Positions, cache,
     return x + f, aux
 
 
+def _write_slot(cur_index: int, alloc: int, local: bool) -> int:
+    """The cache slot of position ``cur_index``: ``pos % alloc`` in a
+    local layer's ring, else ``cur_index``, clamped as
+    ``dynamic_update_slice`` clamps its start so the update fits."""
+    return cur_index % alloc if local else min(cur_index, alloc - 1)
+
+
 def _apply_block_decode(p, x, cfg, block_type: str, cache, cur_index: int,
                         rope):
     """One-token application; x: (B, 1, d); ``cache`` written in place."""
+    if block_type in ("rec", "rwkv"):
+        return _apply_recurrent(p, x, cfg, block_type, cache)
     h = rmsnorm(x, p["ln1"], cfg.norm_eps)
+    local = is_local(cfg, block_type)
     if cfg.attention == "mla":
         parts = attn._mla_qkv(p["attn"], h, cfg, rope)
-        # dynamic_update_slice clamps its start so the update fits
-        wslot = min(cur_index, cache["ckv"].shape[1] - 1)
+        wslot = _write_slot(cur_index, cache["ckv"].shape[1], local)
         cache["ckv"][:, wslot].copy_(parts.c_kv[:, 0])
         cache["krope"][:, wslot].copy_(parts.k_rope[:, 0, 0])
         cache["pos"][wslot] = cur_index
@@ -301,12 +340,13 @@ def _apply_block_decode(p, x, cfg, block_type: str, cache, cur_index: int,
             nope_dim=cfg.mla.qk_nope_head_dim, scale=attn.mla_scale(cfg))
     else:
         q, k, v = attn._project_qkv(p["attn"], h, cfg, rope)
-        wslot = min(cur_index, cache["k"].shape[1] - 1)
+        wslot = _write_slot(cur_index, cache["k"].shape[1], local)
         cache["k"][:, wslot].copy_(k[:, 0])
         cache["v"][:, wslot].copy_(v[:, 0])
         cache["pos"][wslot] = cur_index
-        part = attn.decode_attention_gqa(q[:, 0], cache["k"], cache["v"],
-                                         cache["pos"], q_position=cur_index)
+        part = attn.decode_attention_gqa(
+            q[:, 0], cache["k"], cache["v"], cache["pos"],
+            window=cfg.window if local else 0, q_position=cur_index)
     o = attn.combine_partials(part, None)
     a = attn._out_proj(o.to(x.dtype), p["attn"]["wo"])
     x, h = _add_then_norm(x, a[:, None], p["ln2"], cfg.norm_eps)
@@ -315,12 +355,16 @@ def _apply_block_decode(p, x, cfg, block_type: str, cache, cur_index: int,
 
 
 def _layers(params, cfg, caches=None):
-    """(block type, layer params, layer cache views or None) in order."""
+    """(block type, block params, block cache views or None) in order:
+    each layer of each group, each block of its pattern."""
     for gi, (gt, n) in enumerate(cfg.layer_groups()):
+        subs = _group_block_types(gt)
         ps = _unstack(params[f"group{gi}"], n)
         cs = [None] * n if caches is None else _unstack(caches[f"group{gi}"], n)
         for p_l, c_l in zip(ps, cs):
-            yield gt, p_l["sub0"], (None if c_l is None else c_l["sub0"])
+            for i, bt in enumerate(subs):
+                yield (bt, p_l[f"sub{i}"],
+                       None if c_l is None else c_l[f"sub{i}"])
 
 
 # ---------------------------------------------------------------------------
@@ -371,25 +415,41 @@ def forward(params, cfg, tokens, *, extra_embeds=None, attention=None):
     return logits, aux
 
 
+def _cache_block(cfg, block_type: str, n: int, batch: int, s_alloc: int,
+                 dtype, device) -> dict:
+    """One block's cache, stacked over the group's ``n`` layers."""
+    if block_type == "rec":
+        return rglru_mod.init_rglru_state(cfg, batch, dtype, device, n)
+    if block_type == "rwkv":
+        return rwkv_mod.init_rwkv_state(cfg, batch, device, n)
+    alloc = (min(s_alloc, cfg.window + 128) if is_local(cfg, block_type)
+             else s_alloc)
+    if cfg.attention == "mla":
+        m = cfg.mla
+        shapes = {"ckv": (n, batch, alloc, m.kv_lora_rank),
+                  "krope": (n, batch, alloc, m.qk_rope_head_dim)}
+    else:
+        shape = (n, batch, alloc, cfg.n_kv_heads, cfg.hd())
+        shapes = {"k": shape, "v": shape}
+    cache = {k: torch.zeros(s, dtype=dtype, device=device)
+             for k, s in shapes.items()}
+    cache["pos"] = torch.full((n, alloc), -1, dtype=torch.int32,
+                              device=device)
+    return cache
+
+
 def init_cache(cfg, batch: int, s_alloc: int, dtype=torch.bfloat16,
                device="cpu") -> dict:
-    """Zeroed caches with every position -1 (empty): k/v per kv head, or
-    MLA's compressed ``ckv``/``krope``."""
+    """Zeroed caches with every position -1 (empty): k/v per kv head (a
+    ring of ``min(s_alloc, window + 128)`` slots in a local layer), or
+    MLA's compressed ``ckv``/``krope``; zeroed recurrent states (f32, the
+    RG-LRU's conv tail in ``dtype``)."""
     check_ported(cfg)
     caches = {}
-    for gi, (_, n) in enumerate(cfg.layer_groups()):
-        if cfg.attention == "mla":
-            m = cfg.mla
-            shapes = {"ckv": (n, batch, s_alloc, m.kv_lora_rank),
-                      "krope": (n, batch, s_alloc, m.qk_rope_head_dim)}
-        else:
-            shape = (n, batch, s_alloc, cfg.n_kv_heads, cfg.hd())
-            shapes = {"k": shape, "v": shape}
-        cache = {k: torch.zeros(s, dtype=dtype, device=device)
-                 for k, s in shapes.items()}
-        cache["pos"] = torch.full((n, s_alloc), -1, dtype=torch.int32,
-                                  device=device)
-        caches[f"group{gi}"] = {"sub0": cache}
+    for gi, (gt, n) in enumerate(cfg.layer_groups()):
+        caches[f"group{gi}"] = {
+            f"sub{i}": _cache_block(cfg, bt, n, batch, s_alloc, dtype, device)
+            for i, bt in enumerate(_group_block_types(gt))}
     return caches
 
 

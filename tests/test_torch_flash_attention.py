@@ -11,6 +11,14 @@ N(0, 1) from numpy seeds.  Tolerances: 2e-5 in f32 (the TPU test's bound:
 both sides sum in f32 in another order), 0.05 in bf16 (the TPU test's
 bound: a few bf16 steps of outputs of about unit size).
 
+The causal band (``window``, the JAX package's ``mask_mode="local"``)
+is held against the jnp ``flash_attention`` at windows 1, 7, 64 and
+beyond S, on ragged S, and its tile arithmetic (``_key_tiles``,
+``_tile_needs_mask``: the source's ``first_key_tile``, ``k_end`` and
+bf16 tile-mask expressions in Python) against a numpy model of the mask:
+every valid (q, k) pair lies in a visited tile, and every visited tile
+that holds an invalid pair is masked.
+
 On a card, bf16 runs the tensor-core route, which rounds p to bf16 for
 P.V.  Its plain numerics, ``ref.flash_attention_ref_bf16p``, are held
 against the TPU kernel (0.05) and against the f32 plain version within
@@ -58,6 +66,7 @@ def _err(a, b) -> float:
     (1, 8, 8, 256, 32, True, 128),
     (2, 4, 1, 64, 128, False, 32),
     (1, 2, 2, 96, 16, True, 32),   # non-power-of-two S
+    (1, 4, 1, 128, 256, True, 64),  # recurrentgemma's head dim, MQA
 ])
 def test_wrapper_matches_tpu_kernel_f32(shape):
     B, H, Hkv, S, d, causal, qb = shape
@@ -291,3 +300,177 @@ def test_bf16_route_refuses_rows_off_16_byte_boundaries():
     q = flat[1:64 * 32 + 1].view(1, 1, 64, 32)
     got = fa.flash_attention(q, q, q)            # the CPU path: no refusal
     assert got.shape == q.shape
+
+
+# ---------------------------------------------------------------------------
+# the causal band (local attention) and d = 256
+# ---------------------------------------------------------------------------
+
+def _jnp_local(q, k, v, window, chunk=32):
+    """The JAX package's jnp flash attention, mask_mode="local", in F's
+    (B, H, S, d) layout."""
+    S = q.shape[2]
+    return j_attn.flash_attention(
+        *(jnp.asarray(a).transpose(0, 2, 1, 3) for a in (q, k, v)),
+        q_positions=jnp.arange(S), k_positions=jnp.arange(S),
+        mask_mode="local", window=window, q_chunk=chunk,
+        k_chunk=chunk).transpose(0, 2, 1, 3)
+
+
+@pytest.mark.parametrize("S,window", [
+    (100, 1), (100, 7), (100, 64), (100, 105),    # window 1 .. past S
+    (37, 7), (130, 64), (200, 37), (70, 70),
+])
+def test_band_plain_versions_match_jnp_local(S, window):
+    """F's plain versions with a window against the JAX package's local
+    attention: f32 within 2e-5; the bf16 route's numerics, on bf16
+    inputs, within 0.05 of the JAX package's bf16."""
+    B, H, Hkv, d = 1, 4, 2, 32
+    rng = np.random.default_rng(S * 7 + window)
+    q = _normal(rng, (B, H, S, d))
+    k, v = _normal(rng, (B, Hkv, S, d)), _normal(rng, (B, Hkv, S, d))
+    got = fa.flash_attention(*(torch.from_numpy(a) for a in (q, k, v)),
+                             window=window)
+    assert _err(got, _jnp_local(q, k, v, window)) < F32_TOL
+    bq, bk, bv = (jnp.asarray(a, jnp.bfloat16) for a in (q, k, v))
+    want = _jnp_local(bq, bk, bv, window)
+    got = ref.flash_attention_ref_bf16p(
+        *(torch.from_numpy(a).to(torch.bfloat16) for a in (q, k, v)),
+        window=window)
+    assert got.dtype == torch.bfloat16 and _err(got, want) < BF16_TOL
+
+
+@pytest.mark.parametrize("S", [1, 64, 100])
+def test_band_wider_than_s_is_causal(S):
+    """A window at or past S masks nothing the causal mask keeps: the same
+    arithmetic, the same bits, on both plain versions."""
+    rng = np.random.default_rng(S)
+    q, k, v = (torch.from_numpy(_normal(rng, (1, 2, S, 16)))
+               for _ in range(3))
+    for window in (S, S + 1, 4096):
+        assert torch.equal(fa.flash_attention(q, k, v, window=window),
+                           fa.flash_attention(q, k, v))
+        assert torch.equal(ref.flash_attention_ref_bf16p(q, k, v,
+                                                         window=window),
+                           ref.flash_attention_ref_bf16p(q, k, v))
+
+
+#: q rows per block and keys per K/V tile (kBM, kBN in the source)
+Q_TILE = KEY_TILE = ref.FLASH_KEY_TILE
+
+
+def _key_tiles(q0: int, Sk: int, causal: bool, window: int) -> range:
+    """First keys of the K/V tiles that the block of q rows ``[q0, q0 +
+    Q_TILE)`` visits: the source's ``first_key_tile`` up to ``k_end``."""
+    first = max(0, q0 - window + 1) // KEY_TILE * KEY_TILE if window else 0
+    end = min(Sk, q0 + Q_TILE) if causal else Sk
+    return range(first, end, KEY_TILE)
+
+
+def _tile_needs_mask(k0: int, wrow: int, Sk: int, causal: bool,
+                     window: int) -> bool:
+    """The bf16 route's test whether the tile of keys ``[k0, k0 +
+    KEY_TILE)`` is masked for the warp of rows ``[wrow, wrow + 16)`` (the
+    f32 route masks every tile)."""
+    return ((causal and k0 + KEY_TILE - 1 > wrow)
+            or (window > 0 and k0 <= wrow + 15 - window)
+            or k0 + KEY_TILE > Sk)
+
+
+def _valid(rows, keys, Sk, causal, window):
+    """bool[rows, keys]: the kernel's mask, in numpy."""
+    diff = rows[:, None] - keys[None, :]
+    ok = keys[None, :] < Sk
+    if causal:
+        ok = ok & (diff >= 0)
+    if window:
+        ok = ok & (diff < window)
+    return ok
+
+
+@pytest.mark.parametrize("Sq,Sk,causal,window", [
+    (Sq, Sq, True, w)
+    for Sq in (1, 15, 64, 65, 200, 700, 2560)
+    for w in (1, 7, 16, 37, 63, 64, 65, 128, 2048, 5000)
+] + [(300, 700, False, 0), (700, 300, True, 0), (130, 130, True, 0)])
+def test_band_tile_plan_visits_every_valid_pair_and_masks_the_rest(
+        Sq, Sk, causal, window):
+    """For each 64-row block of q: the keys of the tiles it visits cover
+    every valid pair of its rows, and each of its four 16-row warps masks
+    every visited tile that holds an invalid pair for one of its rows
+    (keys past Sk included)."""
+    T = KEY_TILE
+    for q0 in range(0, Sq, Q_TILE):
+        tiles = list(_key_tiles(q0, Sk, causal, window))
+        assert tiles == sorted(set(tiles)) and all(t % T == 0 for t in tiles)
+        rows = np.arange(q0, min(q0 + Q_TILE, Sq))
+        keys = np.arange(Sk)
+        seen = np.zeros(Sk, bool)
+        for k0 in tiles:
+            seen[k0:k0 + T] = True
+        valid = _valid(rows, keys, Sk, causal, window)
+        assert not (valid & ~seen[None, :]).any(), (q0, tiles)
+        for wrow in range(q0, q0 + Q_TILE, 16):
+            wrows = np.arange(wrow, wrow + 16)
+            for k0 in tiles:
+                tile_keys = np.arange(k0, k0 + T)
+                if not _valid(wrows, tile_keys, Sk, causal, window).all():
+                    assert _tile_needs_mask(k0, wrow, Sk, causal, window), \
+                        (q0, wrow, k0)
+        if window:      # the band visits about window / 64 + 2 tiles
+            assert len(tiles) <= (window + 2 * T - 2) // T + 1
+
+
+def test_wrapper_checks_head_dim_256_and_window_on_meta():
+    """On ``meta`` tensors (the card's route up to the launch): d = 256
+    and a band pass the wrapper's checks (the meta device itself is then
+    refused); a negative window, a band without ``causal`` and a head dim
+    past 256 are refused; the model's local attention with window < 1
+    raises, with window >= 1 it reaches the wrapper."""
+    q = torch.empty(1, 16, 40, 256, device="meta")
+    k = torch.empty(1, 1, 40, 256, device="meta")
+    with pytest.raises(ValueError, match="unsupported device meta"):
+        fa.flash_attention(q, k, k)
+    with pytest.raises(ValueError, match="unsupported device meta"):
+        fa.flash_attention(q, k, k, window=2048)
+    for window, causal in ((-1, True), (8, False)):
+        with pytest.raises(ValueError, match="window"):
+            fa.flash_attention(q, k, k, causal=causal, window=window)
+    wide = torch.empty(1, 1, 40, 320, device="meta")
+    with pytest.raises(ValueError, match="head dim"):
+        fa.flash_attention(wide, wide, wide)
+    mq = q.transpose(1, 2)
+    mk = k.transpose(1, 2)
+    pos = torch.arange(40, dtype=torch.int32)
+    call = dict(q_positions=pos, k_positions=pos, mask_mode="local")
+    for window in (0, -3):
+        with pytest.raises(ValueError, match="window"):
+            t_attn.flash_attention(mq, mk, mk, window=window, **call)
+    with pytest.raises(ValueError, match="unsupported device meta"):
+        t_attn.flash_attention(mq, mk, mk, window=32, **call)
+
+
+@pytest.mark.parametrize("window", [0, 9])
+def test_autograd_function_carries_the_band(window):
+    """``FlashAttention`` (F with a gradient) on CPU tensors: the forward
+    within 2e-5 of the plain version under the same mask (the wrapper's
+    plain version chunks by 1,024, this one by 16), and the gradients,
+    which recompute it at the call's chunks, equal to autograd through
+    it."""
+    rng = np.random.default_rng(50 + window)
+    B, S, H, Hkv, d = 1, 40, 4, 2, 16
+    base = [torch.from_numpy(_normal(rng, (B, S, h, d))) for h in
+            (H, Hkv, Hkv)]
+    a = [t.clone().requires_grad_() for t in base]
+    b = [t.clone().requires_grad_() for t in base]
+    out = t_attn.FlashAttention.apply(*a, True, 16, 16, window)
+    pos = torch.arange(S)
+    want = t_attn.flash_attention_plain(
+        *b, q_positions=pos, k_positions=pos,
+        mask_mode="local" if window else "causal", window=window,
+        q_chunk=16, k_chunk=16)
+    assert _err(out.detach(), want.detach()) < F32_TOL
+    g = torch.from_numpy(_normal(rng, tuple(out.shape)))
+    for x, y in zip(torch.autograd.grad(out, a, g),
+                    torch.autograd.grad(want, b, g)):
+        assert torch.equal(x, y)

@@ -199,8 +199,8 @@ def test_padded_v_through_plain_f_equals_unpadded_attention(causal):
 def test_card_route_pads_v_and_refuses_other_mismatches(vd, scale, ok):
     """On a non-CPU tensor (``meta``: the card's route up to the launch),
     v head dims up to qk's at the default scale reach kernel F's wrapper
-    (which refuses the meta device itself); other dims or scales raise
-    ``NotImplementedError``."""
+    (which refuses the meta device itself), with the local band too;
+    other dims or scales raise ``NotImplementedError``."""
     B, S, H = 1, 8, 2
     q = torch.empty(B, S, H, 192, device="meta")
     v = torch.empty(B, S, H, vd, device="meta")
@@ -213,14 +213,19 @@ def test_card_route_pads_v_and_refuses_other_mismatches(vd, scale, ok):
     else:
         with pytest.raises(NotImplementedError, match="head dim"):
             t_attn.flash_attention(q, q, v, **call)
-    with pytest.raises(NotImplementedError, match="item 18"):
-        t_attn.flash_attention(q, q, v, **{**call, "mask_mode": "local"})
+    local = {**call, "mask_mode": "local", "window": 4}
+    if ok:
+        with pytest.raises(ValueError, match="unsupported device meta"):
+            t_attn.flash_attention(q, q, v, **local)
+    else:
+        with pytest.raises(NotImplementedError, match="head dim"):
+            t_attn.flash_attention(q, q, v, **local)
 
 
 def test_flash_wrapper_takes_head_dim_192():
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref
-    assert 192 in fa.HEAD_DIMS and 256 not in fa.HEAD_DIMS
+    assert 192 in fa.HEAD_DIMS and 256 in fa.HEAD_DIMS
     rng = np.random.default_rng(24)
     q, k, v = (torch.from_numpy(rng.normal(size=(1, 2, 70, 192)).astype(
         np.float32)) for _ in range(3))

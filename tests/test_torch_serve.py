@@ -8,8 +8,8 @@ f32 cache: the two packages sum in another order, logits are of unit
 size); 0.06 in the configs' own bf16, the JAX package's own bound for
 decode against forward (``tests/test_models_smoke.py``); greedy tokens
 equal in f32.  Also: configs equal field for field, parameter counts
-equal, the serve entry point's dict on the CPU, and refusals of what is not
-ported.
+equal, the serve entry point's dict on the CPU, and the refusal of a
+family or attention that no config has.
 """
 import dataclasses
 
@@ -206,27 +206,18 @@ def test_serve_main_on_the_cpu():
         t_serve.main(["--reduced", "--device", "cpu", "--mesh-shape", "2,1"])
 
 
-#: the families still unported, each with its ROADMAP.md item (MoE, MLA
-#: and the vision frontend: tests/test_torch_mla_vision.py)
-UNPORTED = {"recurrentgemma-9b": "item 18", "rwkv6-3b": "item 19",
-            "seamless-m4t-medium": "item 20"}
-
-
-@pytest.mark.parametrize("arch", sorted(UNPORTED))
-def test_unported_family_raises(arch):
-    with pytest.raises(NotImplementedError, match=UNPORTED[arch]):
-        build_model(t_configs.get_config(arch))
-    with pytest.raises(NotImplementedError, match=UNPORTED[arch]):
-        build_model(t_configs.get_config(arch).reduced())
-
-
-def test_local_attention_and_extra_embeds_raise():
-    """Local attention is refused (item 18); ``extra_embeds`` are ported
-    with the vision frontend (tests/test_torch_mla_vision.py)."""
+@pytest.mark.parametrize("field,value", [("family", "moe_only"),
+                                         ("attention", "linear")])
+def test_family_or_attention_no_config_has_raises(field, value):
+    """Every family and attention of the configs is ported (the hybrid,
+    rwkv and encdec families: tests/test_torch_recurrent.py and
+    tests/test_torch_encdec.py); one that no config has is refused."""
     cfg = dataclasses.replace(t_configs.get_config("qwen3-1.7b").reduced(),
-                              attention="local", window=8)
-    with pytest.raises(NotImplementedError, match="local.*item 18"):
+                              **{field: value})
+    with pytest.raises(NotImplementedError, match=repr(value)):
         build_model(cfg)
+    for arch in t_configs.list_archs():
+        build_model(t_configs.get_config(arch))
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

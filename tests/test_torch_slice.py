@@ -137,8 +137,8 @@ def test_import_walk_covers_every_port_module():
                 "configs/qwen3_1_7b.py", "configs/deepseek_v3_671b.py",
                 "data/tokenizer.py", "models/__init__.py", "models/layers.py",
                 "models/attention.py", "models/transformer.py",
-                "models/moe.py",
-                "models/model.py", "models/convert.py", "serve/__init__.py",
+                "models/moe.py", "models/rglru.py", "models/rwkv6.py",
+                "models/encdec.py", "models/model.py", "models/convert.py", "serve/__init__.py",
                 "serve/engine.py", "launch/__init__.py", "launch/serve.py",
                 "benchmarks/common.py", "benchmarks/bench_end_to_end.py",
                 "benchmarks/bench_micro.py", "benchmarks/bench_cost_model.py",
