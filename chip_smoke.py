@@ -158,6 +158,34 @@ plain version's recompute under autograd in the backward):
   (3) tests/test_train.py's crash at step 6 and resume to step 10, at the
       reduced config, with the checkpoints in a temporary directory.
 
+Then the model mesh, the remat policies, the roofline and the dry run:
+
+  (1) an NCCL process group of one rank (a HashStore) and a (1, 1) mesh:
+      repro_torch.launch.serve.main([... "--mesh-shape", "1,1"]) with the
+      serve path's arguments, DTensor parameters, activations and cache,
+      every layer's attention under local_map on kernel F; the greedy
+      tokens equal the serve path's run without a mesh, 28 F launches per
+      prefill;
+  (2) qwen3-1.7b at full width cut to 4 layers on the mesh against the
+      same model without one: every leaf's f32 gradient within 2e-5 of
+      its max |g|, then two bf16 train steps with grad_specs, each loss
+      and every leaf after them within tests/test_dist.py's 5e-3; F's
+      launches counted over the mesh steps alone, 16 (4 layers x 2 steps,
+      the forward and the recompute);
+  (3) the remat policies at 2 layers at full width in f32: the grads
+      under "dots" and "save_block_io" (and "none") within 2e-5 of each
+      leaf's max |g| of "full", and each policy's peak memory;
+  (4) the serve path's prefill and decode step and the training step
+      against analysis.flops.estimate at the H100's constants
+      (analysis.roofline), beside the MFU line; kernel B's main-batch
+      launch against its bytes bound, with scan_estimate's figure (the
+      reference's jnp traffic, not a bound on B) beside it;
+  (5) python -m repro_torch.launch.dryrun over a fake world of 256 for
+      qwen3-1.7b x train_4k and deepseek-v3-671b x prefill_32k (mesh
+      single), each record read back, and qwen3-1.7b x decode_32k, which
+      reaches the flash-decoding stub as the JAX package's does; these
+      run in their own processes on the host meanwhile.
+
 Kernel C is also held at contiguous row slices off 16 bytes, rows 4-12
 bytes past 16 at W % 4 == 0, the one-block width +- 1 and a bytes-bound
 probe (P=12, W=2,097,152; not a path shape), and measured around its
@@ -2518,13 +2546,19 @@ def train_full_width(dev, card: str) -> dict:
     step_ms = [t * 1e3 for t in res["step_s"]]
     med = statistics.median(step_ms[2:])
     tokens = B * S
-    mfu = 6 * n_params * tokens / (med * 1e-3) / BF16_FLOP_PER_S
+    # MFU: the model's FLOPs (6 N tokens for a train step) over the step
+    # time and the H100's peak, through analysis.roofline's definitions
+    from repro_torch.analysis.roofline import PEAK_FLOPS, model_flops
+    from repro_torch.configs import ShapeConfig
+    mfu = model_flops(cfg, ShapeConfig("train", "train", S, B),
+                      n_params) / (med * 1e-3) / PEAK_FLOPS
     print(f"  (2) {' '.join(TRAIN_ARGS)}: {res['steps_run']} steps in "
           f"{wall:.1f} s (CIAO ingest and init included); step ms "
           + ", ".join(f"{t:.1f}" for t in step_ms)
           + f"; median after the first two {med:.3f} ms, "
-          f"{tokens / (med * 1e-3):.0f} tokens/s, MFU {mfu:.1%} (6 N tokens "
-          f"/ step time / 989 TFLOP/s, N {n_params:,}); peak "
+          f"{tokens / (med * 1e-3):.0f} tokens/s, MFU {mfu:.1%} "
+          f"(analysis.roofline.model_flops, 6 N tokens, / step time / "
+          f"PEAK_FLOPS 989 TFLOP/s, N {n_params:,}); peak "
           f"max_memory_allocated {peak / 2**30:.2f} GiB, reserved "
           f"{reserved / 2**30:.2f} GiB, allocator retries {retries}; {card}")
     print(f"  loss first {res['first_loss']:.4f}, last "
@@ -2634,6 +2668,364 @@ def training(dev, card: str) -> dict:
     out["resume"] = crash_and_resume(out["train"]["param_count"])
     out["flash"] = flash_training_timing(dev)
     _free()
+    return out
+
+
+#: the model mesh phase (PR 25): the train steps' depth and the remat
+#: check's (full width); tolerances from the JAX package's tests
+MESH_TRAIN_LAYERS = 4
+MESH_TRAIN_TOL = 5e-3          # tests/test_dist.py's sharded train step
+MESH_GRAD_TOL = 2e-5           # F's f32 bound, of each leaf's max |g|
+REMAT_TOL = 2e-5               # F's f32 bound, of each leaf's max |g|
+#: dry-run cells, each its own process over a fake world of 256: the
+#: dense decode cell reaches the flash-decoding stub in both packages
+#: (a model axis of 16 divides its 32,896-slot cache), so the dense
+#: train cell gives the dense record
+DRYRUN_CELLS = (("qwen3-1.7b", "decode_32k"), ("qwen3-1.7b", "train_4k"),
+                ("deepseek-v3-671b", "prefill_32k"))
+
+
+def start_dryrun(out_dir: str) -> list:
+    """The dry-run cells, started at once in their own processes (CPU
+    only: meta tensors and a fake process group)."""
+    env = dict(os.environ, PYTHONPATH=SRC, CUDA_VISIBLE_DEVICES="",
+               OMP_NUM_THREADS="1")
+    return [(arch, shape, time.perf_counter(), subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+         "--shape", shape, "--mesh", "single", "--out", out_dir],
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True)) for arch, shape in DRYRUN_CELLS]
+
+
+def finish_dryrun(procs: list, out_dir: str) -> dict:
+    """(5) Each dry-run cell's record read back: device FLOPs, the
+    collective counts, the dominant term, the seconds; the stub cell
+    must fail with the stub's error, as the JAX package's does."""
+    out = {}
+    for arch, shape, t0, p in procs:
+        try:
+            log, _ = p.communicate(timeout=300)
+        finally:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        wall = time.perf_counter() - t0
+        path = os.path.join(out_dir, f"{arch}_{shape}_single.json")
+        if shape == "decode_32k" and arch == "qwen3-1.7b":
+            if p.returncode == 0 or "sharded_decode_attention_gqa" not in log:
+                raise AssertionError(f"dry run {arch} x {shape}: expected "
+                                     f"the flash-decoding stub: {log[-2000:]}")
+            print(f"  (5) {arch} x {shape} x single: raises the "
+                  f"flash-decoding stub (NotImplementedError, "
+                  f"sharded_decode_attention_gqa) as the JAX package's "
+                  f"dry run does; {wall:.1f} s")
+            out[f"{arch}_{shape}"] = {"stub": True, "wall_s": wall}
+            continue
+        if p.returncode != 0 or not os.path.exists(path):
+            raise AssertionError(f"dry run {arch} x {shape}: rc "
+                                 f"{p.returncode}: {log[-3000:]}")
+        with open(path) as f:
+            rec = json.load(f)
+        ro, mem = rec["roofline"], rec["memory_analysis"]
+        if not (ro["device_flops"] > 0 and ro["n_devices"] == 256
+                and sum(ro["collectives"]["counts"].values()) > 0):
+            raise AssertionError(f"dry run record {path}: {rec}")
+        print(f"  (5) {arch} x {shape} x single (256 ranks): device FLOPs "
+              f"{ro['device_flops']:.4e}, bytes {ro['device_bytes']:.4e}, "
+              f"collectives {ro['collectives']['counts']} "
+              f"({ro['collective_bytes']:.4e} B); terms compute "
+              f"{ro['compute_s']:.4e} s, memory {ro['memory_s']:.4e} s, "
+              f"collective {ro['collective_s']:.4e} s -> {ro['dominant']}, "
+              f"roofline_frac {ro['roofline_frac']:.4f}; per rank "
+              f"{mem['argument_bytes'] / 1e9:.3f} GB arguments, "
+              f"{mem['temp_bytes'] / 1e9:.3f} GB saved by autograd (a "
+              f"lower bound); build {rec['lower_s']} s, run "
+              f"{rec['compile_s']} s, process {wall:.1f} s")
+        out[f"{arch}_{shape}"] = {
+            "device_flops": ro["device_flops"], "dominant": ro["dominant"],
+            "collective_counts": ro["collectives"]["counts"],
+            "roofline_frac": ro["roofline_frac"], "wall_s": wall}
+    return out
+
+
+def _one_rank_group():
+    """An NCCL process group of one rank (a ``HashStore``: no address),
+    the mesh's world."""
+    import torch.distributed as dist
+
+    if not dist.is_initialized():
+        dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                                world_size=1)
+
+
+def mesh_serve(serve) -> dict:
+    """(1) ``launch.serve.main --mesh-shape 1,1`` over a one-rank NCCL
+    group: DTensor parameters, activations and cache, attention under
+    ``local_map`` on kernel F; the greedy tokens equal the serve phase's
+    run without a mesh."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import serve as serve_mod
+
+    cfg = get_config(SERVE_ARCH)
+    args = SERVE_ARGS + ["--mesh-shape", "1,1"]
+    # ---- the mesh serve path: counters at 0 just before, read just after
+    torch.cuda.synchronize()
+    _zero_counters()
+    res = serve_mod.main(args)
+    torch.cuda.synchronize()
+    launches = fa.launches
+    # -----------------------------------------------------------------------
+    want = serve["result"]["tokens"]
+    same = bool(torch.equal(res["tokens"].cpu(), want.cpu()))
+    per_prefill = launches / res["prefill_calls"]
+    print(f"  (1) {' '.join(args)} (one-rank NCCL group, (1, 1) mesh, "
+          f"DTensor parameters): prefill {res['prefill_ms']:.3f} ms, decode "
+          f"{res['decode_ms_per_step']:.3f} ms/step (without a mesh: "
+          f"{serve['result']['prefill_ms']:.3f} / "
+          f"{serve['result']['decode_ms_per_step']:.3f}); greedy tokens "
+          f"{tuple(res['tokens'].shape)} equal to the run without a mesh: "
+          f"{same}; kernel F launches {launches} ({per_prefill:g} per "
+          f"prefill, {cfg.n_layers} layers)")
+    if not same or per_prefill != cfg.n_layers:
+        raise AssertionError(f"mesh serve: tokens equal {same}, F launches "
+                             f"{launches}")
+    return {"launches": launches, "prefill_ms": res["prefill_ms"],
+            "decode_ms_per_step": res["decode_ms_per_step"]}
+
+
+def mesh_train(dev) -> dict:
+    """(2) qwen3-1.7b at full width, cut to MESH_TRAIN_LAYERS layers, on
+    the (1, 1) mesh against the same model without one: first every
+    leaf's gradient in f32 (``value_and_grad``) within MESH_GRAD_TOL of
+    its max |g|, then two bf16 train steps with ``grad_specs``, each loss
+    and every leaf after them within MESH_TRAIN_TOL.  Kernel F's launches
+    are counted over the mesh steps alone: one per layer per forward,
+    twice with remat "full"."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import ShapeConfig, get_config, make_batch
+    from repro_torch.dist import sharding as shd
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch.train import make_mesh
+    from repro_torch.models.layers import tree_leaves, tree_map
+    from repro_torch.models.model import build_model
+    from repro_torch.models.transformer import param_axes
+    from repro_torch.train import optimizer as opt_mod
+    from repro_torch.train.train_step import (make_train_step,
+                                              opt_config_for, value_and_grad)
+
+    cfg = dataclasses.replace(get_config(SERVE_ARCH),
+                              n_layers=MESH_TRAIN_LAYERS)
+    mesh = make_mesh("1,1")
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in make_batch(
+        cfg, ShapeConfig("mesh", "train", 256, 8), seed=SEED).items()}
+    b_mesh = tree_map(shd.distribute, batch, shd.batch_shardings(batch, mesh))
+
+    # ---- the gradients, in f32
+    f32 = dataclasses.replace(cfg, compute_dtype="float32")
+    model = build_model(f32)
+    plain = model.init(SEED, device=dev)
+    psh = shd.param_shardings(plain, param_axes(f32), mesh)
+    on_mesh = shd.shard_params(tree_map(torch.clone, plain), psh)
+    loss0, g0 = value_and_grad(model, plain, batch)
+    with shd.use_mesh(mesh):
+        loss1, g1 = value_and_grad(model, on_mesh, b_mesh)
+    torch.cuda.synchronize()
+    grad_err = max(float((a.full_tensor() - b).abs().max() / b.abs().max())
+                   for a, b in zip(tree_leaves(g1), tree_leaves(g0)))
+    grad_loss = abs(float(loss0) - float(loss1.full_tensor()
+                                         if shd.is_dtensor(loss1)
+                                         else loss1))
+    del g0, g1, plain, on_mesh
+    _free()
+
+    # ---- two train steps in bf16
+    model = build_model(cfg)
+    oc = opt_config_for(cfg)
+    plain = model.init(SEED, device=dev)
+    on_mesh = shd.shard_params(tree_map(torch.clone, plain), psh)
+    st_plain, st_mesh = opt_mod.init(plain, oc), opt_mod.init(on_mesh, oc)
+    step = make_train_step(model, oc)
+    step_mesh = make_train_step(model, oc,
+                                grad_specs=tree_map(lambda s: s.spec, psh))
+    plain_losses = []
+    for _ in range(2):
+        plain, st_plain, m0 = step(plain, st_plain, batch)
+        plain_losses.append(float(m0["loss"]))
+    # ---- the mesh steps: counters at 0 just before, read just after
+    torch.cuda.synchronize()
+    _zero_counters()
+    mesh_losses = []
+    with shd.use_mesh(mesh):
+        for _ in range(2):
+            on_mesh, st_mesh, m1 = step_mesh(on_mesh, st_mesh, b_mesh)
+            mesh_losses.append(float(m1["loss"]))
+    torch.cuda.synchronize()
+    launches = fa.launches
+    # -----------------------------------------------------------------------
+    want = 2 * cfg.n_layers * (2 if cfg.remat == "full" else 1)
+    losses = list(zip(plain_losses, mesh_losses))
+    leaf = max(float((a.full_tensor() - b).abs().max())
+               for a, b in zip(tree_leaves(on_mesh), tree_leaves(plain)))
+    dl = max(abs(a - b) for a, b in losses)
+    print(f"  (2) qwen3-1.7b at full width cut to {MESH_TRAIN_LAYERS} "
+          f"layers, B 8 x 256, on the (1, 1) mesh vs without: f32 grads "
+          f"max {grad_err:.3g} of the leaf's max |g| (tol {MESH_GRAD_TOL}), "
+          f"loss diff {grad_loss:.3g}; 2 bf16 train steps with grad_specs: "
+          f"losses " + ", ".join(f"{a:.6f} / {b:.6f}" for a, b in losses)
+          + f"; max |loss diff| {dl:.3g}, max |leaf diff| after the steps "
+          f"{leaf:.3g} (tol {MESH_TRAIN_TOL}); kernel F launches in the "
+          f"mesh steps {launches} (want {want}: {cfg.n_layers} layers x 2 "
+          f"steps, remat {cfg.remat!r})")
+    if not (grad_err <= MESH_GRAD_TOL and dl <= MESH_TRAIN_TOL
+            and leaf <= MESH_TRAIN_TOL):
+        raise AssertionError(f"mesh train: grads {grad_err}, loss diff {dl},"
+                             f" leaf diff {leaf}")
+    if launches != want:
+        raise AssertionError(f"mesh train: F launches {launches} != {want}")
+    del plain, on_mesh, st_plain, st_mesh
+    return {"loss_diff": dl, "leaf_diff": leaf, "grad_rel_err": grad_err,
+            "launches": launches, "losses": losses}
+
+
+def remat_policies(dev) -> dict:
+    """(3) The remat policies at GRAD_LAYERS layers at full width in f32:
+    the grads under "dots" and "save_block_io" against "full" within
+    REMAT_TOL of each leaf's max |g|, each policy's peak memory."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import ShapeConfig, get_config, make_batch
+    from repro_torch.models.layers import tree_leaves
+    from repro_torch.models.model import build_model
+    from repro_torch.train.train_step import value_and_grad
+
+    base = dataclasses.replace(get_config(SERVE_ARCH), n_layers=GRAD_LAYERS,
+                               compute_dtype="float32")
+    params = build_model(base).init(SEED, device=dev)
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in make_batch(
+        base, ShapeConfig("remat", "train", 256, 8), seed=SEED).items()}
+    out, ref = {}, None
+    for policy in ("full", "dots", "save_block_io", "none"):
+        model = build_model(dataclasses.replace(base, remat=policy))
+        torch.cuda.synchronize()
+        _free()
+        torch.cuda.reset_peak_memory_stats(dev)
+        before = torch.cuda.memory_allocated(dev)
+        loss, g = value_and_grad(model, params, batch)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated(dev) - before
+        g = tree_leaves(g)
+        if ref is None:
+            ref = g
+        worst = max(float((a - b).abs().max() / b.abs().max())
+                    for a, b in zip(g, ref))
+        out[policy] = {"loss": float(loss), "max_rel_err": worst,
+                       "peak_bytes": peak}
+        print(f"  (3) remat {policy!r}: loss {float(loss):.6f}, grads vs "
+              f"'full' max {worst:.3g} of the leaf's max |g| (tol "
+              f"{REMAT_TOL}); peak above the parameters "
+              f"{peak / 2**30:.3f} GiB")
+        if not worst <= REMAT_TOL:
+            raise AssertionError(f"remat {policy}: {worst}")
+        del g
+    del params, ref
+    return out
+
+
+def roofline_shares(serve, trained, rows, card: str) -> dict:
+    """(4) Measured times against the analytic model at the H100's
+    constants (``analysis.flops.estimate``, ``analysis.roofline``): the
+    serve phase's prefill and decode step, the training phase's step;
+    beside them the 6·N MFU line, and kernel B's main-batch launch against
+    its bytes bound, with ``scan_estimate``'s figure (the reference's jnp
+    traffic: not a bound on B)."""
+    from repro_torch.analysis import flops as flops_mod
+    from repro_torch.analysis import roofline as rl
+    from repro_torch.configs import ShapeConfig, get_config
+    from repro_torch.models.model import build_model
+
+    cfg = get_config(SERVE_ARCH)
+    m = build_model(cfg)
+    n, n_act = m.param_count(), m.active_param_count()
+    B = int(SERVE_ARGS[SERVE_ARGS.index("--batch") + 1])
+    S = int(SERVE_ARGS[SERVE_ARGS.index("--prompt-len") + 1])
+    gen = int(SERVE_ARGS[SERVE_ARGS.index("--gen") + 1])
+    tB = int(TRAIN_ARGS[TRAIN_ARGS.index("--batch") + 1])
+    tS = int(TRAIN_ARGS[TRAIN_ARGS.index("--seq") + 1])
+    res = serve["result"]
+    # the decode step's context: the mean cache length over the run
+    cells = (("prefill", ShapeConfig("serve", "prefill", S, B),
+              res["prefill_ms"]),
+             ("decode", ShapeConfig("serve", "decode", S + (gen - 1) // 2,
+                                    B), res["decode_ms_per_step"]),
+             ("train", ShapeConfig("train", "train", tS, tB),
+              trained["train"]["median_ms"]))
+    out = {}
+    for name, shape, ms in cells:
+        est = flops_mod.estimate(cfg, shape, n, n_act)
+        compute_s = est.flops_global / rl.PEAK_FLOPS
+        memory_s = est.hbm_bytes_global / rl.HBM_BW
+        bound_ms = max(compute_s, memory_s) * 1e3
+        out[name] = {"measured_ms": ms, "bound_ms": bound_ms,
+                     "share": bound_ms / ms,
+                     "bound_by": "compute" if compute_s >= memory_s
+                     else "memory", "flops": est.flops_global,
+                     "bytes": est.hbm_bytes_global,
+                     "model_flops_share": rl.model_flops(cfg, shape, n_act)
+                     / rl.PEAK_FLOPS * 1e3 / ms}
+        print(f"  (4) {name} ({shape.kind}, B {shape.global_batch}, S "
+              f"{shape.seq_len}): measured {ms:.3f} ms; analytic "
+              f"{est.flops_global:.4e} FLOP, {est.hbm_bytes_global:.4e} B "
+              f"-> bound {bound_ms:.4f} ms by {out[name]['bound_by']}, "
+              f"share {out[name]['share']:.2%}; model FLOPs at peak "
+              f"{out[name]['model_flops_share']:.2%} (MFU)")
+    b = next(r for r in rows if r["name"].startswith("scan"))
+    print(f"  (4) kernel B, the main path's 64-query batch ({b['shape']}): "
+          f"{b['ms']:.4f} ms; scan_estimate {b['analytic_flops']:.4e} FLOP, "
+          f"{b['analytic_bytes']:.4e} B -> {b['analytic_ms']:.5f} ms, "
+          f"{b['analytic_ms'] / b['ms']:.2%} of the kernel's time (the "
+          f"reference's jnp traffic, not a bound on B); the bytes bound "
+          f"{b['bound_ms']:.5f} ms, share {b['bound_ms'] / b['ms']:.2%}; "
+          f"train MFU line: {trained['train']['mfu']:.2%}; {card}")
+    out["scan"] = {"ms": b["ms"], "analytic_ms": b["analytic_ms"],
+                   "bound_ms": b["bound_ms"],
+                   "share": b["bound_ms"] / b["ms"]}
+    return out
+
+
+def model_mesh(serve, trained, rows, dev, card: str) -> dict:
+    """The model mesh phase: (1) serving and (2) two train steps on a
+    (1, 1) mesh over a one-rank NCCL group, (3) the remat policies, (4)
+    the roofline shares, (5) the dry run, whose cells run in their own
+    processes meanwhile."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    with tempfile.TemporaryDirectory() as tmp:
+        procs = start_dryrun(tmp)
+        try:
+            _free()
+            _one_rank_group()
+            out = {"serve": mesh_serve(serve)}
+            _free()
+            out["train"] = mesh_train(dev)
+            _free()
+            out["remat"] = remat_policies(dev)
+            _free()
+            out["roofline"] = roofline_shares(serve, trained, rows, card)
+            out["dryrun"] = finish_dryrun(procs, tmp)
+        finally:
+            for *_, p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+            if dist.is_initialized():
+                dist.destroy_process_group()
     return out
 
 
@@ -2836,13 +3228,25 @@ def scan_timing(scanner, prep, dev, numpy: bool = True) -> dict:
         lambda: scan_fused.scan_core_cuda(plane, params), 20)
     table_ms = host_ms(lambda: scan_fused.scan_table(params), 20)
     plain_ms = cuda_ms(lambda: scan_fused.scan_core(plane, params), 3)
+    from repro_torch.analysis.flops import scan_estimate
+    from repro_torch.analysis.roofline import HBM_BW, PEAK_FLOPS
     from repro_torch.benchmarks.bench_device import scan_bytes
     n = scanner.cache._n_used
     Q, S1 = params.pushed_tbl.shape
     nbytes = scan_bytes(params, n)
+    est = scan_estimate(n_rows=n, n_terms=int(params.kinds.shape[0]),
+                        n_clauses=int(params.membership.shape[0]),
+                        n_queries=Q, n_slots=S1 - 1)
     return {
         "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
         "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+        # the analytic model of the same launch (scan_estimate at the
+        # H100's constants): the reference's jnp traffic, which kernel B
+        # does not move, so NOT a bound on it (bound_ms is)
+        "analytic_flops": est.flops_global,
+        "analytic_bytes": est.hbm_bytes_global,
+        "analytic_ms": max(est.flops_global / PEAK_FLOPS,
+                                 est.hbm_bytes_global / HBM_BW) * 1e3,
         "wrapper_call_ms": call_ms, "table_ms": table_ms,
         "wrapper_building_table_ms": call_table_ms,
         "smem_bytes": staged.layout.smem,
@@ -3372,8 +3776,10 @@ def end_to_end(dev) -> dict:
     print(f"  bench_device (quick): counts exact, 0 steady uploads; x"
           f"{out['speedup']:.2f} over numpy (quick floor 0.5), batch-of-8 "
           f"x{out['batch8_speedup']:.2f} (quick floor 0.8), wrapper call "
-          f"{out['roofline']['measured_s'] * 1e6:.1f} us against a bytes "
-          f"bound of {out['roofline']['step_time_s'] * 1e6:.3f} us "
+          f"{out['roofline']['measured_s'] * 1e6:.1f} us against the "
+          f"bytes bound of {out['roofline']['step_time_s'] * 1e6:.3f} us "
+          f"(scan_estimate's jnp traffic, not a bound on B: "
+          f"{out['roofline']['analytic']['step_time_s'] * 1e6:.3f} us) "
           f"({scan_fused.launches - b_before} B launches)")
     return {"launches": launches, "rows": rows, "best": best,
             "device": out}
@@ -3765,7 +4171,17 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     trained = training(dev, card)
     print(f"  phase {time.perf_counter() - t0:.1f} s")
+    phase(f"model mesh, remat, roofline and dry run: {' '.join(SERVE_ARGS)} "
+          f"--mesh-shape 1,1; 2 train steps on the mesh "
+          f"({MESH_TRAIN_LAYERS} layers); remat at {GRAD_LAYERS} layers; "
+          f"roofline shares; dry run of "
+          + ", ".join(f"{a} x {s}" for a, s in DRYRUN_CELLS))
+    t0 = time.perf_counter()
+    meshed = model_mesh(serve, trained, rows, dev, card)
+    print(f"  phase {time.perf_counter() - t0:.1f} s")
     rows.append(flash_row(f_timing, serve))
+    rows[-1]["launches_mesh"] = meshed["serve"]["launches"]
+    rows[-1]["launches_mesh_train"] = meshed["train"]["launches"]
     rows[-1]["training"] = {
         "launches": trained["train"]["launches"],
         "launches_per_step": trained["train"]["launches_per_step"],

@@ -34,9 +34,14 @@ Claim gates (``bench_schema.validate_device``, the reference's):
     the launch's work — the bytes it must move, each input once, over the
     H100's 3.35 TB/s (:func:`scan_bytes`, as ``PERF.md`` §6 bounds kernel
     B) — over the measured wrapper call (``scan_counts``: the tables'
-    upload, the launch and the counts' copy back, host clock).  The
-    reference divides an operation count by TPU v5e constants instead;
-    no number of that carries over.
+    upload, the launch and the counts' copy back, host clock), under the
+    reference's roofline keys.  Beside it, ``roofline["analytic"]``
+    carries the reference's analytic model of the same launch shape
+    (``analysis.flops.scan_estimate`` through ``analysis.roofline.Roofline``
+    at the H100's constants).  That model counts the reference's jnp
+    path's traffic (every term row's gathered columns and parameters, the
+    boolean intermediates), which kernel B does not move, so its time is
+    NOT a bound on kernel B and its ``frac`` may exceed 1.
 
     PYTHONPATH=src python -m repro_torch.benchmarks.bench_device [--quick]
 
@@ -49,13 +54,15 @@ import argparse
 
 import numpy as np
 
+from repro_torch.analysis.flops import scan_estimate
+from repro_torch.analysis.roofline import HBM_BW, Roofline
 from repro_torch.benchmarks.bench_scan import _best_of, _build_store, _workload
 from repro_torch.benchmarks.common import BACKEND, card, write_artifact
 from repro_torch.core.device_scan import DeviceScanner
 from repro_torch.core.server import DataSkippingScanner
 from repro_torch.kernels import scan_fused
 
-HBM_BYTES_PER_S = 3.35e12       # H100 SXM HBM3 (NVIDIA data sheet)
+HBM_BYTES_PER_S = HBM_BW        # H100 SXM HBM3 (analysis.roofline)
 
 # the plane columns a term of each kind reads: (column, bytes per row)
 _COLUMNS = {scan_fused.KIND_PRESENCE: (("notn", 1),),
@@ -128,7 +135,8 @@ def run(n_records: int = 24576, chunk_records: int = 512,
     seq8_s = _best_of(lambda: [dev.scan_batch([q]) for q in qs8], reps8)
 
     # roofline: the bytes bound of the EXACT steady launch shape vs the
-    # measured wrapper call (parameter prep excluded)
+    # measured wrapper call (parameter prep excluded); the reference's
+    # analytic model of that shape beside it
     prep = dev._prepare(queries)
     p = prep.params
     plane = dev.cache.plane
@@ -145,6 +153,12 @@ def run(n_records: int = 24576, chunk_records: int = 512,
     launch()
     launch_s = _best_of(launch, repeats)
     bound_s = nbytes / HBM_BYTES_PER_S
+    est = scan_estimate(**shape)
+    roof = Roofline(
+        arch="h100", shape="x".join(f"{k[2:]}{v}" for k, v in shape.items()),
+        mesh="1x1", device_flops=est.flops_global,
+        device_bytes=est.hbm_bytes_global, collective_bytes=0.0,
+        model_flops_global=est.flops_global, n_devices=1).finalize()
     roofline_frac = bound_s / launch_s
 
     n_queries = len(queries)
@@ -185,6 +199,14 @@ def run(n_records: int = 24576, chunk_records: int = 512,
             "dominant": "memory",
             "bytes_per_s": HBM_BYTES_PER_S,
             "shape": shape,
+            # the reference's jnp traffic: not a bound on kernel B
+            "analytic": {"device_flops": est.flops_global,
+                         "device_bytes": est.hbm_bytes_global,
+                         "compute_s": roof.compute_s,
+                         "memory_s": roof.memory_s,
+                         "step_time_s": roof.step_time_s,
+                         "dominant": roof.dominant,
+                         "frac": roof.step_time_s / launch_s},
         },
         "roofline_frac": roofline_frac,
     }
@@ -200,7 +222,11 @@ def run(n_records: int = 24576, chunk_records: int = 512,
           f"{seq8_s * 1e3:9.2f} ms (x{out['batch8_speedup']:.2f})")
     print(f"[device] wrapper call {launch_s * 1e6:9.1f} us measured; bytes "
           f"bound {bound_s * 1e6:.2f} us ({nbytes} B at 3.35 TB/s) -> "
-          f"roofline_frac {roofline_frac:.4f}")
+          f"roofline_frac {roofline_frac:.4f}; the reference's analytic "
+          f"model (jnp traffic, not a bound on kernel B) "
+          f"{roof.step_time_s * 1e6:.2f} us ({roof.dominant}: "
+          f"{est.flops_global:.3e} FLOP, {est.hbm_bytes_global:.3e} B), "
+          f"{roof.step_time_s / launch_s:.4f}")
     return out
 
 

@@ -272,8 +272,11 @@ def validate_device(obj: dict) -> None:
     against collapse at 0.5x; the host skipping scanner is reported as
     ``host_skipping`` context, not gated), a batch of 8 queries >= 3x
     over 8 sequential device scans (>= 0.8x quick), and a roofline
-    fraction computed from the analytic flops model — present,
-    positive, and <= 1 (nothing beats the hardware bound).
+    fraction from the bytes bound — present, positive, and <= 1
+    (nothing beats the hardware bound) — with the reference's analytic
+    model of the same launch beside it where present
+    (``roofline["analytic"]``, not a bound on kernel B, so not gated at
+    1).
     """
     _require(isinstance(obj, dict), "device", "top level must be an object")
     for key in ("quick", "backend", "device", "interpret", "n_records",
@@ -312,6 +315,13 @@ def validate_device(obj: dict) -> None:
     for key in ("device_flops", "device_bytes", "step_time_s",
                 "measured_s", "dominant"):
         _require(key in roof, "roofline", f"missing key {key!r}")
+    ana = roof.get("analytic")          # the port's artifacts carry it
+    if ana is not None:
+        _require(isinstance(ana, dict), "roofline", "'analytic' must be an "
+                 "object")
+        for key in ("device_flops", "device_bytes", "step_time_s",
+                    "dominant", "frac"):
+            _require(key in ana, "roofline.analytic", f"missing key {key!r}")
     frac = obj["roofline_frac"]
     _require(isinstance(frac, numbers.Real) and not isinstance(frac, bool),
              "device", "roofline_frac must be a number")

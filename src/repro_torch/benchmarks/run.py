@@ -38,6 +38,7 @@ SUITES = {
     "serve": "async serving under live ingest",
     "tuner": "online physical-design tuner drift recovery",
     "skip": "skipping-index registry: range/IN/n-gram pruning",
+    "roofline": "the dry run's three-term roofline cells (H100 constants)",
 }
 
 
@@ -249,6 +250,18 @@ def run(only: set[str] | None, quick: bool, device: str) -> tuple[list, list]:
             f"pruned_{out['pruned_fraction']:.0%};"
             f"migration_ok_{out['migration_ok']};"
             f"counts_match_{out['counts_match']}"))
+
+    if want("roofline"):
+        from repro_torch.benchmarks import bench_roofline
+
+        recs = bench_roofline.main()
+        if recs:
+            ok = [r for r in recs.values() if "roofline" in r]
+            csv.append((
+                "roofline_cells", 0.0,
+                f"{len(ok)}_cells_run;"
+                f"{sum(1 for r in recs.values() if 'skipped' in r)}"
+                f"_documented_skips"))
     return csv, failed
 
 

@@ -1,8 +1,6 @@
-"""Distributed-execution support (port of ``repro.dist``).
-
-Only ``collectives.tree_reduce`` is ported: the sharded store plane's
-deterministic merge.  The model mesh (``repro.dist.sharding``,
-``compressed_allreduce``, the flash-decoding sharded attention) is not
-ported yet; see ``collectives``.
+"""Distributed-execution support (port of ``repro.dist``): logical-axis
+sharding rules over a ``DeviceMesh`` (``sharding``) and the reduction
+primitives (``collectives``: ``tree_reduce``, ``compressed_allreduce``,
+and the JAX package's flash-decoding stub).
 """
-from . import collectives  # noqa: F401
+from . import collectives, sharding  # noqa: F401

@@ -12,7 +12,15 @@ Parameters are drawn from ``--seed`` (no weights are read) and cast once
 to the compute dtype.  One warm-up generation of one step runs first;
 the timed generation reports ``prefill_ms`` and ``decode_ms_per_step``
 from the host clock with the device synchronised around each step.
-Only ``--mesh-shape 1,1`` is accepted until the model mesh is ported.
+
+``--mesh-shape`` takes any shape the initialised process group holds
+(``launch.train.make_mesh``): the parameters are sharded by the config's
+rules as in the JAX package's driver, the prompts laid out over the batch
+axes, and every shape serves through DTensors (``serve.engine``).  A
+``model`` axis over 1 decodes into the JAX package's flash-decoding stub,
+which raises as it does there.  Without a process group ``1,1`` serves on one device without a
+mesh.  The returned dict adds the generated ``tokens`` (B, gen) to the
+printed result.
 """
 from __future__ import annotations
 
@@ -24,8 +32,10 @@ import torch
 from repro_torch.configs import get_config
 from repro_torch.data.datasets import generate_records
 from repro_torch.data.tokenizer import ByteTokenizer
+from repro_torch.dist import sharding as shd
+from repro_torch.launch.train import mesh_for
 from repro_torch.models.layers import resolve_device
-from repro_torch.models.model import build_model
+from repro_torch.models.model import build_model, family_module
 from repro_torch.serve.engine import greedy_generate, make_serve_fns
 
 
@@ -61,25 +71,29 @@ def main(argv=None) -> dict:
     args = ap.parse_args(argv)
     if args.gen < 1:
         ap.error("--gen must be at least 1")
-    if any(int(n) != 1 for n in args.mesh_shape.split(",")):
-        raise NotImplementedError(
-            f"--mesh-shape {args.mesh_shape}: the port serves on one card; "
-            "meshes come with the model mesh (ROADMAP.md Queue 1, item 14)")
 
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
     model = build_model(cfg)
     dev = resolve_device(args.device)
-    params = model.compute_params(model.init(args.seed, device=dev))
+    mesh = mesh_for(args.mesh_shape)
+    params = model.init(args.seed, device=dev)
+    params_sh = None
+    if mesh is not None:
+        params_sh = shd.param_shardings(
+            params, family_module(cfg).param_axes(cfg), mesh)
+        params = shd.shard_params(params, params_sh)
+    params = model.compute_params(params)
 
     tok = ByteTokenizer(vocab_size=cfg.vocab_size)
     recs = generate_records(args.dataset, args.batch, seed=args.seed)
     prompts = torch.from_numpy(tok.pad_batch(
         [tok.encode(r, add_eos=False) for r in recs], args.prompt_len)).to(dev)
 
-    fns = make_serve_fns(model, batch=args.batch,
-                         seq_len=args.prompt_len + args.gen + 128)
+    fns = make_serve_fns(model, mesh, batch=args.batch,
+                         seq_len=args.prompt_len + args.gen + 128,
+                         param_shardings=params_sh)
     greedy_generate(model, fns, params, prompts, n_steps=1)     # warm-up
     prefill_s: list[float] = []
     decode_s: list[float] = []
@@ -101,7 +115,9 @@ def main(argv=None) -> dict:
         "device": str(dev),
     }
     print(f"[serve] {result}")
-    return result
+    if shd.is_dtensor(out):
+        out = out.full_tensor()
+    return {**result, "tokens": out}
 
 
 if __name__ == "__main__":

@@ -20,10 +20,16 @@ The port of ``repro.launch.train``.  Flow:
      ``--fail-at-step N`` injects a crash (``SystemExit(42)``) for the
      restart test.
 
-Only ``--mesh-shape 1,1`` runs until the model mesh is ported.  The
-``[done]`` line prints the JAX package's result keys; the returned dict
-adds every step's loss and host-clock seconds (the device synchronised
-by reading the loss), the device, and the trained ``params``.
+``--mesh-shape`` takes any shape that the initialised process group
+holds (``make_mesh``: 2 dims are (data, model), 3 are (pod, data,
+model)); the parameters are then sharded by the config's rules
+(``dist.sharding``), the batches laid out over the batch axes, and a
+checkpoint restores onto the mesh whatever mesh wrote it.  Without a
+process group the default ``1,1`` runs on one device without a mesh,
+and any other shape raises.  The ``[done]`` line prints the JAX
+package's result keys; the returned dict adds every step's loss and
+host-clock seconds (the device synchronised by reading the loss), the
+device, and the trained ``params``.
 """
 from __future__ import annotations
 
@@ -46,8 +52,10 @@ from repro_torch.data.pipeline import (
     ClientShard, IngestCoordinator, Prefetcher, RecipeBatcher,
 )
 from repro_torch.data.tokenizer import ByteTokenizer
-from repro_torch.models.layers import resolve_device
-from repro_torch.models.model import build_model
+from repro_torch.dist import sharding as shd
+from repro_torch.launch.mesh import build_mesh
+from repro_torch.models.layers import resolve_device, tree_map
+from repro_torch.models.model import build_model, family_module
 from repro_torch.train import checkpoint as ckpt
 from repro_torch.train.train_step import (
     init_opt_state, make_train_step, opt_config_for,
@@ -83,6 +91,26 @@ def build_data(args, vocab_size: int):
     return report, store, coord, recipe, batcher
 
 
+def make_mesh(shape_str: str):
+    """``"4,2"`` -> a (data, model) mesh; 3 dims are (pod, data, model);
+    over the initialised process group (``launch.mesh.build_mesh``)."""
+    dims = tuple(int(x) for x in shape_str.split(",") if x)
+    names = (("data", "model")[: len(dims)] if len(dims) <= 2
+             else ("pod", "data", "model"))
+    return build_mesh(dims, names)
+
+
+def mesh_for(shape_str: str):
+    """The mesh of ``--mesh-shape``, or None for ``1,1`` with no process
+    group initialised (one device, no mesh)."""
+    import torch.distributed as dist
+
+    dims = [int(x) for x in shape_str.split(",") if x]
+    if all(d == 1 for d in dims) and not dist.is_initialized():
+        return None
+    return make_mesh(shape_str)
+
+
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--arch", default="qwen3-1.7b")
@@ -105,12 +133,8 @@ def main(argv=None) -> dict:
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
-    if any(int(n) != 1 for n in args.mesh_shape.split(",") if n):
-        raise NotImplementedError(
-            f"--mesh-shape {args.mesh_shape}: the port trains on one "
-            "device; meshes come with the model mesh (ROADMAP.md Queue 1, "
-            "item 14)")
     dev = resolve_device(args.device)
+    mesh = mesh_for(args.mesh_shape)
 
     cfg = get_config(args.arch)
     if args.reduced:
@@ -124,6 +148,13 @@ def main(argv=None) -> dict:
           f"(ratio {store.stats.loading_ratio:.3f}), stolen chunks: {coord.stolen}")
 
     values = model.init(args.seed, device=dev)
+    state_sh = None
+    if mesh is not None:
+        params_sh = shd.param_shardings(
+            values, family_module(cfg).param_axes(cfg), mesh)
+        values = shd.shard_params(values, params_sh)
+        state_sh = (params_sh, {"m": params_sh, "v": params_sh,
+                                "step": shd.NamedSharding(mesh, shd.P())})
     opt_cfg = opt_config_for(cfg)
     opt_state = init_opt_state(model, values, opt_cfg)
 
@@ -132,7 +163,8 @@ def main(argv=None) -> dict:
         latest = ckpt.latest_step(args.ckpt_dir)
         if latest is not None:
             (values, opt_state), manifest = ckpt.restore(
-                args.ckpt_dir, latest, (values, opt_state), device=dev)
+                args.ckpt_dir, latest, (values, opt_state), device=dev,
+                shardings=state_sh)
             start_step = manifest["step"]
             print(f"[ckpt] resumed from step {start_step}")
 
@@ -142,11 +174,15 @@ def main(argv=None) -> dict:
     losses: list[float] = []
     step_s: list[float] = []
     t0 = time.time()
-    with Prefetcher(batcher.batches(recipe, repeat=True), depth=2) as data_it:
+    with Prefetcher(batcher.batches(recipe, repeat=True), depth=2) as data_it, \
+            shd.use_mesh(mesh):
         for step in range(start_step, args.steps):
             tokens, mask = next(data_it)
             batch = {"tokens": torch.from_numpy(tokens).to(dev),
                      "loss_mask": torch.from_numpy(mask).to(dev)}
+            if mesh is not None:
+                batch = tree_map(shd.distribute, batch,
+                                 shd.batch_shardings(batch, mesh))
             t_step = time.perf_counter()
             values, opt_state, metrics = step_fn(values, opt_state, batch)
             loss = float(metrics["loss"])

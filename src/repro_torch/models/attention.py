@@ -16,10 +16,16 @@ The port of ``repro.models.attention``.
     (:func:`flash_kernel_padded_v`).  Where a gradient is wanted it
     launches F through :class:`FlashAttention`, whose backward is the
     gradient of :func:`flash_attention_plain`.
+  * On a mesh (q, k, v DTensors) :func:`flash_attention` runs on each
+    rank's own heads under ``local_map`` (``shard_map``'s counterpart):
+    the batch over (pod, data), the query heads over ``model`` where they
+    divide, and the kv heads with them (a rank whose query heads share
+    replicated kv heads takes its slice).  Kernel F runs there on a card,
+    as off a mesh.
   * :func:`decode_attention_gqa` — one new token over the cache, returning
     partial softmax stats (o, m, l); :func:`combine_partials` normalises
-    them.  Plain PyTorch on every device: the JAX package has no kernel
-    for it either.
+    them, merged across a mesh axis when one is named.  Plain PyTorch on
+    every device: the JAX package has no kernel for it either.
   * MLA (deepseek-v3): :func:`attend_mla`, the full-rank expansion for
     prefill and training (kernel F at qk head dim nope + rope, v padded),
     and :func:`decode_attention_mla`, the absorbed decode on the
@@ -31,14 +37,15 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch.dist import sharding
 from repro_torch.kernels import flash_attention as fa_kernel
 
-from .layers import RopeTables, Spec, rmsnorm, rope_tables, rotate
+from .layers import (
+    RopeTables, Spec, rmsnorm, rope_tables, rotate, shape_only_active,
+)
 
 NEG_INF = -1e30
 
-#: where what this module refuses is planned (ROADMAP.md)
-_ROADMAP_MESH = "ROADMAP.md Queue 1, item 14 (model mesh)"
 
 
 # ---------------------------------------------------------------------------
@@ -50,18 +57,18 @@ def init_attention(cfg, *, cross: bool = False) -> dict:
     (``cross``, encdec) has the same layout, as in the JAX package."""
     d, H, Hkv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd()
     p = {
-        "wq": Spec((d, H, hd)),
-        "wk": Spec((d, Hkv, hd)),
-        "wv": Spec((d, Hkv, hd)),
-        "wo": Spec((H, hd, d)),
+        "wq": Spec((d, H, hd), axes=("embed", "heads", "head_dim")),
+        "wk": Spec((d, Hkv, hd), axes=("embed", "kv_heads", "head_dim")),
+        "wv": Spec((d, Hkv, hd), axes=("embed", "kv_heads", "head_dim")),
+        "wo": Spec((H, hd, d), axes=("heads", "head_dim", "embed")),
     }
     if cfg.qkv_bias:
-        p["bq"] = Spec((H, hd), "zeros")
-        p["bk"] = Spec((Hkv, hd), "zeros")
-        p["bv"] = Spec((Hkv, hd), "zeros")
+        p["bq"] = Spec((H, hd), "zeros", axes=("heads", "head_dim"))
+        p["bk"] = Spec((Hkv, hd), "zeros", axes=("kv_heads", "head_dim"))
+        p["bv"] = Spec((Hkv, hd), "zeros", axes=("kv_heads", "head_dim"))
     if cfg.qk_norm:
-        p["q_norm"] = Spec((hd,), "zeros")
-        p["k_norm"] = Spec((hd,), "zeros")
+        p["q_norm"] = Spec((hd,), "zeros", axes=("head_dim",))
+        p["k_norm"] = Spec((hd,), "zeros", axes=("head_dim",))
     return p
 
 
@@ -71,13 +78,16 @@ def init_mla(cfg) -> dict:
     d, H = cfg.d_model, cfg.n_heads
     qk = m.qk_nope_head_dim + m.qk_rope_head_dim
     return {
-        "wq_a": Spec((d, m.q_lora_rank)),
-        "q_norm": Spec((m.q_lora_rank,), "zeros"),
-        "wq_b": Spec((m.q_lora_rank, H, qk)),
-        "wkv_a": Spec((d, m.kv_lora_rank + m.qk_rope_head_dim)),
-        "kv_norm": Spec((m.kv_lora_rank,), "zeros"),
-        "wkv_b": Spec((m.kv_lora_rank, H, m.qk_nope_head_dim + m.v_head_dim)),
-        "wo": Spec((H, m.v_head_dim, d)),
+        "wq_a": Spec((d, m.q_lora_rank), axes=("embed", "q_lora")),
+        "q_norm": Spec((m.q_lora_rank,), "zeros", axes=("q_lora",)),
+        "wq_b": Spec((m.q_lora_rank, H, qk),
+                     axes=("q_lora", "heads", "head_dim")),
+        "wkv_a": Spec((d, m.kv_lora_rank + m.qk_rope_head_dim),
+                      axes=("embed", "kv_lora")),
+        "kv_norm": Spec((m.kv_lora_rank,), "zeros", axes=("kv_lora",)),
+        "wkv_b": Spec((m.kv_lora_rank, H, m.qk_nope_head_dim + m.v_head_dim),
+                      axes=("kv_lora", "heads", "head_dim")),
+        "wo": Spec((H, m.v_head_dim, d), axes=("heads", "head_dim", "embed")),
     }
 
 
@@ -91,10 +101,65 @@ def rope_dim(cfg) -> int:
 # ---------------------------------------------------------------------------
 
 def _proj(x, w):
-    """``einsum("bsd,dhk->bshk", x, w)`` as one matrix product."""
+    """``einsum("bsd,dhk->bshk", x, w)`` as one matrix product (on a mesh:
+    :func:`_proj_on_mesh`)."""
+    if sharding.is_dtensor(x):
+        return _proj_on_mesh(x, w)
     d, heads, hd = w.shape
     y = x @ w.to(x.dtype).reshape(d, heads * hd)
     return y.view(*x.shape[:-1], heads, hd)
+
+
+def _tp_layout(mesh, B: int, heads: int, x_dim: int, w_dim: int,
+               out_dim: int, row: bool):
+    """Placements of a head-parallel projection on ``mesh`` (the batch over
+    (pod, data) where it divides, the heads over ``model`` where they
+    divide, everything else gathered): (x, x grad, w, w grad, out).  A
+    column-parallel projection (``row=False``: x (..., d) -> heads) takes
+    whole x and gives each rank its heads, so x's gradient is a partial
+    sum over ``model``; a row-parallel one (heads -> (..., d)) gives a
+    partial sum over ``model``.  The weight's gradient is a partial sum
+    over the batch axes."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    batch = sharding.batch_entry(mesh, B) or ()
+    n = sharding.mesh_sizes(mesh).get("model", 1)
+    split = n > 1 and heads % n == 0
+    pls = [[], [], [], [], []]
+    for name in sharding.mesh_axes(mesh):
+        if name in batch:
+            row_ = (Shard(0), Shard(0), Replicate(), Partial(), Shard(0))
+        elif name == "model" and split:
+            row_ = ((Shard(x_dim), Shard(x_dim), Shard(w_dim), Shard(w_dim),
+                     Partial()) if row else
+                    (Replicate(), Partial(), Shard(w_dim), Shard(w_dim),
+                     Shard(out_dim)))
+        else:
+            row_ = (Replicate(),) * 5
+        for lst, p in zip(pls, row_):
+            lst.append(p)
+    return tuple(tuple(p) for p in pls)
+
+
+def _proj_on_mesh(x, w):
+    """:func:`_proj` of DTensors under ``local_map``: column-parallel over
+    the heads (Megatron's), so no head dim is ever split unevenly."""
+    from torch.distributed.tensor.experimental import local_map
+
+    d, heads, hd = w.shape
+    w = sharding.on_mesh(w, x.device_mesh)
+    x_pl, x_grad, w_pl, w_grad, out_pl = _tp_layout(
+        x.device_mesh, x.shape[0], heads, x.ndim - 1, 1, x.ndim - 1,
+        row=False)
+
+    def local(xl, wl):
+        y = xl @ wl.to(xl.dtype).reshape(d, -1)
+        return y.view(*xl.shape[:-1], -1, hd)
+
+    return local_map(local, out_placements=(out_pl,),
+                     in_placements=(x_pl, w_pl),
+                     in_grad_placements=(x_grad, w_grad),
+                     device_mesh=x.device_mesh, redistribute_inputs=True)(x, w)
 
 
 def _project_qkv(p, x, cfg, rope: RopeTables | None):
@@ -114,8 +179,28 @@ def _project_qkv(p, x, cfg, rope: RopeTables | None):
 
 
 def _out_proj(a, wo):
-    """``einsum("bshk,hkd->bsd", a, wo)`` as one matrix product."""
+    """``einsum("bshk,hkd->bsd", a, wo)`` as one matrix product (on a mesh
+    row-parallel over the heads under ``local_map``, :func:`_tp_layout`;
+    the result a partial sum over ``model`` that the residual add
+    reduces)."""
     H, hd, d = wo.shape
+    if sharding.is_dtensor(a):
+        from torch.distributed.tensor.experimental import local_map
+
+        wo = sharding.on_mesh(wo, a.device_mesh)
+        a_pl, a_grad, w_pl, w_grad, out_pl = _tp_layout(
+            a.device_mesh, a.shape[0], H, a.ndim - 2, 0, a.ndim - 2,
+            row=True)
+
+        def local(al, wl):
+            return al.reshape(*al.shape[:-2], -1) @ wl.to(al.dtype).reshape(
+                -1, d)
+
+        return local_map(local, out_placements=(out_pl,),
+                         in_placements=(a_pl, w_pl),
+                         in_grad_placements=(a_grad, w_grad),
+                         device_mesh=a.device_mesh,
+                         redistribute_inputs=True)(a, wo)
     return a.reshape(*a.shape[:-2], H * hd) @ wo.to(a.dtype).reshape(H * hd, d)
 
 
@@ -209,6 +294,23 @@ def flash_attention_plain(q, k, v, *, q_positions, k_positions,
     return torch.cat(outs, dim=1)[:, :Sq]
 
 
+class _ShapeOnly(torch.autograd.Function):
+    """Attention's output shape on ``meta`` tensors (``layers.shape_only``:
+    the dry run, which takes its FLOPs from the analytic model), saving
+    q, k and v for the backward as :class:`FlashAttention` does, with
+    gradients of their shapes.  Outside ``shape_only`` meta tensors take
+    the card's route up to kernel F's wrapper, which refuses them."""
+
+    @staticmethod
+    def forward(ctx, q, k, v):
+        ctx.save_for_backward(q, k, v)
+        return q.new_empty(*q.shape[:-1], v.shape[-1])
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        return tuple(torch.empty_like(t) for t in ctx.saved_tensors)
+
+
 def _is_iota(pos, n: int) -> bool:
     """``pos`` is exactly 0..n-1 (a device sync unless pos is on the CPU)."""
     if pos.dim() != 1 or pos.shape[0] != n:
@@ -281,11 +383,18 @@ def flash_attention(q, k, v, *, q_positions, k_positions,
     the jnp path's tiling and do not change the result.  Any other call
     on a card raises ``NotImplementedError``.
     """
+    if sharding.is_dtensor(q):
+        return _flash_on_mesh(q, k, v, dict(
+            q_positions=q_positions, k_positions=k_positions,
+            mask_mode=mask_mode, window=window, q_chunk=q_chunk,
+            k_chunk=k_chunk, scale=scale))
     if q.device.type == "cpu":
         return flash_attention_plain(
             q, k, v, q_positions=q_positions, k_positions=k_positions,
             mask_mode=mask_mode, window=window, q_chunk=q_chunk,
             k_chunk=k_chunk, scale=scale)
+    if q.device.type == "meta" and shape_only_active():
+        return _ShapeOnly.apply(q, k, v)
     Sq, qkd, Sk, vd = q.shape[1], q.shape[-1], k.shape[1], v.shape[-1]
     if mask_mode not in ("causal", "local", "none"):
         raise ValueError(f"unknown mask_mode {mask_mode!r}")
@@ -306,6 +415,64 @@ def flash_attention(q, k, v, *, q_positions, k_positions,
         window=window if mask_mode == "local" else 0, q_chunk=q_chunk,
         k_chunk=k_chunk)
     return out if vd == qkd else out[..., :vd]
+
+
+def _head_layout(mesh, B: int, H: int, Hkv: int, q_dim: int = 2,
+                 kv_dim: int = 2):
+    """(q placements, kv placements, kv grad placements, kv slice) of
+    attention on ``mesh`` (heads at dim ``q_dim`` of q and ``kv_dim`` of
+    k and v): the batch over (pod, data) where it divides,
+    the query heads over ``model`` where they divide, kv heads with them
+    where they divide too; else kv replicated, each rank slicing the kv
+    heads its query heads read (``slice(first, first + n)`` per model
+    rank, their gradient then a partial sum over ``model``)."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    sizes = sharding.mesh_sizes(mesh)
+    batch = sharding.batch_entry(mesh, B) or ()
+    n = sizes.get("model", 1)
+    Hl, G = H // n, H // Hkv
+    q_split = n > 1 and H % n == 0 and (Hl % G == 0 or G % Hl == 0)
+    kv_split = q_split and Hkv % n == 0
+    q_pl, kv_pl, kv_grad = [], [], []
+    for name in sharding.mesh_axes(mesh):
+        if name in batch:
+            p = Shard(0)
+            q_pl.append(p), kv_pl.append(p), kv_grad.append(p)
+        elif name == "model" and q_split:
+            q_pl.append(Shard(q_dim))
+            kv_pl.append(Shard(kv_dim) if kv_split else Replicate())
+            kv_grad.append(Shard(kv_dim) if kv_split else Partial())
+        else:
+            q_pl.append(Replicate()), kv_pl.append(Replicate())
+            kv_grad.append(Replicate())
+    kv_slice = None
+    if q_split and not kv_split:
+        r = mesh.get_local_rank("model")
+        kv_slice = ((r * Hl) // G, max(1, Hl // G))
+    return tuple(q_pl), tuple(kv_pl), tuple(kv_grad), kv_slice
+
+
+def _flash_on_mesh(q, k, v, kw: dict):
+    """:func:`flash_attention` of DTensors q, k, v: each rank attends with
+    its own batch rows and heads (:func:`_head_layout`) under
+    ``local_map``; the result is laid out as q."""
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = q.device_mesh
+    q_pl, kv_pl, kv_grad, kv_slice = _head_layout(
+        mesh, q.shape[0], q.shape[2], k.shape[2])
+
+    def local(ql, kl, vl):
+        if kv_slice is not None:
+            first, n = kv_slice
+            kl, vl = kl[:, :, first:first + n], vl[:, :, first:first + n]
+        return flash_attention(ql, kl, vl, **kw)
+
+    return local_map(local, out_placements=(q_pl,),
+                     in_placements=(q_pl, kv_pl, kv_pl),
+                     in_grad_placements=(q_pl, kv_grad, kv_grad),
+                     device_mesh=mesh, redistribute_inputs=True)(q, k, v)
 
 
 def pad_head_dim(x, d: int):
@@ -440,19 +607,40 @@ class Partial(NamedTuple):
 
 
 def combine_partials(parts: Partial, axis_name: str | None = None):
-    """Normalise partial softmax stats.  Merging across a mesh axis comes
-    with the model mesh."""
+    """Merge partial softmax stats, across mesh axis ``axis_name`` of the
+    current mesh when one is named (each rank's stats its own part of the
+    keys): MAX of m over the axis, each part rescaled by exp(m - max),
+    then SUM of o and l; then normalise.  The reference's order."""
+    o, l_ = parts.o, parts.l
     if axis_name is not None:
-        raise NotImplementedError(
-            f"combining across mesh axis {axis_name!r} comes with "
-            f"{_ROADMAP_MESH}")
-    return parts.o / torch.clamp(parts.l, min=1e-30)[..., None]
+        import torch.distributed as dist
+
+        mesh = sharding.current_mesh()
+        if mesh is None:
+            raise RuntimeError(f"combining across mesh axis {axis_name!r} "
+                               "needs a current mesh (dist.sharding."
+                               "use_mesh)")
+        group = mesh.get_group(axis_name)
+        m_all = parts.m.clone()
+        dist.all_reduce(m_all, op=dist.ReduceOp.MAX, group=group)
+        alpha = torch.exp(torch.where(parts.m <= NEG_INF / 2, NEG_INF,
+                                      parts.m - m_all))
+        o, l_ = parts.o * alpha[..., None], parts.l * alpha
+        dist.all_reduce(o, group=group)
+        dist.all_reduce(l_, group=group)
+    return o / torch.clamp(l_, min=1e-30)[..., None]
 
 
 def decode_attention_gqa(q, k_cache, v_cache, k_positions, *, window: int = 0,
                          q_position=None, scale=None) -> Partial:
     """q: (B, H, hd); caches: (B, S, Hkv, hd); k_positions: (S,) with -1
-    for empty slots.  Returns partial stats (f32)."""
+    for empty slots.  Returns partial stats (f32).  On DTensors each rank
+    takes its own batch rows and heads, as :func:`flash_attention` does,
+    under ``local_map``."""
+    if sharding.is_dtensor(q):
+        return _decode_on_mesh(q, k_cache, v_cache, k_positions,
+                               dict(window=window, q_position=q_position,
+                                    scale=scale))
     B, H, hd = q.shape
     Hkv = k_cache.shape[2]
     G = H // Hkv
@@ -471,6 +659,28 @@ def decode_attention_gqa(q, k_cache, v_cache, k_positions, *, window: int = 0,
     l_ = p_.sum(dim=-1)
     return Partial(o=o.reshape(B, H, -1), m=m.reshape(B, H),
                    l=l_.reshape(B, H))
+
+
+def _decode_on_mesh(q, k_cache, v_cache, k_positions, kw: dict) -> Partial:
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = q.device_mesh
+    q_pl, kv_pl, _, kv_slice = _head_layout(
+        mesh, q.shape[0], q.shape[1], k_cache.shape[2], q_dim=1)
+    pos = (k_positions.full_tensor() if sharding.is_dtensor(k_positions)
+           else k_positions)
+
+    def local(ql, kl, vl):
+        if kv_slice is not None:
+            first, n = kv_slice
+            kl, vl = kl[:, :, first:first + n], vl[:, :, first:first + n]
+        return tuple(decode_attention_gqa(ql, kl, vl, pos, **kw))
+
+    o, m, l_ = local_map(local, out_placements=(q_pl, q_pl, q_pl),
+                         in_placements=(q_pl, kv_pl, kv_pl),
+                         device_mesh=mesh, redistribute_inputs=True)(
+        q, k_cache, v_cache)
+    return Partial(o, m, l_)
 
 
 def decode_attention_mla(q_nope, q_rope, ckv_cache, krope_cache, k_positions,

@@ -12,40 +12,45 @@ Decode path: the decoder's self-attention caches k/v as ``transformer``
 does; the encoder memory's cross-attention K/V are projected once at
 prefill and kept in the cache (``xk``/``xv``: cross K/V do not depend on
 the position).  As in ``transformer.py``, the layers run as a Python loop
-over views of the stacked parameters (``remat="full"`` runs each under
-``torch.utils.checkpoint`` where a gradient is wanted), and the cache is
-preallocated and written in place.
+over views of the stacked parameters (each under ``cfg.remat``'s
+checkpoint where a gradient is wanted, ``transformer.remat_call``; no
+block output here is tagged for ``"save_block_io"``, as none is in the
+JAX package's encdec), and the cache is preallocated and written in
+place.  On a mesh the stream is laid out by ``constrain_act`` where the
+JAX package constrains it, as in ``transformer.py``.
 """
 from __future__ import annotations
 
 import torch
-from torch.utils.checkpoint import checkpoint
 
 from . import attention as attn
 from .layers import (
     Spec, Stacked, apply_mlp, embed_tokens, init_embeddings, init_mlp,
-    model_count, model_materialize, model_shapes, rmsnorm, rope_tables,
-    torch_dtype, unembed,
+    model_axes, model_count, model_materialize, model_shapes, rmsnorm,
+    rope_tables, torch_dtype, unembed,
 )
-from .transformer import _add_then_norm, _unstack, check_ported
+from repro_torch.dist import sharding
+from repro_torch.dist.sharding import constrain_act
+
+from .transformer import _add_then_norm, _unstack, check_ported, remat_call
 
 
 def _enc_block_spec(cfg) -> dict:
     return {
-        "ln1": Spec((cfg.d_model,), "zeros"),
+        "ln1": Spec((cfg.d_model,), "zeros", axes=("embed",)),
         "attn": attn.init_attention(cfg),
-        "ln2": Spec((cfg.d_model,), "zeros"),
+        "ln2": Spec((cfg.d_model,), "zeros", axes=("embed",)),
         "mlp": init_mlp(cfg.d_model, cfg.d_ff, cfg.act),
     }
 
 
 def _dec_block_spec(cfg) -> dict:
     return {
-        "ln1": Spec((cfg.d_model,), "zeros"),
+        "ln1": Spec((cfg.d_model,), "zeros", axes=("embed",)),
         "self_attn": attn.init_attention(cfg),
-        "ln_x": Spec((cfg.d_model,), "zeros"),
+        "ln_x": Spec((cfg.d_model,), "zeros", axes=("embed",)),
         "cross_attn": attn.init_attention(cfg, cross=True),
-        "ln2": Spec((cfg.d_model,), "zeros"),
+        "ln2": Spec((cfg.d_model,), "zeros", axes=("embed",)),
         "mlp": init_mlp(cfg.d_model, cfg.d_ff, cfg.act),
     }
 
@@ -58,13 +63,19 @@ def param_specs(cfg) -> dict:
     return {"embed": init_embeddings(cfg),
             "enc": Stacked(_enc_block_spec(cfg), cfg.enc_layers),
             "dec": Stacked(_dec_block_spec(cfg), cfg.dec_layers),
-            "ln_enc": Spec((cfg.d_model,), "zeros"),
-            "ln_f": Spec((cfg.d_model,), "zeros")}
+            "ln_enc": Spec((cfg.d_model,), "zeros", axes=("embed",)),
+            "ln_f": Spec((cfg.d_model,), "zeros", axes=("embed",))}
 
 
 def param_count(cfg) -> int:
     """Parameters of ``cfg``, from shapes alone (nothing allocated)."""
     return model_count(param_specs(cfg))
+
+
+def param_axes(cfg) -> dict:
+    """Every parameter's logical axes (``"layers"`` first in a stacked
+    group), the JAX package's ``split`` axes tree."""
+    return model_axes(param_specs(cfg))
 
 
 def param_shapes(cfg) -> dict:
@@ -80,13 +91,9 @@ def init_params(cfg, generator: torch.Generator, device) -> dict:
 
 def _run(body, x, layers, cfg, *args):
     """``x = body(p_l, x, *args)`` over the layers, each under
-    ``torch.utils.checkpoint`` when ``remat="full"`` and a gradient is
-    wanted (the JAX package's ``_remat`` of the scan body)."""
+    ``cfg.remat`` (the JAX package's ``_remat`` of the scan body)."""
     for p_l in layers:
-        if cfg.remat == "full" and torch.is_grad_enabled():
-            x = checkpoint(body, p_l, x, cfg, *args, use_reentrant=False)
-        else:
-            x = body(p_l, x, cfg, *args)
+        x = remat_call(body, cfg, p_l, x, cfg, *args)
     return x
 
 
@@ -105,16 +112,12 @@ def _enc_layer(p, x, cfg, rope):
                              k_chunk=cfg.attn_k_chunk)
     x, h = _add_then_norm(x, attn._out_proj(a, p["attn"]["wo"]), p["ln2"],
                           cfg.norm_eps)
-    return x + apply_mlp(p["mlp"], h, cfg.act)
+    return constrain_act(x + apply_mlp(p["mlp"], h, cfg.act))
 
 
 def encode(params, cfg, frames):
     """frames: (B, S_src, d) precomputed frontend embeddings -> memory."""
-    if cfg.remat not in ("full", "none"):
-        raise NotImplementedError(
-            f"remat {cfg.remat!r}: the port runs 'full' and 'none' "
-            f"(ROADMAP.md Queue 1, item 23)")
-    x = frames.to(torch_dtype(cfg.compute_dtype))
+    x = constrain_act(frames.to(torch_dtype(cfg.compute_dtype)))
     rope = rope_tables(torch.arange(x.shape[1], device=x.device), cfg.hd(),
                        cfg.rope_theta)
     x = _run(_enc_layer, x, _unstack(params["enc"], cfg.enc_layers), cfg,
@@ -146,7 +149,7 @@ def _dec_layer(p, x, cfg, memory, rope, cache=None):
         cache["pos"][:S].copy_(torch.arange(S, device=x.device))
         cache["xk"].copy_(xk)
         cache["xv"].copy_(xv)
-    return x + apply_mlp(p["mlp"], h, cfg.act)
+    return constrain_act(x + apply_mlp(p["mlp"], h, cfg.act))
 
 
 def _embed(params, cfg, tokens):
@@ -156,7 +159,7 @@ def _embed(params, cfg, tokens):
 
 def decode_train(params, cfg, memory, tokens):
     """Teacher-forced decoder logits; memory from :func:`encode`."""
-    x = _embed(params, cfg, tokens)
+    x = constrain_act(_embed(params, cfg, tokens))
     rope = rope_tables(torch.arange(x.shape[1], device=x.device), cfg.hd(),
                        cfg.rope_theta)
     x = _run(_dec_layer, x, _unstack(params["dec"], cfg.dec_layers), cfg,
@@ -167,8 +170,9 @@ def decode_train(params, cfg, memory, tokens):
 
 def forward(params, cfg, frames, tokens):
     """(logits, aux): aux is 0, as in the JAX package."""
-    memory = encode(params, cfg, frames)
-    logits = decode_train(params, cfg, memory, tokens)
+    with sharding.mesh_ops(params["ln_f"]):
+        memory = encode(params, cfg, frames)
+        logits = decode_train(params, cfg, memory, tokens)
     return logits, torch.zeros((), dtype=torch.float32, device=logits.device)
 
 
@@ -198,13 +202,18 @@ def prefill(params, cfg, frames, tokens, *, s_alloc: int,
     """Encode the source and teacher-force the target prefix, emitting
     caches (cross k/v at the memory's length).  Returns (last_logits,
     cache)."""
+    with sharding.mesh_ops(params["ln_f"]):
+        return _prefill(params, cfg, frames, tokens, s_alloc, cache_dtype)
+
+
+def _prefill(params, cfg, frames, tokens, s_alloc, cache_dtype):
     memory = encode(params, cfg, frames)
     x = _embed(params, cfg, tokens)
     B, S = x.shape[:2]
     rope = rope_tables(torch.arange(S, device=x.device), cfg.hd(),
                        cfg.rope_theta)
-    caches = init_cache(cfg, B, s_alloc, memory.shape[1], cache_dtype,
-                        x.device)
+    caches = sharding.shard_cache(init_cache(
+        cfg, B, s_alloc, memory.shape[1], cache_dtype, x.device), like=x)
     for p_l, c_l in zip(_unstack(params["dec"], cfg.dec_layers),
                         _unstack(caches, cfg.dec_layers)):
         x = _dec_layer(p_l, x, cfg, memory, rope, c_l)
@@ -215,11 +224,14 @@ def prefill(params, cfg, frames, tokens, *, s_alloc: int,
 def decode_step(params, cfg, caches, tokens, cur_index, *,
                 axis_name: str | None = None):
     """One decode step.  tokens: (B,) int; cur_index: int.  Returns
-    (logits (B, V), caches), the caches updated in place."""
-    if axis_name is not None:
-        raise NotImplementedError("decode across a mesh axis comes with the "
-                                  "model mesh (ROADMAP.md Queue 1, item 14)")
-    cur_index = int(cur_index)
+    (logits (B, V), caches), the caches updated in place; ``axis_name``
+    as ``transformer.decode_step``'s."""
+    with sharding.mesh_ops(params["ln_f"]):
+        return _decode_step(params, cfg, caches, tokens, int(cur_index),
+                            axis_name)
+
+
+def _decode_step(params, cfg, caches, tokens, cur_index, axis_name):
     x = _embed(params, cfg, tokens[:, None])
     pos1 = torch.full((1,), cur_index, dtype=torch.int32, device=x.device)
     rope = rope_tables(pos1, cfg.hd(), cfg.rope_theta)
@@ -233,7 +245,7 @@ def decode_step(params, cfg, caches, tokens, cur_index, *,
         c_l["v"][:, wslot].copy_(v[:, 0])
         c_l["pos"][wslot] = cur_index
         o = attn.combine_partials(attn.decode_attention_gqa(
-            q[:, 0], c_l["k"], c_l["v"], c_l["pos"]))
+            q[:, 0], c_l["k"], c_l["v"], c_l["pos"]), axis_name)
         x, h = _add_then_norm(
             x, attn._out_proj(o.to(x.dtype), p_l["self_attn"]["wo"])[:, None],
             p_l["ln_x"], cfg.norm_eps)
@@ -241,7 +253,7 @@ def decode_step(params, cfg, caches, tokens, cur_index, *,
         ox = attn.combine_partials(attn.decode_attention_gqa(
             qx[:, 0], c_l["xk"], c_l["xv"],
             torch.arange(c_l["xk"].shape[1], dtype=torch.int32,
-                         device=x.device)))
+                         device=x.device)), axis_name)
         x, h = _add_then_norm(
             x, attn._out_proj(ox.to(x.dtype), p_l["cross_attn"]["wo"])[:, None],
             p_l["ln2"], cfg.norm_eps)

@@ -9,16 +9,18 @@ The distributions are those of ``mk``: normal times ``fan_in ** -0.5``
 (``fan_in`` the product of all but the last dim of one layer's shape, the
 first dim of a vector), embeddings times 0.02, norms and biases zero,
 RWKV's output-norm scale one, and the RG-LRU's ``lam`` as Griffin draws
-it (``rglru.py``).
+it (``rglru.py``).  Every spec also carries ``axes``, the logical axis
+names that the JAX package's ``mk`` records beside each leaf (one per
+dim; a stacked group prepends ``"layers"``, :func:`model_axes`), which
+:mod:`repro_torch.dist.sharding` maps onto a mesh.
 ``torch.Generator`` cannot give ``jax.random``'s numbers; tests that
 compare the two packages convert the JAX package's parameters
 (:mod:`repro_torch.models.convert`).
-
-The JAX package's ``Leaf`` and logical axes exist only for its sharding
-rules and have no counterpart here.
 """
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import math
 from typing import NamedTuple
 
@@ -30,6 +32,7 @@ class Spec(NamedTuple):
     shape: tuple[int, ...]
     init: str = "normal"               # normal | zeros | ones | lru_lambda
     scale: float | None = None         # None -> fan_in ** -0.5
+    axes: tuple[str | None, ...] | None = None   # logical names, one a dim
 
 
 #: the RG-LRU's c: a = exp(-c softplus(lam) r) (``rglru.py``)
@@ -152,11 +155,97 @@ def model_shapes(specs: dict) -> dict:
             for name, tree, n in _entries(specs)}
 
 
+def _axes(s: Spec, lead: tuple) -> tuple:
+    if s.axes is None or len(s.axes) != len(s.shape):
+        raise ValueError(f"spec {s} needs one logical axis name per dim")
+    return lead + tuple(s.axes)
+
+
+def model_axes(specs: dict) -> dict:
+    """Every parameter's logical axes, :class:`Stacked` entries with
+    ``"layers"`` first (the JAX package's ``vmap`` rebuild of its
+    ``Leaf`` axes)."""
+    return {name: tree_map(lambda s, lead=(() if n is None else
+                                           ("layers",)): _axes(s, lead),
+                           tree)
+            for name, tree, n in _entries(specs)}
+
+
 def model_materialize(specs: dict, generator: torch.Generator, device,
                       dtype) -> dict:
     """Draw every parameter of a model's specs (:func:`materialize`)."""
     return {name: materialize(tree, generator, device, dtype, n)
             for name, tree, n in _entries(specs)}
+
+
+# ---------------------------------------------------------------------------
+# shapes only (the dry run on the meta device)
+# ---------------------------------------------------------------------------
+
+_SHAPE_ONLY: contextvars.ContextVar = contextvars.ContextVar(
+    "repro_torch_shape_only", default=False)
+
+
+@contextlib.contextmanager
+def shape_only():
+    """Inside the block, the two computations whose cost on the ``meta``
+    device grows with the sequence (attention, ``attention.
+    flash_attention``, and RWKV's time loop, ``rwkv6._wkv_scan``) return
+    their outputs' shapes and types on meta tensors without computing:
+    the dry run builds its steps on meta, which holds no data, and takes
+    its FLOPs from the analytic model.  Neither issues a collective."""
+    token = _SHAPE_ONLY.set(True)
+    try:
+        yield
+    finally:
+        _SHAPE_ONLY.reset(token)
+
+
+def shape_only_active() -> bool:
+    return _SHAPE_ONLY.get()
+
+
+# ---------------------------------------------------------------------------
+# named residuals (JAX's checkpoint_name)
+# ---------------------------------------------------------------------------
+
+@torch.library.custom_op("repro_torch::checkpoint_name", mutates_args=())
+def _checkpoint_name(x: torch.Tensor, name: str) -> torch.Tensor:
+    """Identity that carries ``name`` to a selective-checkpoint policy."""
+    return x.clone()
+
+
+@_checkpoint_name.register_fake
+def _(x, name):
+    return torch.empty_like(x)
+
+
+_checkpoint_name.register_autograd(lambda ctx, grad: (grad, None))
+
+_NAMING: contextvars.ContextVar = contextvars.ContextVar(
+    "repro_torch_checkpoint_names", default=False)
+
+
+@contextlib.contextmanager
+def naming():
+    """Inside the block, :func:`checkpoint_name` tags its tensors (a
+    ``"save_block_io"`` layer, forward and recompute alike)."""
+    token = _NAMING.set(True)
+    try:
+        yield
+    finally:
+        _NAMING.reset(token)
+
+
+def checkpoint_name(x, name: str):
+    """``x`` tagged ``name`` for the remat policy ``"save_block_io"``,
+    through the ``repro_torch::checkpoint_name`` op (a copy) inside
+    :func:`naming`; ``x`` itself anywhere else.  The op has no DTensor
+    sharding rule: on a mesh ``"save_block_io"`` raises (no config of the
+    repo sets it)."""
+    if not _NAMING.get():
+        return x
+    return _checkpoint_name(x, name)
 
 
 # ---------------------------------------------------------------------------
@@ -213,7 +302,8 @@ def rotate(x, tables: RopeTables):
     same products and sums as the JAX package's ``apply_rope``, so the
     same bits."""
     x32 = x.float()
-    swapped = torch.roll(x32, x.shape[-1] // 2, dims=-1)        # [x2, x1]
+    h = x.shape[-1] // 2
+    swapped = torch.cat([x32[..., h:], x32[..., :h]], dim=-1)   # [x2, x1]
     return (x32 * tables.cos + swapped * tables.sin).to(x.dtype)
 
 
@@ -227,9 +317,10 @@ def apply_rope(x, positions, theta: float):
 # ---------------------------------------------------------------------------
 
 def init_mlp(d_model: int, d_ff: int, act: str = "silu") -> dict:
-    p = {"wi": Spec((d_model, d_ff)), "wo": Spec((d_ff, d_model))}
+    p = {"wi": Spec((d_model, d_ff), axes=("embed", "ffn")),
+         "wo": Spec((d_ff, d_model), axes=("ffn", "embed"))}
     if act in ("silu", "swiglu", "geglu"):
-        p["wg"] = Spec((d_model, d_ff))
+        p["wg"] = Spec((d_model, d_ff), axes=("embed", "ffn"))
     return p
 
 
@@ -257,15 +348,40 @@ def apply_mlp(p, x, act: str = "silu"):
 # ---------------------------------------------------------------------------
 
 def init_embeddings(cfg) -> dict:
-    p = {"tok": Spec((cfg.vocab_size, cfg.d_model), scale=0.02)}
+    p = {"tok": Spec((cfg.vocab_size, cfg.d_model), scale=0.02,
+                     axes=("vocab", "embed"))}
     if not cfg.tied_embeddings:
-        p["unembed"] = Spec((cfg.d_model, cfg.vocab_size))
+        p["unembed"] = Spec((cfg.d_model, cfg.vocab_size),
+                            axes=("embed", "vocab"))
     return p
 
 
 def embed_tokens(p, tokens, compute_dtype):
     # gather, then cast: the same values as casting the whole table first
+    if type(tokens).__name__ == "DTensor":
+        return _embed_on_mesh(p["tok"], tokens).to(compute_dtype)
     return p["tok"][tokens].to(compute_dtype)
+
+
+def _embed_on_mesh(tok, tokens):
+    """The lookup of DTensor ``tokens`` under ``local_map``: each rank
+    gathers its own batch rows from the whole table (gathered first), so
+    the table's gradient is a partial sum over the batch axes; DTensor's
+    own index ops are left out (PyTorch 2.11's fail on a sharded index)."""
+    from torch.distributed.tensor import Partial, Replicate
+    from torch.distributed.tensor.experimental import local_map
+
+    from repro_torch.dist import sharding
+
+    mesh = tokens.device_mesh
+    tok = sharding.on_mesh(tok, mesh)
+    tok_pl = (Replicate(),) * mesh.ndim
+    tok_grad = tuple(Partial() if p.is_shard() else Replicate()
+                     for p in tokens.placements)
+    return local_map(lambda t, i: t[i], out_placements=(tokens.placements,),
+                     in_placements=(tok_pl, tokens.placements),
+                     in_grad_placements=(tok_grad, tokens.placements),
+                     device_mesh=mesh, redistribute_inputs=True)(tok, tokens)
 
 
 def unembed(p, x, tied: bool):

@@ -22,8 +22,10 @@ from dataclasses import dataclass
 
 import torch
 
+from repro_torch.dist import sharding
+
 from . import encdec, transformer
-from .layers import resolve_device
+from .layers import resolve_device, torch_dtype, tree_map
 
 
 def family_module(cfg):
@@ -33,8 +35,10 @@ def family_module(cfg):
 
 
 def cross_entropy(logits, targets, mask, *, z_loss: float = 0.0):
-    """Mean CE over masked positions; f32 logsumexp; optional z-loss."""
-    logits = logits.float()
+    """Mean CE over masked positions; f32 logsumexp; optional z-loss.  On
+    a mesh the logits' vocab dim is gathered first (the target's logit is
+    read by index)."""
+    logits = sharding.replicate_dim(logits.float(), -1)
     lse = torch.logsumexp(logits, dim=-1)
     ll = torch.gather(logits, -1, targets[..., None].long())[..., 0]
     nll = (lse - ll) * mask
@@ -57,6 +61,17 @@ class Model:
         gen = torch.Generator(device=dev)
         gen.manual_seed(seed)
         return family_module(self.cfg).init_params(self.cfg, gen, dev)
+
+    def abstract_params(self):
+        """``(values, axes)`` without allocating: every leaf a tensor on
+        the ``meta`` device in ``cfg.param_dtype``, and the logical axes
+        beside it (the JAX package's ``eval_shape`` and ``split``)."""
+        fam = family_module(self.cfg)
+        dt = torch_dtype(self.cfg.param_dtype)
+        values = tree_map(lambda shape: torch.empty(shape, dtype=dt,
+                                                    device="meta"),
+                          fam.param_shapes(self.cfg))
+        return values, fam.param_axes(self.cfg)
 
     def compute_params(self, values) -> dict:
         return transformer.compute_params(values, self.cfg)

@@ -17,8 +17,27 @@ Tokens an expert cannot take (position >= capacity C) are dropped, as in
 the reference: their slot is the overflow row ``E * C``, which is never
 read back.  The expert FFN is three batched matrix products over the
 stacked weights; the JAX package computes them in jnp, outside any Pallas
-kernel, so no TPU kernel is ported here.  The expert-parallel form
-(``apply_moe_sharded``) comes with the model mesh.
+kernel, so no TPU kernel is ported here.
+
+On a mesh (DTensor activations):
+
+  * :func:`apply_moe_sharded` is the expert-parallel form (reference
+    ``apply_moe_sharded``, under ``local_map``, ``shard_map``'s
+    counterpart): tokens batch-sharded over (pod, data) and replicated
+    over ``model``, experts sharded over ``model``.  Each rank routes its
+    tokens, computes only its ``E / n_model`` experts with a per-device
+    capacity, and one SUM over ``model`` combines the outputs.  The
+    routing runs in its own ``local_map`` ahead of the experts, so the
+    router's gradient is the same on every ``model`` rank and the token
+    and gate gradients of the experts are partial sums over ``model``;
+    every weight's gradient is a partial sum over the batch axes (each
+    rank's tokens' share).  The aux
+    loss is the global one (expert counts and probability sums summed
+    over the batch axes), as :func:`apply_moe` computes it.
+  * :func:`apply_moe` without the expert-parallel path (no ``model`` axis
+    over 1, or experts it does not divide) runs on the gathered tokens
+    on every rank, so its capacity is the global one, as in the JAX
+    package's single program.
 """
 from __future__ import annotations
 
@@ -26,10 +45,9 @@ from typing import NamedTuple
 
 import torch
 
-from .layers import Spec, silu
+from repro_torch.dist import sharding
 
-#: where the expert-parallel MoE is planned
-_ROADMAP_MESH = "ROADMAP.md Queue 1, item 14 (model mesh)"
+from .layers import Spec, silu
 
 
 def init_moe(cfg) -> dict:
@@ -38,29 +56,139 @@ def init_moe(cfg) -> dict:
     m = cfg.moe
     d, E, ff = cfg.d_model, m.n_experts, m.d_ff_expert
     p = {
-        "router": Spec((d, E), scale=0.02),
-        "wi": Spec((E, d, ff)),
-        "wg": Spec((E, d, ff)),
-        "wo": Spec((E, ff, d)),
+        "router": Spec((d, E), scale=0.02, axes=("embed", "expert")),
+        "wi": Spec((E, d, ff), axes=("expert", "embed", "ffn")),
+        "wg": Spec((E, d, ff), axes=("expert", "embed", "ffn")),
+        "wo": Spec((E, ff, d), axes=("expert", "ffn", "embed")),
     }
     if m.n_shared_experts:
         sff = m.d_ff_shared or m.d_ff_expert * m.n_shared_experts
-        p["shared_wi"] = Spec((d, sff))
-        p["shared_wg"] = Spec((d, sff))
-        p["shared_wo"] = Spec((sff, d))
+        p["shared_wi"] = Spec((d, sff), axes=("embed", "ffn"))
+        p["shared_wg"] = Spec((d, sff), axes=("embed", "ffn"))
+        p["shared_wo"] = Spec((sff, d), axes=("ffn", "embed"))
     return p
 
 
 def moe_sharding_available(cfg) -> bool:
-    """Whether the expert-parallel path applies: never off a mesh, and
-    the port has no mesh yet."""
-    return False
+    """Whether the expert-parallel path applies: a current mesh with a
+    ``model`` axis over 1 that divides the experts."""
+    mesh = sharding.current_mesh()
+    if mesh is None:
+        return False
+    n_model = sharding.mesh_sizes(mesh).get("model", 1)
+    return n_model > 1 and cfg.moe.n_experts % n_model == 0
+
+
+def _on_mesh(x, mesh, pl):
+    """``x`` as a DTensor on ``mesh`` laid out as ``pl``; a plain tensor is
+    taken as the same global value on every rank."""
+    from torch.distributed.tensor import Replicate, distribute_tensor
+
+    if not sharding.is_dtensor(x):
+        x = distribute_tensor(x, mesh, [Replicate()] * mesh.ndim,
+                              src_data_rank=None)
+    return x.redistribute(mesh, pl)
 
 
 def apply_moe_sharded(p, x, cfg):
-    raise NotImplementedError(
-        "the expert-parallel MoE (tokens replicated over the model axis, "
-        f"experts sharded over it) comes with {_ROADMAP_MESH}")
+    """Expert-parallel MoE on the current mesh (module docstring): x
+    (B, S, d) -> (out, aux), both DTensors, out batch-sharded over (pod,
+    data) and replicated over ``model``."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    m = cfg.moe
+    mesh = sharding.current_mesh()
+    if mesh is None:
+        raise RuntimeError("apply_moe_sharded runs on the current mesh "
+                           "(dist.sharding.use_mesh) and there is none")
+    names = sharding.mesh_axes(mesh)
+    sizes = sharding.mesh_sizes(mesh)
+    n_model = sizes["model"]
+    E, k = m.n_experts, m.top_k
+    E_loc = E // n_model
+    B, S, d = x.shape
+    batch = tuple(a for a in ("pod", "data")
+                  if sizes.get(a, 1) > 1 and B % sizes[a] == 0)
+
+    def pl(on_batch, on_model):
+        return tuple(on_batch if a in batch else on_model if a == "model"
+                     else Replicate() for a in names)
+
+    tok = pl(Shard(0), Replicate())           # tokens, gates, ids
+    rep = pl(Replicate(), Replicate())
+    tok_partial = pl(Shard(0), Partial())     # grads of expert inputs
+    summed = pl(Partial(), Replicate())       # counts, probability sums
+    out_pl = pl(Shard(0), Partial())
+    expert = pl(Replicate(), Shard(0))
+    expert_grad = pl(Partial(), Shard(0))     # each rank's tokens' share
+    sff = m.d_ff_shared or m.d_ff_expert * m.n_shared_experts
+    shared_ok = bool(m.n_shared_experts) and sff % n_model == 0
+
+    def local_route(xb, router):
+        T = xb.shape[0] * xb.shape[1]
+        logits = xb.reshape(T, d).float() @ router.float()
+        probs = torch.softmax(logits, dim=-1)
+        gates, ids = torch.topk(probs, k, dim=-1, sorted=True)
+        gates = gates / torch.clamp(gates.sum(-1, keepdim=True), min=1e-9)
+        counts = torch.zeros(E, dtype=torch.float32, device=xb.device
+                             ).index_add(0, ids.reshape(-1),
+                                         torch.ones(T * k, device=xb.device))
+        return (gates.view(*xb.shape[:2], k), ids.view(*xb.shape[:2], k),
+                counts, probs.sum(dim=0))
+
+    gates, ids, counts, prob_sum = local_map(
+        local_route, out_placements=(tok, tok, summed, summed),
+        in_placements=(tok, rep), in_grad_placements=(tok, summed),
+        device_mesh=mesh, redistribute_inputs=True)(_on_mesh(x, mesh, tok),
+                                  _on_mesh(p["router"], mesh, rep))
+    T = B * S
+    aux = E * torch.sum(counts / (T * k) * (prob_sum / T)) \
+        * m.router_aux_weight
+
+    col = mesh.get_local_rank("model")
+
+    def local_experts(xb, gb, ib, wi, wg, wo, *shared):
+        B_l, S_l, _ = xb.shape
+        T_l = B_l * S_l
+        dt = xb.dtype
+        xf = xb.reshape(T_l, d)
+        local_ids = ib.reshape(T_l, k) - col * E_loc
+        mine = ((local_ids >= 0) & (local_ids < E_loc)).reshape(-1)
+        C = int(max(1, round(T_l * k * m.capacity_factor / E)))
+        flat = torch.where(mine, local_ids.reshape(-1), E_loc)
+        _, keep, slot = _place(flat, E_loc, C, mine)
+        out = _expert_ffn(xf, gb.reshape(T_l, k), keep, slot, E_loc, C,
+                          wi, wg, wo)
+        if shared:
+            swi, swg, swo = shared    # ffn dim over model: row-parallel
+            out = out + (xf @ swi.to(dt) * silu(xf @ swg.to(dt))) \
+                @ swo.to(dt)
+        return out.view(B_l, S_l, d)
+
+    args = [_on_mesh(x, mesh, tok), gates, ids]
+    args += [_on_mesh(p[n], mesh, expert) for n in ("wi", "wg", "wo")]
+    in_pl = [tok, tok, tok, expert, expert, expert]
+    grad_pl = [tok_partial, tok_partial, tok] + [expert_grad] * 3
+    if shared_ok:
+        col_split, row_split = pl(Replicate(), Shard(1)), expert
+        args += [_on_mesh(p["shared_wi"], mesh, col_split),
+                 _on_mesh(p["shared_wg"], mesh, col_split),
+                 _on_mesh(p["shared_wo"], mesh, row_split)]
+        in_pl += [col_split, col_split, row_split]
+        grad_pl += [pl(Partial(), Shard(1))] * 2 + [expert_grad]
+    out = local_map(local_experts, out_placements=(out_pl,),
+                    in_placements=tuple(in_pl),
+                    in_grad_placements=tuple(grad_pl), device_mesh=mesh,
+                    redistribute_inputs=True)(*args)
+    out = out.redistribute(mesh, tok)
+    if m.n_shared_experts and not shared_ok:
+        xf = x.reshape(-1, d)
+        hs = xf @ p["shared_wi"].to(x.dtype)
+        gs = xf @ p["shared_wg"].to(x.dtype)
+        out = out + ((hs * silu(gs)) @ p["shared_wo"].to(x.dtype)
+                     ).reshape(x.shape)
+    return out, aux
 
 
 def capacity(T: int, moe) -> int:
@@ -81,6 +209,51 @@ class Routing(NamedTuple):
     C: int                  # capacity per expert
 
 
+def _place(flat_ids, E: int, C: int, mine=None):
+    """(pos, keep, slot) of ``T * k`` token-major assignments to ``E``
+    experts of ``C`` slots: position in expert by a one-hot cumsum,
+    ``keep = pos < C`` (and ``mine``, where given), dropped assignments to
+    the overflow row ``E * C``.  With ``mine``, an id of ``E`` marks an
+    assignment to no expert of this rank (a bucket of its own)."""
+    n = E if mine is None else E + 1
+    # the one-hot laid out (E, T * k), so the cumsum runs along the inner
+    # dim: PyTorch's CUDA scan over an outer dim took 12 ms of
+    # deepseek-v3's 4,096-token prefill (T * k 32,768, E 256), the inner
+    # one does the same sums
+    onehot = torch.nn.functional.one_hot(flat_ids, n).T.to(torch.int32)
+    pos = torch.cumsum(onehot, dim=1, dtype=torch.int32).gather(
+        0, flat_ids[None])[0] - 1
+    keep = pos < C if mine is None else (pos < C) & mine
+    slot = torch.where(keep, flat_ids * C + pos, E * C)
+    return pos, keep, slot
+
+
+def _expert_ffn(xf, gates, keep, slot, E: int, C: int, wi, wg, wo):
+    """Dispatch, expert FFN and combine of tokens ``xf`` (T, d) routed
+    to ``slot`` (:func:`_place`) of ``E`` stacked experts: (T, d) in
+    xf's type."""
+    T, d = xf.shape
+    k = gates.shape[1]
+    dt = xf.dtype
+    # dispatch: each kept assignment to its own row of (E*C + 1, d)
+    tok_idx = torch.arange(T, device=xf.device).repeat_interleave(k)
+    buf = torch.zeros((E * C + 1, d), dtype=dt, device=xf.device).index_add(
+        0, slot, xf[tok_idx] * keep[:, None].to(dt))
+    expert_in = buf[: E * C].view(E, C, d)
+
+    # expert FFN over the stacked weights
+    h = torch.bmm(expert_in, wi.to(dt))
+    g = torch.bmm(expert_in, wg.to(dt))
+    expert_out = torch.bmm(h * silu(g), wo.to(dt))
+
+    # combine: gather back per assignment, weight, sum over k
+    flat_out = torch.cat([expert_out.reshape(E * C, d),
+                          torch.zeros((1, d), dtype=dt, device=xf.device)])
+    gathered = flat_out[slot].view(T, k, d)
+    w = (gates * keep.view(T, k)).to(dt)
+    return torch.einsum("tkd,tk->td", gathered, w)
+
+
 def route(logits: torch.Tensor, moe) -> Routing:
     """Top-k routing of f32 logits ``(T, E)``, line for line the
     reference's: softmax, top-k (sorted, descending), gates renormalised
@@ -92,16 +265,7 @@ def route(logits: torch.Tensor, moe) -> Routing:
     gates, ids = torch.topk(probs, k, dim=-1, sorted=True)
     gates = gates / torch.clamp(gates.sum(-1, keepdim=True), min=1e-9)
     C = capacity(T, moe)
-    flat_ids = ids.reshape(-1)
-    # the one-hot laid out (E, T * k), so the cumsum runs along the inner
-    # dim: PyTorch's CUDA scan over an outer dim took 12 ms of
-    # deepseek-v3's 4,096-token prefill (T * k 32,768, E 256), the inner
-    # one does the same sums
-    onehot = torch.nn.functional.one_hot(flat_ids, E).T.to(torch.int32)
-    pos = torch.cumsum(onehot, dim=1, dtype=torch.int32).gather(
-        0, flat_ids[None])[0] - 1
-    keep = pos < C
-    slot = torch.where(keep, flat_ids * C + pos, E * C)
+    pos, keep, slot = _place(ids.reshape(-1), E, C)
     return Routing(probs, ids, gates, pos, keep, slot, C)
 
 
@@ -117,36 +281,23 @@ def aux_loss(r: Routing, moe) -> torch.Tensor:
 
 
 def apply_moe(p, x, cfg):
-    """x: (B, S, d) -> (out (B, S, d) in x's type, aux f32 scalar)."""
+    """x: (B, S, d) -> (out (B, S, d) in x's type, aux f32 scalar).  On
+    DTensors: the whole computation on every rank over the gathered
+    tokens (module docstring)."""
+    if sharding.is_dtensor(x):
+        return sharding.replicated_call(lambda pp, xx: apply_moe(pp, xx, cfg),
+                                        p, x, like=x)
     m = cfg.moe
     B, S, d = x.shape
-    E, k = m.n_experts, m.top_k
-    T = B * S
+    E = m.n_experts
     dt = x.dtype
-    xf = x.reshape(T, d)
+    xf = x.reshape(B * S, d)
 
     logits = xf.float() @ p["router"].float()                     # (T, E)
     r = route(logits, m)
     aux = aux_loss(r, m)
-    C = r.C
-
-    # dispatch: each kept assignment to its own row of (E*C + 1, d)
-    tok_idx = torch.arange(T, device=x.device).repeat_interleave(k)
-    buf = torch.zeros((E * C + 1, d), dtype=dt, device=x.device).index_add(
-        0, r.slot, xf[tok_idx] * r.keep[:, None].to(dt))
-    expert_in = buf[: E * C].view(E, C, d)
-
-    # expert FFN over the stacked weights
-    h = torch.bmm(expert_in, p["wi"].to(dt))
-    g = torch.bmm(expert_in, p["wg"].to(dt))
-    expert_out = torch.bmm(h * silu(g), p["wo"].to(dt))
-
-    # combine: gather back per assignment, weight, sum over k
-    flat_out = torch.cat([expert_out.reshape(E * C, d),
-                          torch.zeros((1, d), dtype=dt, device=x.device)])
-    gathered = flat_out[r.slot].view(T, k, d)
-    w = (r.gates * r.keep.view(T, k)).to(dt)
-    out = torch.einsum("tkd,tk->td", gathered, w)
+    out = _expert_ffn(xf, r.gates, r.keep, r.slot, E, r.C, p["wi"], p["wg"],
+                      p["wo"])
 
     if m.n_shared_experts:
         hs = xf @ p["shared_wi"].to(dt)

@@ -21,6 +21,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.dist.sharding import unflatten_last
+
 from .layers import LRU_C, Spec
 
 
@@ -31,16 +33,16 @@ def init_rglru_block(cfg) -> dict:
     H = cfg.n_heads
     bd = D // H
     return {
-        "w_gelu": Spec((d, D)),
-        "w_rec": Spec((d, D)),
-        "conv_w": Spec((cfg.conv_width, D), scale=0.1),
-        "conv_b": Spec((D,), "zeros"),
-        "gate_a": Spec((H, bd, bd)),
-        "gate_a_b": Spec((D,), "zeros"),
-        "gate_x": Spec((H, bd, bd)),
-        "gate_x_b": Spec((D,), "zeros"),
-        "lam": Spec((D,), "lru_lambda"),
-        "w_out": Spec((D, d)),
+        "w_gelu": Spec((d, D), axes=("embed", "ffn")),
+        "w_rec": Spec((d, D), axes=("embed", "ffn")),
+        "conv_w": Spec((cfg.conv_width, D), scale=0.1, axes=(None, "ffn")),
+        "conv_b": Spec((D,), "zeros", axes=("ffn",)),
+        "gate_a": Spec((H, bd, bd), axes=("heads", None, None)),
+        "gate_a_b": Spec((D,), "zeros", axes=("ffn",)),
+        "gate_x": Spec((H, bd, bd), axes=("heads", None, None)),
+        "gate_x_b": Spec((D,), "zeros", axes=("ffn",)),
+        "lam": Spec((D,), "lru_lambda", axes=("ffn",)),
+        "w_out": Spec((D, d), axes=("ffn", "embed")),
     }
 
 
@@ -48,7 +50,7 @@ def _block_diag(u, w, b, H: int):
     """u: (..., D) through block-diagonal (H, D/H, D/H) + bias, in u's
     type."""
     shp = u.shape
-    uh = u.reshape(*shp[:-1], H, shp[-1] // H)
+    uh = unflatten_last(u, H, shp[-1] // H)
     out = torch.einsum("...hi,hij->...hj", uh, w.to(u.dtype))
     return out.reshape(shp) + b.to(u.dtype)
 

@@ -16,7 +16,9 @@ from __future__ import annotations
 
 import torch
 
-from .layers import Spec, groupnorm_heads, silu
+from repro_torch.dist.sharding import unflatten_last
+
+from .layers import Spec, groupnorm_heads, shape_only_active, silu
 
 _TM_RANK = 32
 _TD_RANK = 64
@@ -28,21 +30,22 @@ def init_rwkv_time_mix(cfg) -> dict:
     hd = cfg.rwkv_head_size
     H = d // hd
     return {
-        "maa_x": Spec((d,), "zeros"),
-        "maa_wkvrg": Spec((5, d), "zeros"),
-        "maa_w1": Spec((d, 5 * _TM_RANK), scale=0.01),
-        "maa_w2": Spec((5, _TM_RANK, d), scale=0.01),
-        "decay": Spec((d,), "zeros"),
-        "decay_w1": Spec((d, _TD_RANK), scale=0.01),
-        "decay_w2": Spec((_TD_RANK, d), scale=0.01),
-        "bonus": Spec((H, hd), scale=0.1),
-        "wr": Spec((d, d)),
-        "wk": Spec((d, d)),
-        "wv": Spec((d, d)),
-        "wg": Spec((d, d)),
-        "wo": Spec((d, d)),
-        "ln_x_scale": Spec((H, hd), "ones"),
-        "ln_x_bias": Spec((H, hd), "zeros"),
+        "maa_x": Spec((d,), "zeros", axes=("embed",)),
+        "maa_wkvrg": Spec((5, d), "zeros", axes=(None, "embed")),
+        "maa_w1": Spec((d, 5 * _TM_RANK), scale=0.01, axes=("embed", None)),
+        "maa_w2": Spec((5, _TM_RANK, d), scale=0.01,
+                       axes=(None, None, "embed")),
+        "decay": Spec((d,), "zeros", axes=("embed",)),
+        "decay_w1": Spec((d, _TD_RANK), scale=0.01, axes=("embed", None)),
+        "decay_w2": Spec((_TD_RANK, d), scale=0.01, axes=(None, "embed")),
+        "bonus": Spec((H, hd), scale=0.1, axes=("heads", "head_dim")),
+        "wr": Spec((d, d), axes=("embed", "ffn")),
+        "wk": Spec((d, d), axes=("embed", "ffn")),
+        "wv": Spec((d, d), axes=("embed", "ffn")),
+        "wg": Spec((d, d), axes=("embed", "ffn")),
+        "wo": Spec((d, d), axes=("ffn", "embed")),
+        "ln_x_scale": Spec((H, hd), "ones", axes=("heads", "head_dim")),
+        "ln_x_bias": Spec((H, hd), "zeros", axes=("heads", "head_dim")),
     }
 
 
@@ -50,11 +53,11 @@ def init_rwkv_channel_mix(cfg) -> dict:
     """Parameter specs of one channel-mix."""
     d, ff = cfg.d_model, cfg.d_ff
     return {
-        "maa_k": Spec((d,), "zeros"),
-        "maa_r": Spec((d,), "zeros"),
-        "wk": Spec((d, ff)),
-        "wv": Spec((ff, d)),
-        "wr": Spec((d, d)),
+        "maa_k": Spec((d,), "zeros", axes=("embed",)),
+        "maa_r": Spec((d,), "zeros", axes=("embed",)),
+        "wk": Spec((d, ff), axes=("embed", "ffn")),
+        "wv": Spec((ff, d), axes=("ffn", "embed")),
+        "wr": Spec((d, d), axes=("embed", "ffn")),
     }
 
 
@@ -74,7 +77,7 @@ def time_mix(p, x, cfg, state):
     prev = _shifted(x, state["x_tm"].to(dt))
     sx = prev - x
     xxx = x + sx * p["maa_x"].to(dt)
-    dd = torch.tanh(xxx @ p["maa_w1"].to(dt)).reshape(B, S, 5, _TM_RANK)
+    dd = unflatten_last(torch.tanh(xxx @ p["maa_w1"].to(dt)), 5, _TM_RANK)
     dd = torch.einsum("bsfr,frd->bsfd", dd, p["maa_w2"].to(dt))
     mix = p["maa_wkvrg"].to(dt) + dd                          # (B,S,5,d)
     xw, xk, xv, xr, xg = (x + sx * mix[:, :, i] for i in range(5))
@@ -85,11 +88,11 @@ def time_mix(p, x, cfg, state):
            @ p["decay_w2"].to(dt)).float())                   # (B,S,d) < 0
     w = torch.exp(logw)                                       # decay in (0,1)
 
-    r = (xr @ p["wr"].to(dt)).reshape(B, S, H, hd).float()
-    k = (xk @ p["wk"].to(dt)).reshape(B, S, H, hd).float()
-    v = (xv @ p["wv"].to(dt)).reshape(B, S, H, hd).float()
+    r = unflatten_last(xr @ p["wr"].to(dt), H, hd).float()
+    k = unflatten_last(xk @ p["wk"].to(dt), H, hd).float()
+    v = unflatten_last(xv @ p["wv"].to(dt), H, hd).float()
     g = silu(xg @ p["wg"].to(dt))
-    y, S_final = _wkv_scan(r, k, v, w.reshape(B, S, H, hd),
+    y, S_final = _wkv_scan(r, k, v, unflatten_last(w, H, hd),
                            p["bonus"].float(), state["S"].float())
     y = groupnorm_heads(y, p["ln_x_scale"], p["ln_x_bias"]).to(dt)
     out = (y.reshape(B, S, d) * g) @ p["wo"].to(dt)
@@ -101,6 +104,8 @@ def _wkv_scan(r, k, v, w, u, S0):
     package's ``lax.scan`` body): r, k, v, w (B, S, H, hd); u (H, hd);
     S0 (B, H, hd, hd).  Returns (y (B, S, H, hd), S after the last
     step)."""
+    if r.device.type == "meta" and shape_only_active():
+        return _ScanShape.apply(r, k, v, w, u, S0)
     u = u[None, :, :, None]                                   # (1,H,hd,1)
     Sst, ys = S0, []
     for t in range(r.shape[1]):
@@ -108,6 +113,20 @@ def _wkv_scan(r, k, v, w, u, S0):
         ys.append(torch.einsum("bhi,bhij->bhj", r[:, t], Sst + u * kv))
         Sst = w[:, t, :, :, None] * Sst + kv
     return torch.stack(ys, dim=1), Sst
+
+
+class _ScanShape(torch.autograd.Function):
+    """:func:`_wkv_scan`'s outputs' shapes on ``meta`` tensors
+    (``layers.shape_only``), with gradients of the inputs' shapes."""
+
+    @staticmethod
+    def forward(ctx, r, k, v, w, u, S0):
+        ctx.save_for_backward(r, k, v, w, u, S0)
+        return torch.empty_like(r), torch.empty_like(S0)
+
+    @staticmethod
+    def backward(ctx, gy, gs):
+        return tuple(torch.empty_like(t) for t in ctx.saved_tensors)
 
 
 def channel_mix(p, x, state):

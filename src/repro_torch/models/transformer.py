@@ -19,12 +19,20 @@ What differs from the JAX package, and why:
   * The layers run as a Python loop over views of the stacked
     parameters.  ``scan_layers`` shapes what XLA compiles and is read
     nowhere here.  ``forward`` honours ``remat`` as the JAX package's
-    ``jax.checkpoint`` of each layer: ``"full"`` (every config's
-    default) runs each block under ``torch.utils.checkpoint`` where a
-    gradient is wanted, so the backward recomputes the block, kernel F
-    included; ``"none"`` keeps every activation.  The named-residual
-    policies ``"dots"`` and ``"save_block_io"`` raise
-    ``NotImplementedError`` (ROADMAP.md Queue 1, item 23).
+    ``jax.checkpoint`` of each layer (:func:`remat_call`), where a
+    gradient is wanted: ``"full"`` (every config's default) runs each
+    block under ``torch.utils.checkpoint``, so the backward recomputes
+    the block, kernel F included; ``"none"`` keeps every activation;
+    ``"dots"`` and ``"save_block_io"`` run it under a selective
+    checkpoint (``create_selective_checkpoint_contexts``) whose policy
+    saves, for ``"dots"``, the outputs of matrix products without batch
+    dims (``aten.mm``, ``aten.addmm``: JAX's
+    ``checkpoint_dots_with_no_batch_dims``) and, for
+    ``"save_block_io"``, only the block outputs tagged ``attn_out`` and
+    ``ffn_out`` by :func:`~repro_torch.models.layers.checkpoint_name`
+    (an identity custom op, ``repro_torch::checkpoint_name``, whose name
+    argument the policy reads: JAX's ``checkpoint_name`` and
+    ``save_only_these_names``); everything else is recomputed.
   * Training passes the f32 master parameters straight in: every use
     casts a matrix to the compute dtype inside the graph, so gradients
     reach the f32 leaves.  Serving casts them once first
@@ -32,27 +40,41 @@ What differs from the JAX package, and why:
   * The cache is one preallocated tensor per group, written in place by
     ``prefill`` and ``decode_step``, which return the same dict: the
     counterpart of ``dynamic_update_slice`` with a donated cache.
-  * ``constrain_act``/``constrain_seq`` and the flash-decoding path
-    (``_use_sharded_decode``) do nothing off a mesh; they come with the
-    model mesh (ROADMAP.md Queue 1, item 14).
-  * The expert-parallel MoE (``apply_moe_sharded``) comes with the model
-    mesh too; off a mesh the JAX package runs ``apply_moe``, as here.
+  * On a mesh (parameters and inputs DTensors, a mesh current through
+    ``dist.sharding.use_mesh``) the same code runs on DTensors under
+    ``implicit_replication`` (the tensors the model makes itself, such as
+    positions and rotary tables, count as replicated): the stream is
+    laid out between blocks by ``constrain_act``/``constrain_seq`` where
+    the JAX package constrains it (:func:`_constrain_stream`), attention
+    runs on each rank's heads (``attention.flash_attention`` under
+    ``local_map``; kernel F on a card), the MoE layers take the
+    expert-parallel path where the ``model`` axis divides the experts,
+    and decode with a ``model`` axis over 1 that divides the cache
+    reaches the JAX package's flash-decoding stub
+    (:func:`_use_sharded_decode`, ``dist.collectives``), which raises as
+    it does there.  Off a mesh these are no-ops.
 """
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import torch
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (
+    CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts,
+)
+
+from repro_torch.dist import collectives, sharding
+from repro_torch.dist.sharding import constrain_act, constrain_seq
 
 from . import attention as attn
 from . import moe as moe_mod
 from . import rglru as rglru_mod
 from . import rwkv6 as rwkv_mod
 from .layers import (
-    RopeTables, Spec, Stacked, apply_mlp, embed_tokens, init_embeddings,
-    init_mlp, model_count, model_materialize, model_shapes, rmsnorm,
-    rope_tables, torch_dtype, unembed,
+    RopeTables, Spec, Stacked, apply_mlp, checkpoint_name, embed_tokens,
+    init_embeddings, init_mlp, model_axes, model_count, model_materialize,
+    model_shapes, naming, rmsnorm, rope_tables, torch_dtype, unembed,
 )
 
 #: leaves a norm reads in f32: never cast to the compute dtype
@@ -82,6 +104,62 @@ def check_ported(cfg) -> None:
             f"{ATTENTIONS} attention")
 
 
+def _use_sharded_decode(alloc: int) -> bool:
+    """Flash-decoding path: on when the current mesh has a ``model`` axis
+    over 1 that divides the cache's sequence dim (the JAX package's
+    guard; the path itself is its stub, ``dist.collectives``)."""
+    mesh = sharding.current_mesh()
+    if mesh is None:
+        return False
+    n = sharding.mesh_sizes(mesh).get("model", 1)
+    return n > 1 and alloc % n == 0
+
+
+def _constrain_stream(x, cfg):
+    """Residual-stream layout between blocks: batch over (pod, data);
+    with ``seq_parallel`` also seq over model (Megatron-SP)."""
+    if cfg.seq_parallel and x.ndim >= 3:
+        return constrain_seq(x)
+    return constrain_act(x, profile=cfg.sharding_profile)
+
+
+#: the selective-checkpoint policies of ``remat`` (module docstring)
+_MM = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+_NAMES = ("attn_out", "ffn_out")
+
+
+def _policy(remat: str):
+    def policy(ctx, op, *args, **kwargs):
+        if remat == "dots":
+            save = op in _MM
+        else:
+            save = (op == torch.ops.repro_torch.checkpoint_name.default
+                    and args[1] in _NAMES)
+        return (CheckpointPolicy.MUST_SAVE if save
+                else CheckpointPolicy.PREFER_RECOMPUTE)
+    return policy
+
+
+def remat_call(fn, cfg, *args):
+    """``fn(*args)`` under ``cfg.remat`` where a gradient is wanted: the
+    JAX package's ``_remat`` of a layer ("none": as is; "dots" and
+    "save_block_io": a selective checkpoint; any other: a full one)."""
+    if cfg.remat == "none" or not torch.is_grad_enabled():
+        return fn(*args)
+    if cfg.remat == "save_block_io":
+        named = fn
+
+        def fn(*a):
+            with naming():
+                return named(*a)
+    if cfg.remat in ("dots", "save_block_io"):
+        return checkpoint(fn, *args, use_reentrant=False,
+                          context_fn=functools.partial(
+                              create_selective_checkpoint_contexts,
+                              _policy(cfg.remat)))
+    return checkpoint(fn, *args, use_reentrant=False)
+
+
 def _group_block_types(group_type: str) -> list[str]:
     """The block types of one layer of a group: ``pattern:a,b,c`` or one
     type."""
@@ -99,8 +177,8 @@ def is_local(cfg, block_type: str) -> bool:
 
 
 def _block_spec(cfg, block_type: str) -> dict:
-    p = {"ln1": Spec((cfg.d_model,), "zeros"),
-         "ln2": Spec((cfg.d_model,), "zeros")}
+    p = {"ln1": Spec((cfg.d_model,), "zeros", axes=("embed",)),
+         "ln2": Spec((cfg.d_model,), "zeros", axes=("embed",))}
     if block_type in ("dense_attn", "moe_attn", "attn"):
         p["attn"] = (attn.init_mla(cfg) if cfg.attention == "mla"
                      else attn.init_attention(cfg))
@@ -130,7 +208,7 @@ def param_specs(cfg) -> dict:
     layers, then ``rec, rec``)."""
     check_ported(cfg)
     p = {"embed": init_embeddings(cfg),
-         "ln_f": Spec((cfg.d_model,), "zeros")}
+         "ln_f": Spec((cfg.d_model,), "zeros", axes=("embed",))}
     for gi, (gt, n) in enumerate(cfg.layer_groups()):
         p[f"group{gi}"] = Stacked({f"sub{i}": _block_spec(cfg, bt) for i, bt
                                    in enumerate(_group_block_types(gt))}, n)
@@ -140,6 +218,12 @@ def param_specs(cfg) -> dict:
 def param_count(cfg) -> int:
     """Parameters of ``cfg``, from shapes alone (nothing allocated)."""
     return model_count(param_specs(cfg))
+
+
+def param_axes(cfg) -> dict:
+    """Every parameter's logical axes (``"layers"`` first in a stacked
+    group), the JAX package's ``split`` axes tree."""
+    return model_axes(param_specs(cfg))
 
 
 def param_shapes(cfg) -> dict:
@@ -247,6 +331,8 @@ def _ffn(p, h, cfg, block_type: str):
     """The block's FFN: ``(out, aux)``, aux the MoE's load-balance loss
     (0 for a dense block)."""
     if block_type == "moe_attn":
+        if moe_mod.moe_sharding_available(cfg):
+            return moe_mod.apply_moe_sharded(p["moe"], h, cfg)
         return moe_mod.apply_moe(p["moe"], h, cfg)
     return apply_mlp(p["mlp"], h, cfg.act), _zero_aux(h)
 
@@ -268,15 +354,17 @@ def _apply_recurrent(p, x, cfg, block_type: str, state):
     h = rmsnorm(x, p["ln1"], cfg.norm_eps)
     if block_type == "rec":
         r, new = rglru_mod.rglru_block(p["rec"], h, cfg, state=state)
-        x, h = _add_then_norm(x, r, p["ln2"], cfg.norm_eps)
-        x = x + apply_mlp(p["mlp"], h, cfg.act)
+        x, h = _add_then_norm(x, checkpoint_name(r, "attn_out"), p["ln2"],
+                              cfg.norm_eps)
+        x = _constrain_stream(x + checkpoint_name(
+            apply_mlp(p["mlp"], h, cfg.act), "ffn_out"), cfg)
     else:
         st = state if state is not None else rwkv_mod.init_rwkv_state(
             cfg, x.shape[0], x.device)
         t, tstate = rwkv_mod.time_mix(p["tm"], h, cfg, st)
         x, h = _add_then_norm(x, t, p["ln2"], cfg.norm_eps)
         c, cstate = rwkv_mod.channel_mix(p["cm"], h, st)
-        x = x + c
+        x = constrain_act(x + c)
         new = {**tstate, **cstate}
     if state is not None:
         _write_state(state, new)
@@ -309,9 +397,12 @@ def _apply_block_seq(p, x, cfg, block_type: str, pos: _Positions, cache,
         a = attn._out_proj(a, p["attn"]["wo"])
         if cache is not None:
             _write_cache_kv(cache, k, v, pos.device)
+    a = checkpoint_name(a, "attn_out")
     x, h = _add_then_norm(x, a, p["ln2"], cfg.norm_eps)
+    x = _constrain_stream(x, cfg)
     f, aux = _ffn(p, h, cfg, block_type)
-    return x + f, aux
+    f = checkpoint_name(f, "ffn_out")
+    return _constrain_stream(x + f, cfg), aux
 
 
 def _write_slot(cur_index: int, alloc: int, local: bool) -> int:
@@ -322,8 +413,9 @@ def _write_slot(cur_index: int, alloc: int, local: bool) -> int:
 
 
 def _apply_block_decode(p, x, cfg, block_type: str, cache, cur_index: int,
-                        rope):
-    """One-token application; x: (B, 1, d); ``cache`` written in place."""
+                        rope, axis_name=None):
+    """One-token application; x: (B, 1, d); ``cache`` written in place;
+    ``axis_name`` as :func:`decode_step`'s."""
     if block_type in ("rec", "rwkv"):
         return _apply_recurrent(p, x, cfg, block_type, cache)
     h = rmsnorm(x, p["ln1"], cfg.norm_eps)
@@ -344,10 +436,15 @@ def _apply_block_decode(p, x, cfg, block_type: str, cache, cur_index: int,
         cache["k"][:, wslot].copy_(k[:, 0])
         cache["v"][:, wslot].copy_(v[:, 0])
         cache["pos"][wslot] = cur_index
+        if axis_name is None and _use_sharded_decode(cache["k"].shape[1]):
+            # the JAX package's flash-decoding path: its stub, which raises
+            collectives.sharded_decode_attention_gqa(
+                q[:, 0], cache["k"], cache["v"], cache["pos"],
+                window=cfg.window if local else 0, q_position=cur_index)
         part = attn.decode_attention_gqa(
             q[:, 0], cache["k"], cache["v"], cache["pos"],
             window=cfg.window if local else 0, q_position=cur_index)
-    o = attn.combine_partials(part, None)
+    o = attn.combine_partials(part, axis_name)
     a = attn._out_proj(o.to(x.dtype), p["attn"]["wo"])
     x, h = _add_then_norm(x, a[:, None], p["ln2"], cfg.norm_eps)
     f, _ = _ffn(p, h, cfg, block_type)
@@ -378,11 +475,7 @@ def _embed_inputs(params, cfg, tokens, extra_embeds):
     x = embed_tokens(params["embed"], tokens, dt)
     if extra_embeds is not None:
         x = torch.cat([extra_embeds.to(dt), x], dim=1)
-    return x
-
-
-#: where the remat policies this port lacks are planned
-_ROADMAP_REMAT = "ROADMAP.md Queue 1, item 23 (remat policies)"
+    return constrain_act(x, profile=cfg.sharding_profile)
 
 
 def forward(params, cfg, tokens, *, extra_embeds=None, attention=None):
@@ -396,22 +489,18 @@ def forward(params, cfg, tokens, *, extra_embeds=None, attention=None):
     against autograd through the plain version on a card.
     """
     check_ported(cfg)
-    if cfg.remat not in ("full", "none"):
-        raise NotImplementedError(
-            f"remat {cfg.remat!r}: the port runs 'full' (each layer "
-            f"recomputed in the backward) and 'none'; {_ROADMAP_REMAT}")
-    x = _embed_inputs(params, cfg, tokens, extra_embeds)
-    pos = _positions(x.shape[1], cfg, x.device)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for bt, p_l, _ in _layers(params, cfg):
-        if cfg.remat == "full" and torch.is_grad_enabled():
-            x, a = checkpoint(_apply_block_seq, p_l, x, cfg, bt, pos, None,
-                              attention, use_reentrant=False)
-        else:
-            x, a = _apply_block_seq(p_l, x, cfg, bt, pos, None, attention)
-        aux = aux + a
-    x = rmsnorm(x, params["ln_f"], cfg.norm_eps)
-    logits = unembed(params["embed"], x, cfg.tied_embeddings)
+    with sharding.mesh_ops(params["ln_f"]):
+        x = _embed_inputs(params, cfg, tokens, extra_embeds)
+        pos = _positions(x.shape[1], cfg, x.device)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        for bt, p_l, _ in _layers(params, cfg):
+            x, a = remat_call(_apply_block_seq, cfg, p_l, x, cfg, bt, pos,
+                              None, attention)
+            aux = aux + a
+        x = rmsnorm(x, params["ln_f"], cfg.norm_eps)
+        logits = constrain_act(unembed(params["embed"], x,
+                                       cfg.tied_embeddings),
+                               vocab_dim=True, profile=cfg.sharding_profile)
     return logits, aux
 
 
@@ -458,31 +547,38 @@ def prefill(params, cfg, tokens, *, s_alloc: int, cache_dtype=torch.bfloat16,
     """Forward over the prompt (``extra_embeds`` prepended), emitting
     caches.  Returns (last_logits, cache)."""
     check_ported(cfg)
-    x = _embed_inputs(params, cfg, tokens, extra_embeds)
-    B, S = x.shape[:2]
-    pos = _positions(S, cfg, x.device)
-    caches = init_cache(cfg, B, s_alloc, cache_dtype, x.device)
-    for bt, p_l, c_l in _layers(params, cfg, caches):
-        x, _ = _apply_block_seq(p_l, x, cfg, bt, pos, c_l)
-    x = rmsnorm(x[:, -1:], params["ln_f"], cfg.norm_eps)
-    logits = unembed(params["embed"], x, cfg.tied_embeddings)
+    with sharding.mesh_ops(params["ln_f"]):
+        x = _embed_inputs(params, cfg, tokens, extra_embeds)
+        B, S = x.shape[:2]
+        pos = _positions(S, cfg, x.device)
+        caches = sharding.shard_cache(
+            init_cache(cfg, B, s_alloc, cache_dtype, x.device), like=x)
+        for bt, p_l, c_l in _layers(params, cfg, caches):
+            x, _ = _apply_block_seq(p_l, x, cfg, bt, pos, c_l)
+        x = rmsnorm(x[:, -1:], params["ln_f"], cfg.norm_eps)
+        logits = unembed(params["embed"], x, cfg.tied_embeddings)
     return logits[:, 0], caches
 
 
 def decode_step(params, cfg, caches, tokens, cur_index, *,
                 axis_name: str | None = None):
     """One decode step.  tokens: (B,) int; cur_index: int.  Returns
-    (logits (B, V), caches), the caches updated in place."""
+    (logits (B, V), caches), the caches updated in place.
+
+    ``axis_name``: a mesh axis of the current mesh over which each rank's
+    cache holds part of the keys (the caller's ``local_map`` or process
+    layout, the JAX package's ``shard_map``): the partial softmax stats
+    are merged across it (``attention.combine_partials``)."""
     check_ported(cfg)
-    if axis_name is not None:
-        raise NotImplementedError("decode across a mesh axis comes with the "
-                                  "model mesh (ROADMAP.md Queue 1, item 14)")
     cur_index = int(cur_index)
-    x = _embed_inputs(params, cfg, tokens[:, None], None)
-    pos1 = torch.full((1,), cur_index, dtype=torch.int32, device=x.device)
-    rope = rope_tables(pos1, attn.rope_dim(cfg), cfg.rope_theta)
-    for bt, p_l, c_l in _layers(params, cfg, caches):
-        x = _apply_block_decode(p_l, x, cfg, bt, c_l, cur_index, rope)
-    x = rmsnorm(x, params["ln_f"], cfg.norm_eps)
-    logits = unembed(params["embed"], x, cfg.tied_embeddings)
+    with sharding.mesh_ops(params["ln_f"]):
+        x = _embed_inputs(params, cfg, tokens[:, None], None)
+        pos1 = torch.full((1,), cur_index, dtype=torch.int32,
+                          device=x.device)
+        rope = rope_tables(pos1, attn.rope_dim(cfg), cfg.rope_theta)
+        for bt, p_l, c_l in _layers(params, cfg, caches):
+            x = _apply_block_decode(p_l, x, cfg, bt, c_l, cur_index, rope,
+                                    axis_name)
+        x = rmsnorm(x, params["ln_f"], cfg.norm_eps)
+        logits = unembed(params["embed"], x, cfg.tied_embeddings)
     return logits[:, 0], caches

@@ -20,8 +20,12 @@ Fault-tolerance contract (``launch.train``):
   * ``AsyncCheckpointer`` copies every leaf to the host before ``save``
     returns and writes the files on a background thread; an error there
     is raised at the next ``wait()``.
-Restoring onto a mesh comes with the model mesh (ROADMAP.md Queue 1,
-item 14); ``restore`` places every leaf on one device.
+On a mesh (DTensor leaves) ``save`` writes each leaf's full tensor, so
+the files are the same as one device's: every rank calls it (gathering a
+leaf is a collective) and rank 0 of the process group writes.
+``restore(..., shardings=)`` places each leaf on its target mesh as its
+``NamedSharding`` says, so a checkpoint written on one mesh (or by the
+JAX package on its) loads onto any other.
 """
 from __future__ import annotations
 
@@ -34,7 +38,10 @@ import threading
 import numpy as np
 import torch
 
-from repro_torch.models.layers import resolve_device, tree_unflatten
+from repro_torch.dist import sharding
+from repro_torch.models.layers import (
+    resolve_device, tree_leaves, tree_unflatten,
+)
 
 
 def _flatten_with_paths(tree, prefix: str = ""):
@@ -55,7 +62,10 @@ def _flatten_with_paths(tree, prefix: str = ""):
 
 
 def _to_host(leaf) -> np.ndarray:
-    """A copy of ``leaf`` in host memory as a numpy array."""
+    """A copy of ``leaf`` in host memory as a numpy array (a DTensor's
+    full value: a collective, every rank calls it)."""
+    if sharding.is_dtensor(leaf):
+        leaf = leaf.full_tensor()
     if isinstance(leaf, torch.Tensor):
         if leaf.dtype == torch.bfloat16:
             raise TypeError("bfloat16 leaves have no numpy dtype here; keep "
@@ -65,9 +75,19 @@ def _to_host(leaf) -> np.ndarray:
     return np.array(leaf)
 
 
+def _writer() -> bool:
+    """Whether this process writes: rank 0 of the process group, or the
+    only process."""
+    import torch.distributed as dist
+
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
 def _write(path: str, paths: list[str], host: list[np.ndarray], *,
            step: int, extra: dict | None) -> str:
     final = os.path.join(path, f"step_{step:08d}")
+    if not _writer():
+        return final
     tmp = final + ".tmp"
     if os.path.exists(tmp):
         shutil.rmtree(tmp)
@@ -110,10 +130,19 @@ def latest_step(path: str) -> int | None:
     return best
 
 
-def restore(path: str, step: int, like_tree, *, device="cuda"):
+def restore(path: str, step: int, like_tree, *, device="cuda",
+            shardings=None):
     """Load a checkpoint into the structure of ``like_tree``, every leaf a
     tensor on ``device`` (a CUDA device raises without a card).  Returns
-    (tree, manifest)."""
+    (tree, manifest).
+
+    ``shardings``: optional tree of ``NamedSharding`` beside
+    ``like_tree``: each leaf becomes a DTensor laid out as its sharding
+    on the sharding's mesh (on the mesh's device type; every rank reads
+    the files and keeps its own slice), so any mesh can load any
+    checkpoint (resharding restore)."""
+    if shardings is not None:
+        device = tree_leaves(shardings)[0].mesh.device_type
     dev = resolve_device(device)
     d = os.path.join(path, f"step_{step:08d}")
     with open(os.path.join(d, "manifest.json")) as f:
@@ -125,7 +154,20 @@ def restore(path: str, step: int, like_tree, *, device="cuda"):
             f"{set(paths) ^ set(manifest['paths'])}")
     arrays = [torch.from_numpy(np.load(os.path.join(d, f"arr_{i:05d}.npy")))
               .to(dev) for i in range(len(paths))]
-    return tree_unflatten(like_tree, arrays), manifest
+    tree = tree_unflatten(like_tree, arrays)
+    if shardings is not None:
+        tree = _place(tree, shardings)
+    return tree, manifest
+
+
+def _place(tree, shardings):
+    """``tree``'s tensors distributed as the matching ``shardings``
+    (nested dicts, tuples and lists alike)."""
+    if isinstance(tree, dict):
+        return {k: _place(tree[k], shardings[k]) for k in tree}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_place(t, s) for t, s in zip(tree, shardings))
+    return sharding.distribute(tree, shardings)
 
 
 class AsyncCheckpointer:

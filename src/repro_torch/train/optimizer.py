@@ -70,8 +70,9 @@ def _step0(params) -> torch.Tensor:
 
 
 def adamw_init(params, cfg: OptConfig):
+    """Zeroed moments laid out as the parameters (DTensors on a mesh)."""
     dt = torch_dtype(cfg.opt_dtype)
-    zeros = lambda p: torch.zeros(p.shape, dtype=dt, device=p.device)  # noqa: E731
+    zeros = lambda p: torch.zeros_like(p, dtype=dt)  # noqa: E731
     return {"m": tree_map(zeros, params), "v": tree_map(zeros, params),
             "step": _step0(params)}
 

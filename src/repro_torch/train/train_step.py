@@ -13,9 +13,17 @@ their grads in f32.
 
 Optional int8 gradient compression with error feedback (``compress=True``)
 runs the accumulated grads through a quantize/dequantize pair whose
-residual is carried in ``opt_state["ef"]``.  ``grad_specs`` shards the
-grads over a mesh and comes with the model mesh (ROADMAP.md Queue 1,
-item 14).
+residual is carried in ``opt_state["ef"]``.
+
+On a mesh the parameters and the batch are DTensors
+(``dist.sharding.shard_params``, ``batch_shardings``); autograd gives
+DTensor grads, and ``grad_specs`` (a tree of ``PartitionSpec`` beside
+the parameters) redistributes each grad to its
+placements before the update, the counterpart of the JAX package's
+``with_sharding_constraint`` (ZeRO: a grad laid out as its parameter
+is reduce-scattered, not all-reduced).  The step runs under
+``implicit_replication``, and AdamW updates the DTensor leaves in place;
+the metrics come back as plain tensors.
 """
 from __future__ import annotations
 
@@ -23,6 +31,7 @@ from typing import Callable
 
 import torch
 
+from repro_torch.dist import sharding
 from repro_torch.models.layers import tree_leaves, tree_map, tree_unflatten
 
 from . import optimizer as opt_mod
@@ -30,8 +39,22 @@ from .optimizer import OptConfig
 
 
 def _split_batch(batch: dict, n_micro: int) -> list[dict]:
-    parts = {k: v.reshape((n_micro, v.shape[0] // n_micro) + v.shape[1:])
-             for k, v in batch.items()}
+    """``n_micro`` microbatches of consecutive rows, the JAX package's
+    split.  A batch-sharded DTensor is gathered first and each
+    microbatch laid out over the batch axes again (a rank's rows are not
+    one microbatch's)."""
+    parts = {}
+    for k, v in batch.items():
+        mb = v.shape[0] // n_micro
+        if sharding.is_dtensor(v):
+            mesh = v.device_mesh
+            full = sharding.replicate_all(v)
+            parts[k] = [sharding.distribute(
+                full[i * mb:(i + 1) * mb], sharding.NamedSharding(
+                    mesh, sharding.batch_spec(mesh, v.ndim, batch_size=mb)))
+                for i in range(n_micro)]
+        else:
+            parts[k] = list(v.reshape((n_micro, mb) + v.shape[1:]))
     return [{k: v[i] for k, v in parts.items()} for i in range(n_micro)]
 
 
@@ -52,27 +75,44 @@ def value_and_grad(model, params, batch, *, attention=None):
     missing in silence.  ``attention``: as ``Model.loss``'s."""
     flat = [p.detach().requires_grad_() for p in tree_leaves(params)]
     live = tree_unflatten(params, flat)
-    with torch.enable_grad():
+    with torch.enable_grad(), sharding.mesh_ops(flat[0]):
         loss = model.loss(live, batch, attention=attention)
         grads = torch.autograd.grad(loss, flat)
     return loss.detach(), tree_unflatten(params, list(grads))
 
 
+def _constrain_grad(g, spec):
+    """``g`` laid out as ``spec`` (a ``PartitionSpec`` on g's mesh); a
+    plain tensor as it is."""
+    if not sharding.is_dtensor(g):
+        return g
+    return g.redistribute(g.device_mesh,
+                          sharding.placements(spec, g.device_mesh))
+
+
+def _plain(x):
+    """A metric as a plain tensor (a DTensor's full value)."""
+    return x.full_tensor() if sharding.is_dtensor(x) else x
+
+
 def make_train_step(model, opt_cfg: OptConfig, *, n_micro: int = 1,
                     compress: bool = False, grad_specs=None) -> Callable:
-    if grad_specs is not None:
-        raise NotImplementedError(
-            "grad_specs constrain the grads' sharding over a mesh; the "
-            "model mesh is ROADMAP.md Queue 1, item 14")
+    """``grad_specs``: optional tree of ``PartitionSpec`` matching the
+    parameters; each grad is redistributed to it before the update
+    (module docstring)."""
 
     def train_step(params, opt_state, batch):
+        with sharding.mesh_ops(tree_leaves(params)[0]):
+            return _step(params, opt_state, batch)
+
+    def _step(params, opt_state, batch):
         if n_micro == 1:
             loss, grads = value_and_grad(model, params, batch)
         else:
             loss = torch.zeros((), dtype=torch.float32,
                                device=tree_leaves(params)[0].device)
-            grads = tree_map(lambda p: torch.zeros(
-                p.shape, dtype=torch.float32, device=p.device), params)
+            grads = tree_map(lambda p: torch.zeros_like(
+                p, dtype=torch.float32), params)
             for mb in _split_batch(batch, n_micro):
                 l_, g = value_and_grad(model, params, mb)
                 loss = loss + l_
@@ -80,12 +120,15 @@ def make_train_step(model, opt_cfg: OptConfig, *, n_micro: int = 1,
             loss = loss / n_micro
             grads = tree_map(lambda g: g / n_micro, grads)
 
+        if grad_specs is not None:
+            grads = tree_map(_constrain_grad, grads, grad_specs)
+
         if compress:
             # error-feedback int8: residual lives in opt_state["ef"]
             ef = opt_state.get("ef")
             if ef is None:
-                ef = tree_map(lambda g: torch.zeros(
-                    g.shape, dtype=torch.float32, device=g.device), grads)
+                ef = tree_map(lambda g: torch.zeros_like(
+                    g, dtype=torch.float32), grads)
             g_plus = tree_map(lambda g, e: g.float() + e, grads, ef)
             deq = tree_map(lambda g: dequantize_int8(*quantize_int8(g)),
                            g_plus)
@@ -99,10 +142,10 @@ def make_train_step(model, opt_cfg: OptConfig, *, n_micro: int = 1,
         if "ef" in opt_state:
             inner["ef"] = opt_state["ef"]
         metrics = {
-            "loss": loss.float(),
-            "grad_norm": gnorm,
-            "lr": lr,
-            "step": inner["step"],
+            "loss": _plain(loss.float()),
+            "grad_norm": _plain(gnorm),
+            "lr": _plain(lr),
+            "step": _plain(inner["step"]),
         }
         return params, inner, metrics
 

@@ -126,6 +126,9 @@ def test_device_bench_matches_jax():
     roof = ours["roofline"]
     assert roof["device_bytes"] > 0 and 0 < ours["roofline_frac"] <= 1
     assert roof["step_time_s"] == roof["device_bytes"] / 3.35e12
+    ana = roof["analytic"]
+    assert ana["device_flops"] > 0 and ana["device_bytes"] > 0
+    assert ana["step_time_s"] == max(ana["compute_s"], ana["memory_s"])
     for k in ("n_terms", "n_clauses", "n_queries", "n_slots"):
         assert roof["shape"][k] > 0
 
@@ -285,4 +288,4 @@ def test_run_writes_only_under_artifacts_and_reports_gates(monkeypatch,
     assert run.main(["--list"]) == 0
     assert "e2e" in capsys.readouterr().out
     with pytest.raises(SystemExit):
-        run.main(["--only", "roofline"])
+        run.main(["--only", "bogus"])

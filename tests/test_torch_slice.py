@@ -110,7 +110,9 @@ def _port_files():
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
-    bad = []
+    """Nor PyTorch's internal test helpers, but for the fake process group
+    of the dry run (``launch/dryrun.py``)."""
+    bad, fake_pg = [], []
     for path in _port_files():
         for node in ast.walk(ast.parse(path.read_text(), str(path))):
             if isinstance(node, ast.Import):
@@ -122,7 +124,14 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             for n in names:
                 if n.split(".")[0] in ("jax", "jaxlib", "repro", "benchmarks"):
                     bad.append(f"{path.relative_to(ROOT)}: {n}")
+                if n.startswith("torch.testing._internal"):
+                    where = path.relative_to(ROOT).as_posix()
+                    if (n != "torch.testing._internal.distributed.fake_pg"
+                            or where != "src/repro_torch/launch/dryrun.py"):
+                        bad.append(f"{where}: {n}")
+                    fake_pg.append(where)
     assert not bad, bad
+    assert fake_pg == ["src/repro_torch/launch/dryrun.py"]
 
 
 def test_import_walk_covers_every_port_module():
@@ -149,7 +158,11 @@ def test_import_walk_covers_every_port_module():
                 "benchmarks/bench_schema.py", "benchmarks/run.py",
                 "train/__init__.py", "train/optimizer.py",
                 "train/train_step.py", "train/checkpoint.py",
-                "launch/train.py", "benchmarks/bench_train.py"):
+                "launch/train.py", "benchmarks/bench_train.py",
+                "dist/sharding.py", "launch/mesh.py", "launch/dryrun.py",
+                "analysis/__init__.py", "analysis/flops.py",
+                "analysis/roofline.py", "analysis/comms.py",
+                "benchmarks/bench_roofline.py"):
         assert f"src/repro_torch/{mod}" in walked, mod
 
 

@@ -529,26 +529,36 @@ def test_flash_attention_function_grads_on_cpu():
 
 
 def test_model_forward_honours_remat():
-    """'full' (checkpointed layers) and 'none' give the same loss and
-    grads; the policies the port lacks raise."""
+    """'full' (checkpointed layers), 'none' and the selective policies
+    'dots' and 'save_block_io' give the same loss and grads (more in
+    tests/test_torch_remat.py)."""
     cfg, model, params, batch = _port("float32")
     l_full, g_full = value_and_grad(model, params, batch)
-    none = build_model(dataclasses.replace(cfg, remat="none"))
-    l_none, g_none = value_and_grad(none, params, batch)
-    assert torch.equal(l_full, l_none)
-    for a, b in zip(tree_leaves(g_full), tree_leaves(g_none)):
-        assert torch.equal(a, b)
-    for policy in ("dots", "save_block_io"):
+    for policy in ("none", "dots", "save_block_io"):
         m = build_model(dataclasses.replace(cfg, remat=policy))
-        with pytest.raises(NotImplementedError, match="item 23"):
-            m.loss(params, batch)
+        l_p, g_p = value_and_grad(m, params, batch)
+        assert torch.equal(l_full, l_p), policy
+        for a, b in zip(tree_leaves(g_full), tree_leaves(g_p)):
+            assert torch.equal(a, b), policy
 
 
 def test_refusals_of_what_is_not_ported(monkeypatch):
     cfg, model, params, batch = _port("float32")
-    with pytest.raises(NotImplementedError, match="item 14"):
-        make_train_step(model, OptConfig(), grad_specs={})
-    with pytest.raises(NotImplementedError, match="item 14"):
+    # grad_specs off a mesh: plain grads are left as they are
+    specs = tree_map(lambda p: (), params)
+    p0 = tree_map(torch.clone, params)
+    opt = OptConfig()
+    _, _, m_spec = make_train_step(model, opt, grad_specs=specs)(
+        p0, opt_mod.init(p0, opt), batch)
+    p1 = tree_map(torch.clone, params)
+    _, _, m_none = make_train_step(model, opt)(p1, opt_mod.init(p1, opt),
+                                               batch)
+    assert torch.equal(m_spec["loss"], m_none["loss"])
+    assert all(torch.equal(a, b) for a, b in zip(tree_leaves(p0),
+                                                 tree_leaves(p1)))
+    # a mesh of 2 ranks needs a process group of 2 (tests/test_torch_dist.py
+    # trains on one); this process has none
+    with pytest.raises(RuntimeError, match="mesh"):
         train_mod.main(["--reduced", "--mesh-shape", "2,1", "--device", "cpu"])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
