@@ -28,9 +28,9 @@ split path, on the same chunks:
       and every ScanResult equals the main path's.
 
 Then a wide scan batch: 200 uniform ycsb queries in ONE
-DeviceScanner("cuda").scan_batch on the main path's 65,536-record prefix
-store (512 term and clause slots, 256 queries; kernel B), checked against
-the host scanner and FullScanBaseline.
+DeviceScanner("cuda").scan_batch on a 16,384-record prefix store of the
+main path's chunks (512 term and clause slots, 256 queries; kernel B),
+checked against the host scanner and FullScanBaseline.
 
 Then the sharded plane, on the main path's own chunks and bitvectors:
 
@@ -44,7 +44,9 @@ scanned and pruned included), every count equal to the unsharded main
 path, at least one shard pruned, 0 steady uploads; and the 65,536-record
 prefix hash-routed on a key no query reads, where every query visits
 every shard and the hook runs from the sharded scanner's thread pool,
-against FullScanBaseline.  Then the client fleet, the paper's different
+against FullScanBaseline.  With one card and no process group,
+scan_mesh(4) is None and ShardedDeviceScanner(spmd=True), which places
+shard r on rank r, refuses to run.  Then the client fleet, the paper's different
 budgets for different clients:
 
   one ycsb PlanFamily of nested tiers (build_plan_family)
@@ -55,12 +57,12 @@ budgets for different clients:
     -> ShardedDeviceScanner("cuda")                    [kernel B]
     -> one Replanner step over the sharded store, a chunk at the new epoch
 
-at 2 chunks per client (the clients make their records in this process),
+at 1 chunk per client (the clients make their records in this process),
 every client's chunks at its assigned tier and every count equal to
 FullScanBaseline, before and after the replan.  Then the paper's own
 evaluation, Figs 3-5 at 1.0 us/record (repro_torch.benchmarks):
 
-  the 9 dataset x workload cells (winlog, yelp, ycsb x A, B, C), 20,000
+  the 9 dataset x workload cells (winlog, yelp, ycsb x A, B, C), 10,000
   records and 60 queries each, through run_end_to_end
     -> KernelEngine("cuda") on every 1,000-record chunk     [kernel A]
     -> CiaoStore partial load, DataSkippingScanner (host)
@@ -80,7 +82,7 @@ online tuner:
        device mode (ShardedDeviceScanner per snapshot)    [kernel B]
        one in host mode, one through query_batch (64)
   PhysicalDesignTuner, driven by CiaoServeEngine.start_tuner, on a
-  4-shard store of the first 262,144 records (TUNER_RECORDS): panel A
+  4-shard store of the first 131,072 records (TUNER_RECORDS): panel A
   (linear_score), panel B (visits) on the stale layout, the migration to
   visits under four device-mode readers                   [kernel B]
 
@@ -158,6 +160,22 @@ plain version's recompute under autograd in the backward):
   (3) tests/test_train.py's crash at step 6 and resume to step 10, at the
       reduced config, with the checkpoints in a temporary directory.
 
+Then every other family trained at published width, cut in depth
+(llama4-scout 2 MoE layers, deepseek-v3 one dense and one MoE layer of
+256 experts, internvl2 2 layers over 1,024 patch embeddings,
+recurrentgemma one rec, rec, attn period, rwkv6 2 layers, seamless 2 + 2
+layers; batch 8, S 256):
+
+  (1) Model.loss and every gradient in bf16 through F's autograd
+      Function (d 128; 192 with v padded; 256 on the band; unmasked over
+      the frames and across at Sq != Sk) against autograd over the plain
+      version, the MoE's top-k choice replayed from the first route;
+      every gradient finite and non-zero, within F's bf16 bound of each
+      leaf's max |g|, F's launches those of the forward and the recompute;
+  (2) one train step from train_step.make_train_step (adafactor for the
+      bf16-parameter archs, AdamW for the others), timed on the host
+      clock, against analysis.flops.estimate's bound.
+
 Then the model mesh, the remat policies, the roofline and the dry run:
 
   (1) an NCCL process group of one rank (a HashStore) and a (1, 1) mesh:
@@ -186,7 +204,9 @@ Then the model mesh, the remat policies, the roofline and the dry run:
       reaches the flash-decoding stub as the JAX package's does; these
       run in their own processes on the host meanwhile.
 
-Kernel C is also held at contiguous row slices off 16 bytes, rows 4-12
+Kernel A is also held to one launch per eval_fused call (a 41-record
+chunk, tests/test_fused.py's mixed plan).  Kernel C is also held at
+contiguous row slices off 16 bytes, rows 4-12
 bytes past 16 at W % 4 == 0, the one-block width +- 1 and a bytes-bound
 probe (P=12, W=2,097,152; not a path shape), and measured around its
 launches: the launch floor (an empty kernel of its block size), the whole
@@ -212,6 +232,7 @@ Output: phase lines, then the card's name and power limit
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
 import multiprocessing as mp
@@ -298,8 +319,21 @@ def baseline_counts(chunks, queries) -> list[int]:
 _T0 = time.perf_counter()
 
 
+#: (phase, its start on the script's clock), in order
+_PHASES: list = []
+
+
 def phase(name: str) -> None:
-    print(f"== {name} (at {time.perf_counter() - _T0:.1f} s)", flush=True)
+    _PHASES.append((name, time.perf_counter() - _T0))
+    print(f"== {name} (at {_PHASES[-1][1]:.1f} s)", flush=True)
+
+
+def phase_seconds() -> None:
+    """Every phase's seconds, to the end of the script."""
+    ends = [t for _, t in _PHASES[1:]] + [time.perf_counter() - _T0]
+    print("  seconds by phase: " + "; ".join(
+        f"{name.split(':')[0]} {end - start:.1f}"
+        for (name, start), end in zip(_PHASES, ends)))
 
 
 def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
@@ -471,6 +505,51 @@ def build() -> None:
                 entry = line.split("'")[1] if "'" in line else ""
             elif "registers" in line or "spill" in line:
                 print(f"  ptxas[{name}] {entry}: {line.strip()}")
+
+
+def one_launch_per_chunk(dev) -> int:
+    """tests/test_fused.py's launch count on the card: a 41-record chunk
+    and that test's mixed plan (simple and key-value terms) through
+    ``KernelEngine("cuda").eval_fused`` launch kernel A once per call,
+    twice for two calls, with the same words both times and the words of
+    kernel A's plain version."""
+    import json as json_mod
+
+    import numpy as np
+    from repro_torch.core.client import encode_chunk
+    from repro_torch.core.predicates import (
+        clause, exact, key_value, presence, substring,
+    )
+    from repro_torch.kernels import fused
+    from repro_torch.kernels.engine import KernelEngine
+
+    rng = np.random.default_rng(7)
+    keys = ["name", "age", "tags", "city", "note"]
+    recs = [json_mod.dumps({k: int(rng.integers(0, 30)) for k in keys
+                            if rng.random() < 0.6},
+                           separators=(",", ":")).encode()
+            for _ in range(41)]
+    chunk = encode_chunk(recs)
+    clauses = [clause(exact("name", "bob"), key_value("age", 7)),
+               clause(key_value("age", 11)),
+               clause(substring("note", "zz"), key_value("city", 3)),
+               clause(presence("tags"))]
+    eng = KernelEngine("cuda", device=dev)
+    before = fused.launches
+    a = eng.eval_fused(chunk, clauses)
+    one = fused.launches - before
+    b = eng.eval_fused(chunk, clauses)
+    two = fused.launches - before
+    want = KernelEngine("torch").eval_fused(chunk, clauses)
+    same = all(np.array_equal(getattr(x, f), getattr(want, f))
+               for x in (a, b) for f in ("words", "or_words", "counts"))
+    print(f"  one launch per chunk (41 seeded records, tests/test_fused.py's"
+          f" 4 mixed clauses): {one} after one eval_fused, {two} after two; "
+          f"words equal to the plain version's: {same}")
+    if (one, two) != (1, 2) or not same:
+        raise AssertionError(f"kernel A per chunk: {one}, {two} launches, "
+                             f"same {same}")
+    return two
 
 
 def check_pushdown(dev) -> int:
@@ -2671,6 +2750,259 @@ def training(dev, card: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# training every family: F's gradient route and one train step each
+# ---------------------------------------------------------------------------
+
+#: (arch, cut, optimizer) at published widths, cut in depth only:
+#: llama4-scout 2 MoE layers (6.47 B, bf16 parameters), deepseek-v3 one
+#: dense + one MoE layer (13.94 B, bf16; its 256 experts as published),
+#: internvl2 2 layers (3.81 B, bf16), recurrentgemma 3 layers, one
+#: (rec, rec, attn) period with the band (2.54 B, f32), rwkv6 2 layers
+#: (0.51 B, f32), seamless 2 + 2 layers (0.58 B, f32).  The bf16-parameter
+#: archs step with adafactor: AdamW's f32 moments would be 48 GiB for
+#: llama4, 104 GiB for deepseek and 28 GiB beside internvl2's update
+#: temporaries; the others with their configs' AdamW
+FAMILY_TRAIN = (("llama4-scout-17b-a16e", {"n_layers": 2}, "adafactor"),
+                ("deepseek-v3-671b", {"n_layers": 2, "first_dense": 1},
+                 "adafactor"),
+                ("internvl2-76b", {"n_layers": 2}, "adafactor"),
+                ("recurrentgemma-9b", {"n_layers": 3}, "adamw"),
+                ("rwkv6-3b", {"n_layers": 2}, "adamw"),
+                ("seamless-m4t-medium", {"per_stack": 2}, "adamw"))
+#: batch and sequence of every train step (internvl2 adds its 1,024
+#: patch embeddings; seamless splits S into 128 frames and 128 tokens,
+#: as configs.input_specs does)
+FAMILY_BATCH, FAMILY_SEQ = 8, 256
+#: elements of the gradients compared at a time (a deepseek-v3 expert
+#: stack is 3.76 G)
+COMPARE_PIECE = 1 << 26
+
+
+def _grad_err(a_host, b, dev) -> tuple[bool, float]:
+    """(finite and non-zero, max |a - b| / max |b|) of a gradient leaf on
+    the host and its twin on the card, a piece at a time."""
+    import torch
+    ok, diff, amax, bmax = True, 0.0, 0.0, 0.0
+    for a, c in zip(a_host.reshape(-1).split(COMPARE_PIECE),
+                    b.reshape(-1).split(COMPARE_PIECE)):
+        a, c = a.to(dev).float(), c.float()
+        ok = ok and bool(torch.isfinite(a).all() and torch.isfinite(c).all())
+        diff = max(diff, float((a - c).abs().max()))
+        amax = max(amax, float(a.abs().max()))
+        bmax = max(bmax, float(c.abs().max()))
+    return ok and amax > 0 and bmax > 0, diff / max(bmax, 1e-30)
+
+
+def _family_config(arch: str, cut: dict):
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    if "per_stack" in cut:
+        return _encdec_config(arch, cut["per_stack"])
+    if "first_dense" in cut:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, first_dense_layers=cut["first_dense"]))
+    return dataclasses.replace(cfg, n_layers=cut["n_layers"])
+
+
+@contextlib.contextmanager
+def _routing(record: list, replay: bool):
+    """The MoE's top-k choice recorded (F's route) or replayed (the plain
+    route) call by call, forward and the checkpoint's recompute alike; the
+    gates stay functions of the router's logits, so the router's gradient
+    is taken as it is.  The choice is discrete: a tie broken the other way
+    by an attention output that differs in its last bf16 bit would move a
+    token's whole contribution between experts, which no bound on F's
+    numerics covers.  Yields the count of assignments the plain route's
+    own routing would have chosen otherwise."""
+    import torch
+    from repro_torch.models import moe
+
+    real, calls, moved = moe.route, iter(record), [0]
+
+    def route(logits, m):
+        r = real(logits, m)
+        if not replay:
+            record.append(r.ids)
+            return r
+        ids = next(calls)
+        moved[0] += int((torch.sort(r.ids, -1)[0]
+                         != torch.sort(ids, -1)[0]).sum())
+        gates = r.probs.gather(-1, ids)
+        gates = gates / torch.clamp(gates.sum(-1, keepdim=True), min=1e-9)
+        pos, keep, slot = moe._place(ids.reshape(-1), m.n_experts, r.C)
+        return moe.Routing(r.probs, ids, gates, pos, keep, slot, r.C)
+
+    moe.route = route
+    try:
+        yield moved
+    finally:
+        moe.route = real
+
+
+def family_route(arch: str, cfg, model, params, batch, dev) -> dict:
+    """(1) ``value_and_grad`` through F's autograd Function (the trainer's
+    route) against autograd through the plain version, in the config's
+    bf16 compute: every gradient finite and non-zero, the routes within
+    GRAD_TOL of each leaf's max |g| (bf16 parameters' gradients are
+    rounded to bf16 too: 2^-8 of the max at most, inside the bound), F's
+    launches those of the forward and the checkpoint's recompute.  The
+    first route's gradients wait in host memory meanwhile."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models.attention import flash_attention_plain
+    from repro_torch.models.layers import tree_leaves
+    from repro_torch.train.train_step import value_and_grad
+
+    tol = GRAD_TOL["bfloat16"]
+    want = _f_per_prefill(cfg) * (2 if cfg.remat == "full" else 1)
+    record: list = []
+    torch.cuda.synchronize()
+    fa.launches = 0
+    t0 = time.perf_counter()
+    with _routing(record, replay=False):
+        loss_f, g_f = value_and_grad(model, params, batch)
+    torch.cuda.synchronize()
+    t_f = time.perf_counter() - t0
+    launches = fa.launches
+    g_host = [g.to("cpu") for g in tree_leaves(g_f)]
+    del g_f
+    t0 = time.perf_counter()
+    with _routing(record, replay=True) as moved:
+        loss_p, g_p = value_and_grad(model, params, batch,
+                                     attention=flash_attention_plain)
+    torch.cuda.synchronize()
+    t_p = time.perf_counter() - t0
+    if fa.launches != launches:
+        raise AssertionError(f"{arch}: the plain route launched kernel F")
+    worst, bad = 0.0, []
+    for name, a, b in zip(_leaf_names(params), g_host, tree_leaves(g_p)):
+        ok, rel = _grad_err(a, b, dev)
+        if not ok:
+            bad.append(f"{name} (zero or not finite)")
+            continue
+        worst = max(worst, rel)
+        if not rel <= tol:
+            bad.append(f"{name} ({rel:.3g})")
+    del g_p, g_host
+    n_assign = sum(int(r.numel()) for r in record)
+    print(f"  (1) {arch}: loss {float(loss_f):.6f} (F) vs "
+          f"{float(loss_p):.6f} (plain); {len(_leaf_names(params))} "
+          f"gradients, all finite and non-zero, F route vs plain max "
+          f"{worst:.3g} of the leaf's max |g| (tol {tol}); F launches "
+          f"{launches} (want {want}: forward + the checkpoint's recompute)"
+          + (f"; routing replayed: the plain route's own top-k differs in "
+             f"{moved[0]} of {n_assign} sorted expert ids (forward and "
+             f"recompute)" if record else "")
+          + f"; {t_f * 1e3:.1f} ms vs {t_p * 1e3:.1f} ms (host clock)")
+    if bad or launches != want:
+        raise AssertionError(f"gradient route, {arch}: {bad}, F launches "
+                             f"{launches} != {want}")
+    return {"max_rel_err": worst, "launches": launches,
+            "routing_moved": moved[0] if record else None,
+            "ms_f": t_f * 1e3, "ms_plain": t_p * 1e3}
+
+
+def family_step(arch: str, cfg, model, params, batch, kind: str, dev,
+                card: str) -> dict:
+    """(2) ``train.train_step.make_train_step`` with ``kind`` on the
+    batch: a first step, then the timed one (host clock, the device
+    synchronised by reading the loss); finite losses, the final norm's
+    scale moved, F on every attention layer of each step; ms, tokens/s,
+    peak memory and the step's share of ``analysis.flops.estimate``'s
+    bound at the H100's constants."""
+    import dataclasses
+
+    import torch
+    from repro_torch.analysis import flops as flops_mod
+    from repro_torch.analysis import roofline as rl
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.train import optimizer as opt_mod
+    from repro_torch.train.train_step import make_train_step, opt_config_for
+
+    oc = dataclasses.replace(opt_config_for(cfg), kind=kind)
+    state = opt_mod.init(params, oc)
+    step = make_train_step(model, oc)
+    norm = params["ln_f"].detach().clone()
+    want = _f_per_prefill(cfg) * (2 if cfg.remat == "full" else 1)
+    losses, ms = [], []
+    torch.cuda.reset_peak_memory_stats(dev)
+    for _ in range(2):
+        torch.cuda.synchronize()
+        fa.launches = 0
+        t0 = time.perf_counter()
+        params, state, metrics = step(params, state, batch)
+        losses.append(float(metrics["loss"]))
+        ms.append((time.perf_counter() - t0) * 1e3)
+        if fa.launches != want:
+            raise AssertionError(f"train step, {arch}: F launches "
+                                 f"{fa.launches} != {want}")
+    peak = torch.cuda.max_memory_allocated(dev)
+    moved = not torch.equal(norm, params["ln_f"])
+    B = FAMILY_BATCH
+    S = sum(batch[k].shape[1] for k in ("tokens", "extra_embeds", "frames")
+            if k in batch)
+    shape = ShapeConfig("train", "train", S, B)
+    n, n_act = model.param_count(), model.active_param_count()
+    est = flops_mod.estimate(cfg, shape, n, n_act)
+    compute_s = est.flops_global / rl.PEAK_FLOPS
+    memory_s = est.hbm_bytes_global / rl.HBM_BW
+    bound_ms = max(compute_s, memory_s) * 1e3
+    print(f"  (2) {arch}, {kind}, B {B} x S {S}: step ms {ms[0]:.1f} "
+          f"(first), {ms[1]:.3f} (timed); {B * S / (ms[1] * 1e-3):.0f} "
+          f"tokens/s; losses {losses[0]:.4f}, {losses[1]:.4f}; bound "
+          f"{bound_ms:.3f} ms by "
+          f"{'compute' if compute_s >= memory_s else 'memory'} "
+          f"(flops.estimate: {est.flops_global:.4e} FLOP, "
+          f"{est.hbm_bytes_global:.4e} B), share {bound_ms / ms[1]:.2%}; "
+          f"peak max_memory_allocated {peak / 2**30:.2f} GiB; F {want} a "
+          f"step; ln_f moved {moved}; {card}")
+    if not all(math.isfinite(x) for x in losses) or not moved:
+        raise AssertionError(f"train step, {arch}: losses {losses}, ln_f "
+                             f"moved {moved}")
+    return {"optimizer": kind, "batch": B, "seq": S, "step_ms": ms[1],
+            "first_step_ms": ms[0], "tokens_per_s": B * S / (ms[1] * 1e-3),
+            "bound_ms": bound_ms, "share": bound_ms / ms[1],
+            "peak_bytes": peak, "losses": losses, "launches_per_step": want,
+            "param_count": n}
+
+
+def family_training(dev, card: str) -> dict:
+    """Each of FAMILY_TRAIN at published width and cut depth: (1) F's
+    gradient route against the plain route, (2) one timed train step.
+    Frees what each family allocated before the next."""
+    import torch
+    from repro_torch.configs import ShapeConfig, make_batch
+    from repro_torch.models.model import build_model
+
+    out = {}
+    for arch, cut, kind in FAMILY_TRAIN:
+        _free()
+        cfg = _family_config(arch, cut)
+        model = build_model(cfg)
+        S = FAMILY_SEQ + cfg.frontend_len
+        batch = {k: torch.from_numpy(v).to(dev) for k, v in make_batch(
+            cfg, ShapeConfig("family", "train", S, FAMILY_BATCH),
+            seed=SEED).items()}
+        t0 = time.perf_counter()
+        params = model.init(SEED, device=dev)
+        torch.cuda.synchronize()
+        print(f"  {arch}: {cfg.n_layers} layers at published width, "
+              f"{model.param_count():,} parameters in {cfg.param_dtype}, "
+              f"compute {cfg.compute_dtype}, remat {cfg.remat}; init "
+              f"{time.perf_counter() - t0:.1f} s")
+        route = family_route(arch, cfg, model, params, batch, dev)
+        _free()
+        out[arch] = {"route": route, "step": family_step(
+            arch, cfg, model, params, batch, kind, dev, card)}
+        del params, batch
+    _free()
+    return out
+
+
 #: the model mesh phase (PR 25): the train steps' depth and the remat
 #: check's (full width); tolerances from the JAX package's tests
 MESH_TRAIN_LAYERS = 4
@@ -3268,11 +3600,16 @@ def unpromoted(scanner, queries):
         jit_vis=[len(store.jit_blocks)] * len(queries))
 
 
+#: chunks of the wide batch's prefix store (16,384 records): its host
+#: checks scan every record for each of the 200 queries
+WIDE_CHUNKS = 2
+
+
 def wide_batch(run, dev) -> dict:
     """Kernel B timed at the main path's batch shape; then 200 uniform
     ycsb queries in ONE DeviceScanner.scan_batch (term and clause buckets
-    512, 256 queries: the kernel before this one refused them) on the main
-    path's 65,536-record prefix store, every ScanResult checked against
+    512, 256 queries: the kernel before this one refused them) on a
+    WIDE_CHUNKS-chunk prefix of the main path's records, every ScanResult checked against
     the host scanner and every count against FullScanBaseline.  The
     uniform queries read clauses the plan did not push, so the batch first
     promotes the store's raw rows, as the host scanner would (on the
@@ -3286,10 +3623,18 @@ def wide_batch(run, dev) -> dict:
     from repro_torch.data.datasets import predicate_pool
     from repro_torch.kernels import scan_fused
 
+    from repro_torch.core.device_scan import DeviceScanner
+    from repro_torch.core.server import CiaoStore, FullScanBaseline
+
     main_scanner = run["scanner"]
     main = scan_timing(main_scanner, main_scanner._prepare(run["batches"][0]),
                        dev)
-    store, scanner, base = run["prefix"]
+    store, base = CiaoStore(run["plan"]), FullScanBaseline()
+    for chunk, bv in zip(run["chunks"][:WIDE_CHUNKS],
+                         run["bvs"][:WIDE_CHUNKS]):
+        store.ingest_chunk(chunk, bv)
+        base.ingest_chunk(chunk)
+    scanner = DeviceScanner(store, backend="cuda", log_queries=False)
     wide = list(generate_workload(predicate_pool("ycsb"), n_queries=200,
                                   distribution="uniform",
                                   rng=np.random.default_rng(0)).queries)
@@ -3361,6 +3706,29 @@ def timed_batches(fn, batches) -> tuple[list, list[float]]:
     return out, ms
 
 
+def spmd_refusal(store) -> None:
+    """The sharded device scan over ranks needs a process group of one
+    rank a shard, one card a rank: on this one-card machine, with no
+    group, ``scan_mesh`` is None and ``spmd=True`` raises (the default
+    scans the shards in turn on one card, as below)."""
+    import torch
+    from repro_torch.core.device_scan import ShardedDeviceScanner
+    from repro_torch.dist.sharding import scan_mesh
+
+    mesh = scan_mesh(store.n_shards)
+    try:
+        ShardedDeviceScanner(store, backend="cuda", spmd=True)
+        refused = "did not raise"
+    except RuntimeError as e:
+        refused = f"raises RuntimeError ({e})"
+    print(f"  scan_mesh({store.n_shards}) is {mesh} on this machine "
+          f"({torch.cuda.device_count()} card); ShardedDeviceScanner("
+          f"spmd=True) "
+          f"{refused}")
+    if mesh is not None or not refused.startswith("raises"):
+        raise AssertionError(f"spmd on one card: mesh {mesh}, {refused}")
+
+
 def sharded_plane(run, dev) -> dict:
     """The main path's chunks and kernel-A bitvectors in a 4-shard
     ShardedCiaoStore, range-routed on the plan's routing key from 800
@@ -3394,6 +3762,7 @@ def sharded_plane(run, dev) -> dict:
         store.ingest_chunk(chunk, bv)
     t_ingest = time.perf_counter() - t0
     device = ShardedDeviceScanner(store, backend="cuda")
+    spmd_refusal(store)
     t0 = time.perf_counter()
     first = [r for b in batches for r in device.scan_batch(b)]
     t_first = time.perf_counter() - t0
@@ -3532,8 +3901,8 @@ HASH_KEY = "customer_id"
 #: (speed, count) for one fast, four nominal and eight slow clients
 FLEET = ((4.0, 1), (1.0, 4), (0.25, 8))
 #: chunks per client: ClientShard makes its records in this process, so
-#: the fleet runs at 2 x 8,192 records per client (212,992 records)
-FLEET_CHUNKS = 2
+#: the fleet runs at one chunk of 8,192 records per client (106,496)
+FLEET_CHUNKS = 1
 
 
 def client_fleet(dev) -> dict:
@@ -3700,16 +4069,17 @@ def client_fleet(dev) -> dict:
             "budget": budget, "run_s": t_run, "scan_s": t_scan}
 
 
-#: the end-to-end phase (paper Figs 3-5): the reference grid's records
-#: per cell and executed queries, at the paper's headline budget
-E2E_RECORDS = 20000
+#: the end-to-end phase (paper Figs 3-5): records per cell (half the
+#: reference grid's 20,000, for the script's time limit) and executed
+#: queries, at the paper's headline budget
+E2E_RECORDS = 10000
 E2E_QUERIES = 60
 E2E_BUDGET = 1.0
 
 
 def end_to_end(dev) -> dict:
     """Paper Figs 3-5 at 1.0 us/record: the 9 dataset x workload cells of
-    ``repro_torch.benchmarks.bench_end_to_end`` at 20,000 records, each
+    ``repro_torch.benchmarks.bench_end_to_end`` at E2E_RECORDS records, each
     through the port's ``run_end_to_end`` with KernelEngine("cuda")
     (kernel A on every 1,000-record chunk) and DeviceScanner("cuda")
     (kernel B, the first and the steady pass). Every chunk's packed
@@ -3787,7 +4157,7 @@ def end_to_end(dev) -> dict:
 
 #: the tuner phase's store: the first TUNER_RECORDS of the main path's
 #: records (all of them where ``--records`` is smaller)
-TUNER_RECORDS = 1 << 18
+TUNER_RECORDS = 1 << 17
 #: the tuner's panels (the JAX package's benchmarks/bench_tuner.py):
 #: point lookups on the routing key, then on the key the workload
 #: drifts onto
@@ -4091,6 +4461,7 @@ def main(argv=None) -> int:
     build()
     phase("kernel A: pushdown vs plain version (plan families, edges)")
     check_pushdown(dev)
+    one_launch_per_chunk(dev)
     phase("kernel B: scan vs plain version and numpy (small store)")
     from repro_torch.core.device_scan import DeviceScanner
     store, qs = small_store()
@@ -4171,6 +4542,10 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     trained = training(dev, card)
     print(f"  phase {time.perf_counter() - t0:.1f} s")
+    phase("training every family: F's gradient route and one train step, "
+          + ", ".join(a for a, _, _ in FAMILY_TRAIN)
+          + f" at published widths, batch {FAMILY_BATCH}, S {FAMILY_SEQ}")
+    families = family_training(dev, card)
     phase(f"model mesh, remat, roofline and dry run: {' '.join(SERVE_ARGS)} "
           f"--mesh-shape 1,1; 2 train steps on the mesh "
           f"({MESH_TRAIN_LAYERS} layers); remat at {GRAD_LAYERS} layers; "
@@ -4193,6 +4568,12 @@ def main(argv=None) -> int:
     rows[-1]["launches_recurrent_encdec"] = {
         a: r["launches"] for a, r in recurrent.items()
         if a != "recurrentgemma-9b"}
+    rows[-1]["training_families"] = {
+        a: {"launches_route": r["route"]["launches"],
+            "launches_per_step": r["step"]["launches_per_step"],
+            "gradient_route_max_rel_err": r["route"]["max_rel_err"],
+            "step_ms": r["step"]["step_ms"], "share": r["step"]["share"]}
+        for a, r in families.items()}
     rows.append(flash_mla_row(f_mla_timing, served))
     rows.append(flash_band_row(f_band_timing, recurrent))
     # launches on this slice's paths, each read from its own phase
@@ -4226,6 +4607,7 @@ def main(argv=None) -> int:
     print(f"  profiler traces retried, no record of the kernel in them: "
           f"{bench_reduce.missed or 'none'}; calls that lost the profiler "
           f"(no device activity in any trace): {bench_reduce.lost or 'none'}")
+    phase_seconds()
     print(f"  total {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"kernels": rows}))

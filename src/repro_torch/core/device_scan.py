@@ -29,9 +29,11 @@ its plain PyTorch version on ``device`` (the CPU in the tests);
 ``merge_scan_results`` through ``dist.collectives.tree_reduce``) with one
 :class:`DeviceScanner`, and so one resident plane, per shard.  Every
 shard's plane lives on the scanner's one device and the shards launch in
-turn.  The JAX package can instead run the surviving shards as one
-``shard_map`` program with shard *i* on device *i*; its counterpart here,
-shards placed on several cards, is not ported yet.
+turn.  With ``spmd=True`` (the JAX package's ``shard_map`` program with
+shard *i* on device *i*) shard *i* is owned by rank *i* of the default
+process group: each rank admits and scans only its own shard's plane,
+on its own device, and the per-shard results are gathered so that every
+rank returns the same merged results.
 
 Public contract, shared with every other scanner: ``ScanResult.groups``
 sorted by (epoch, tier), deterministic merge order, accounting
@@ -337,11 +339,26 @@ class ShardedDeviceScanner:
     shards scan on their device plane, and the per-shard results reduce
     deterministically through ``merge_scan_results``.  The per-shard
     scanners share ``backend`` and ``device``.
+
+    ``spmd=True``: store shard *r* is owned by rank *r* of the default
+    process group, on :func:`~repro_torch.dist.sharding.scan_mesh`'s mesh.
+    Every rank of the group must hold a replica of the store and call
+    :meth:`scan_batch` with the same queries.  Each rank runs the host
+    part for every shard (partition prune, promotions in global query
+    order, pruned shards' rows), so the replicas stay equal, but admits,
+    launches and assembles only its own shard, on ``cuda:{rank % cards}``
+    over NCCL or the CPU over gloo (unless ``device`` says otherwise);
+    the per-shard results are then gathered (``all_gather_object``) and
+    merged in shard order, the same on every rank.  Without a group of
+    at least as many ranks as shards it raises ``RuntimeError``.  The
+    default (``None``) and ``False`` scan the shards in turn on one
+    device: unlike the JAX package's, ``None`` never engages the ranks,
+    since a collective that one rank calls alone would hang.
     """
 
     def __init__(self, store: ShardedCiaoStore, *, backend: str = "cuda",
                  device=None, byte_budget: int = 256 << 20,
-                 log_queries: bool = True,
+                 log_queries: bool = True, spmd: bool | None = None,
                  telemetry: "object | bool | None" = None,
                  tenant: str = "default"):
         self.store = store
@@ -352,6 +369,12 @@ class ShardedDeviceScanner:
         self.telemetry = telemetry if isinstance(telemetry, TelemetryPlane) \
             else None
         self.tenant = tenant
+        self.spmd = bool(spmd)
+        #: spmd: the ("shards",) mesh and the shard this rank owns
+        self.mesh = self._owned = None
+        if self.spmd:
+            self.mesh, self._owned, device = _owned_shard(store.n_shards,
+                                                          device)
         device = resolve_device(
             "torch" if backend == "numpy" else backend, device)
         self._scanners = [
@@ -419,21 +442,29 @@ class ShardedDeviceScanner:
                     pruned_rows[(qi, s)] = shard.resident_group_rows()
         prepared: dict[int, _Prepared] = {}
         for s, qs in enumerate(sub):
-            if qs:
+            if qs and (not self.spmd or s == self._owned):
                 prepared[s] = self._scanners[s]._prepare(
                     [queries[qi] for qi in qs],
                     pushed_maps=pushed_maps[s], promoted=promoted[s],
                     jit_vis=jit_vis[s])
-        # one launch per surviving shard, in shard order, on one device
+        # one launch per surviving shard: in shard order on one device, or
+        # (spmd) each rank its own shard, the results gathered from all
         shard_results: dict[int, list[ScanResult]] = {}
         for s, p in prepared.items():
             c, d = self._scanners[s]._launch(p)
             shard_results[s] = self._scanners[s]._assemble(p, c, d)
+        if self.spmd:
+            import torch.distributed as dist
+
+            gathered: list = [None] * dist.get_world_size()
+            dist.all_gather_object(gathered, shard_results)
+            shard_results = {s: r for part in gathered for s, r in
+                             part.items()}
         out: list[ScanResult] = []
         dt = time.perf_counter() - t0
         for qi, q in enumerate(queries):
             results: list[ScanResult] = []
-            for s in sorted(prepared):
+            for s in sorted(shard_results):
                 if qi in sub[s]:
                     r = shard_results[s][sub[s].index(qi)]
                     r.shards_scanned = 1
@@ -459,3 +490,32 @@ class ShardedDeviceScanner:
                 self.telemetry.record_scan(merged, tenant=self.tenant)
             out.append(merged)
         return out
+
+
+def _owned_shard(n_shards: int, device):
+    """Under ``spmd=True``: :func:`~repro_torch.dist.sharding.scan_mesh`'s
+    mesh (None for one shard), the shard this rank owns (None past the
+    shards) and the device its plane lives on: ``device`` if given, else
+    ``cuda:{rank % cards}`` over NCCL, the CPU otherwise."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.dist.sharding import scan_mesh
+    from repro_torch.launch.mesh import mesh_device_type
+
+    mesh = scan_mesh(n_shards)
+    if mesh is None and (n_shards >= 2 or not dist.is_initialized()):
+        group = (f"the default process group has {dist.get_world_size()} "
+                 f"ranks over {dist.get_backend()}"
+                 if dist.is_initialized() else
+                 "no process group is initialised")
+        raise RuntimeError(
+            f"ShardedDeviceScanner(spmd=True) places each of the store's "
+            f"{n_shards} shards on its own rank, but {group}; initialise "
+            f"torch.distributed with at least {n_shards} ranks (over NCCL, "
+            f"one card a rank) or pass spmd=False")
+    rank = dist.get_rank()
+    if device is None:
+        device = (torch.device("cuda", rank % torch.cuda.device_count())
+                  if mesh_device_type() == "cuda" else torch.device("cpu"))
+    return mesh, (rank if rank < n_shards else None), device

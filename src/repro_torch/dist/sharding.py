@@ -126,21 +126,25 @@ def mesh_axes(mesh) -> tuple[str, ...]:
 
 
 def scan_mesh(n_shards: int):
-    """1-D ``("shards",)`` mesh placing store shard *i* on card *i*, or
-    ``None``: with fewer than 2 shards, fewer cards than shards, or no
-    initialised process group of at least ``n_shards`` ranks (one process
-    per card).  The device scan plane runs its shards in turn on one card
-    whenever this is ``None`` (the results are bit-identical either way,
-    as in the JAX package); nothing places shards on cards yet (ROADMAP.md
-    Queue 1, item 12a)."""
+    """1-D ``("shards",)`` mesh placing store shard *i* on rank *i* of the
+    default process group, or ``None``: with fewer than 2 shards, no
+    initialised process group of at least ``n_shards`` ranks, or, over
+    NCCL, fewer cards than shards.  Its device type is
+    :func:`~repro_torch.launch.mesh.mesh_device_type`'s (``cpu`` over
+    gloo).  ``ShardedDeviceScanner(spmd=True)`` scans on it and refuses
+    to run where it is ``None``."""
     import torch.distributed as dist
     from torch.distributed.device_mesh import DeviceMesh
 
-    if n_shards < 2 or torch.cuda.device_count() < n_shards:
+    from repro_torch.launch.mesh import mesh_device_type
+
+    if n_shards < 2 or not dist.is_initialized() \
+            or dist.get_world_size() < n_shards:
         return None
-    if not dist.is_initialized() or dist.get_world_size() < n_shards:
+    kind = mesh_device_type()
+    if kind == "cuda" and torch.cuda.device_count() < n_shards:
         return None
-    return DeviceMesh("cuda", list(range(n_shards)),
+    return DeviceMesh(kind, list(range(n_shards)),
                       mesh_dim_names=("shards",))
 
 

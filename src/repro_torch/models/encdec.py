@@ -103,42 +103,45 @@ def _iota(n: int) -> torch.Tensor:
     return torch.arange(n, dtype=torch.int32)
 
 
-def _enc_layer(p, x, cfg, rope):
+def _enc_layer(p, x, cfg, rope, attention=None):
     h = rmsnorm(x, p["ln1"], cfg.norm_eps)
     q, k, v = attn._project_qkv(p["attn"], h, cfg, rope)
     pos = _iota(x.shape[1])
-    a = attn.flash_attention(q, k, v, q_positions=pos, k_positions=pos,
-                             mask_mode="none", q_chunk=cfg.attn_q_chunk,
-                             k_chunk=cfg.attn_k_chunk)
+    a = (attention or attn.flash_attention)(
+        q, k, v, q_positions=pos, k_positions=pos, mask_mode="none",
+        q_chunk=cfg.attn_q_chunk, k_chunk=cfg.attn_k_chunk)
     x, h = _add_then_norm(x, attn._out_proj(a, p["attn"]["wo"]), p["ln2"],
                           cfg.norm_eps)
     return constrain_act(x + apply_mlp(p["mlp"], h, cfg.act))
 
 
-def encode(params, cfg, frames):
-    """frames: (B, S_src, d) precomputed frontend embeddings -> memory."""
+def encode(params, cfg, frames, attention=None):
+    """frames: (B, S_src, d) precomputed frontend embeddings -> memory;
+    ``attention`` as :func:`forward`'s."""
     x = constrain_act(frames.to(torch_dtype(cfg.compute_dtype)))
     rope = rope_tables(torch.arange(x.shape[1], device=x.device), cfg.hd(),
                        cfg.rope_theta)
     x = _run(_enc_layer, x, _unstack(params["enc"], cfg.enc_layers), cfg,
-             rope)
+             rope, attention)
     return rmsnorm(x, params["ln_enc"], cfg.norm_eps)
 
 
-def _dec_layer(p, x, cfg, memory, rope, cache=None):
+def _dec_layer(p, x, cfg, memory, rope, cache=None, attention=None):
     """One decoder layer over the target sequence; with ``cache`` (the
-    layer's views) its self k/v and cross k/v are written there."""
+    layer's views) its self k/v and cross k/v are written there;
+    ``attention`` as :func:`forward`'s."""
+    attention = attention or attn.flash_attention
     S = x.shape[1]
     h = rmsnorm(x, p["ln1"], cfg.norm_eps)
     q, k, v = attn._project_qkv(p["self_attn"], h, cfg, rope)
     pos = _iota(S)
-    a = attn.flash_attention(q, k, v, q_positions=pos, k_positions=pos,
-                             mask_mode="causal", q_chunk=cfg.attn_q_chunk,
-                             k_chunk=cfg.attn_k_chunk)
+    a = attention(q, k, v, q_positions=pos, k_positions=pos,
+                  mask_mode="causal", q_chunk=cfg.attn_q_chunk,
+                  k_chunk=cfg.attn_k_chunk)
     x, h = _add_then_norm(x, attn._out_proj(a, p["self_attn"]["wo"]),
                           p["ln_x"], cfg.norm_eps)
     qx, xk, xv = attn._cross_qkv(p["cross_attn"], h, memory)
-    ax = attn.flash_attention(
+    ax = attention(
         qx, xk, xv, q_positions=pos, k_positions=_iota(memory.shape[1]),
         mask_mode="none", q_chunk=cfg.attn_q_chunk, k_chunk=cfg.attn_k_chunk)
     x, h = _add_then_norm(x, attn._out_proj(ax, p["cross_attn"]["wo"]),
@@ -157,22 +160,26 @@ def _embed(params, cfg, tokens):
                         torch_dtype(cfg.compute_dtype))
 
 
-def decode_train(params, cfg, memory, tokens):
-    """Teacher-forced decoder logits; memory from :func:`encode`."""
+def decode_train(params, cfg, memory, tokens, attention=None):
+    """Teacher-forced decoder logits; memory from :func:`encode`;
+    ``attention`` as :func:`forward`'s."""
     x = constrain_act(_embed(params, cfg, tokens))
     rope = rope_tables(torch.arange(x.shape[1], device=x.device), cfg.hd(),
                        cfg.rope_theta)
     x = _run(_dec_layer, x, _unstack(params["dec"], cfg.dec_layers), cfg,
-             memory, rope)
+             memory, rope, None, attention)
     x = rmsnorm(x, params["ln_f"], cfg.norm_eps)
     return unembed(params["embed"], x, cfg.tied_embeddings)
 
 
-def forward(params, cfg, frames, tokens):
-    """(logits, aux): aux is 0, as in the JAX package."""
+def forward(params, cfg, frames, tokens, *, attention=None):
+    """(logits, aux): aux is 0, as in the JAX package.  ``attention``
+    replaces :func:`repro_torch.models.attention.flash_attention` in every
+    layer, self and cross (same signature), as ``transformer.forward``'s
+    does."""
     with sharding.mesh_ops(params["ln_f"]):
-        memory = encode(params, cfg, frames)
-        logits = decode_train(params, cfg, memory, tokens)
+        memory = encode(params, cfg, frames, attention)
+        logits = decode_train(params, cfg, memory, tokens, attention)
     return logits, torch.zeros((), dtype=torch.float32, device=logits.device)
 
 

@@ -240,11 +240,17 @@ def naming():
 def checkpoint_name(x, name: str):
     """``x`` tagged ``name`` for the remat policy ``"save_block_io"``,
     through the ``repro_torch::checkpoint_name`` op (a copy) inside
-    :func:`naming`; ``x`` itself anywhere else.  The op has no DTensor
-    sharding rule: on a mesh ``"save_block_io"`` raises (no config of the
-    repo sets it)."""
+    :func:`naming`; ``x`` itself anywhere else.  On a mesh the copy is
+    of ``x``'s local shard, and the result keeps ``x``'s placements, as
+    the JAX package's ``checkpoint_name`` runs under any mesh."""
     if not _NAMING.get():
         return x
+    if type(x).__name__ == "DTensor":
+        from torch.distributed.tensor import DTensor
+
+        return DTensor.from_local(
+            _checkpoint_name(x.to_local(), name), x.device_mesh,
+            x.placements, run_check=False, shape=x.shape, stride=x.stride())
     return _checkpoint_name(x, name)
 
 

@@ -81,11 +81,11 @@ class Model:
         """Next-token CE of ``batch`` (logits shifted by one against the
         tokens and mask; the frontend's positions cut off first), plus the
         forward's aux loss.  ``attention``: as
-        :func:`transformer.forward`'s (decoders only)."""
+        :func:`transformer.forward`'s and :func:`encdec.forward`'s."""
         cfg = self.cfg
         if cfg.family == "encdec":
             logits, aux = encdec.forward(values, cfg, batch["frames"],
-                                         batch["tokens"])
+                                         batch["tokens"], attention=attention)
         else:
             extra = batch.get("extra_embeds")
             logits, aux = transformer.forward(values, cfg, batch["tokens"],

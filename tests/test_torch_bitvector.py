@@ -5,9 +5,16 @@ Packed bitvectors are little-endian ``uint32`` words (record ``r`` at word
 torch flavour (built through int64 because torch has no uint32 shifts on
 the CPU) and the JAX package's numpy and jnp flavours must agree bit for
 bit.  Exact comparison throughout: all values are integers.
+
+Also here, the reference's ``tests/test_bitvector.py`` on the port (its
+roundtrip, reductions and popcount fallback sweeps, each value held
+against the JAX package's on the same bits); its ``test_jnp_parity``
+becomes the torch flavour's parity with the jnp flavour.
 """
 import numpy as np
 import pytest
+from hypothesis import given, settings
+from hypothesis import strategies as st
 
 torch = pytest.importorskip("torch")
 # small tensors: one intra-op thread, so parallel test workers share cores
@@ -87,3 +94,75 @@ def test_predicates_type_strict_like_jax(values):
     assert back == jpred.clause(jpred.key_value("k", a))
     assert tpred.clause_to_obj(
         tpred.clause_from_obj(jpred.clause_to_obj(back))) == obj
+
+
+# ---- tests/test_bitvector.py ------------------------------------------------
+
+@given(st.lists(st.booleans(), min_size=0, max_size=300))
+@settings(max_examples=100, deadline=None)
+def test_pack_unpack_roundtrip(bits):
+    arr = np.array(bits, dtype=bool)
+    words = tbv.pack(arr)
+    assert words.dtype == np.uint32
+    assert np.array_equal(words, jbv.pack(arr))
+    out = tbv.unpack(words, len(bits))
+    assert np.array_equal(out, arr)
+
+
+@given(st.integers(1, 5), st.integers(1, 200), st.integers(0, 2**31))
+@settings(max_examples=60, deadline=None)
+def test_reductions_match_unpacked(p, r, seed):
+    rng = np.random.default_rng(seed)
+    bits = rng.random((p, r)) < 0.4
+    words = tbv.pack(bits)
+    assert np.array_equal(tbv.unpack(tbv.bv_and_many(words), r),
+                          bits.all(axis=0))
+    assert np.array_equal(tbv.unpack(tbv.bv_or_many(words), r),
+                          bits.any(axis=0))
+    assert np.array_equal(tbv.bv_and_many(words), jbv.bv_and_many(words))
+    assert np.array_equal(tbv.bv_or_many(words), jbv.bv_or_many(words))
+    row = tbv.pack(bits[0])
+    assert tbv.popcount(row) == jbv.popcount(row) == int(bits[0].sum())
+    idx = tbv.select_indices(row, r)
+    assert np.array_equal(idx, np.nonzero(bits[0])[0])
+    assert np.array_equal(idx, jbv.select_indices(row, r))
+
+
+def test_torch_parity_with_jnp():
+    """tests/test_bitvector.py's ``test_jnp_parity``: the port's device
+    flavour is torch, held against the JAX package's jnp flavour on the
+    same bits."""
+    rng = np.random.default_rng(0)
+    bits = rng.random((3, 130)) < 0.5
+    words = tbv.pack(bits)
+    jwords = jbv.jnp_pack(jnp.asarray(bits))
+    twords = tbv.torch_pack(torch.from_numpy(bits))
+    assert np.array_equal(twords.numpy(), np.asarray(jwords))
+    assert np.array_equal(twords.numpy(), words)
+    assert np.array_equal(
+        tbv.torch_unpack(twords, 130).numpy(),
+        np.asarray(jbv.jnp_unpack(jnp.asarray(words), 130)))
+    assert tbv.torch_popcount(twords) == \
+        int(jbv.jnp_popcount(jnp.asarray(words))) == int(bits.sum())
+    assert np.array_equal(
+        tbv.torch_and_many(twords).numpy(),
+        np.asarray(jbv.jnp_and_many(jnp.asarray(words))))
+
+
+@given(st.integers(0, 2**31), st.integers(0, 400))
+@settings(max_examples=60, deadline=None)
+def test_popcount_fallback_matches(seed, r):
+    """numpy<2 path: the unpackbits fallback == np.bitwise_count path, in
+    the port and in the JAX package, on arbitrary shapes (including empty
+    and non-contiguous inputs)."""
+    rng = np.random.default_rng(seed)
+    bits = rng.random(r) < 0.3
+    words = tbv.pack(bits)
+    expected = int(bits.sum())
+    assert tbv.popcount(words) == expected
+    assert tbv._popcount_unpack(words) == expected == \
+        jbv._popcount_unpack(words)
+    # non-contiguous view (fallback must not assume contiguity)
+    two = np.stack([words, words])
+    assert tbv._popcount_unpack(two.T) == 2 * expected == \
+        jbv._popcount_unpack(two.T)

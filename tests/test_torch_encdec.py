@@ -308,6 +308,35 @@ def test_loss_and_grads_match_jax(dtype):
     assert n == len(tree_leaves(params))
 
 
+def test_loss_takes_an_attention_function():
+    """``Model.loss(attention=...)`` reaches every attention of the
+    encoder-decoder, as the decoders' does (``chip_smoke.py`` holds F's
+    gradient route against the plain version through it): the encoder's,
+    the decoder's self and cross calls each pass through it once a
+    forward, and the plain version gives the default's loss and grads
+    (on the CPU the default is the plain version)."""
+    _, _, tcfg, params = _pair("float32")
+    batch = {k: torch.from_numpy(v) for k, v in t_configs.make_batch(
+        tcfg, ShapeConfig("smoke", "train", 48, 2)).items()}
+    calls = []
+
+    def counting(q, k, v, **kw):
+        calls.append((kw["mask_mode"], q.shape[1], k.shape[1]))
+        return t_attn.flash_attention_plain(q, k, v, **kw)
+
+    model = build_model(dataclasses.replace(tcfg, remat="none"))
+    loss, grads = value_and_grad(model, params, batch)
+    loss_a, grads_a = value_and_grad(model, params, batch,
+                                     attention=counting)
+    assert float(loss_a) == float(loss)
+    for a, b in zip(tree_leaves(grads_a), tree_leaves(grads)):
+        assert torch.equal(a, b)
+    S = batch["tokens"].shape[1]
+    S_src = batch["frames"].shape[1]
+    assert calls == [("none", S_src, S_src)] * tcfg.enc_layers + [
+        ("causal", S, S), ("none", S, S_src)] * tcfg.dec_layers
+
+
 def _smoke_batch(cfg):
     return {k: torch.from_numpy(v)
             for k, v in t_configs.make_batch(cfg, SMOKE_SHAPE).items()}

@@ -408,6 +408,39 @@ def test_optimizer_updates_match_jax(kind):
             assert _abs_err(j_s[k], t_s[k]) <= OPT_TOL, k
 
 
+def test_optimizer_in_pieces_matches_jax(monkeypatch):
+    """Large leaves run the global norm and adafactor's update in pieces
+    (``optimizer.PIECE`` elements; a deepseek-v3 expert stack would
+    otherwise need 15 GB f32 temporaries): with PIECE lowered to 8, a
+    (3, 5, 8) leaf runs as three matrices and its norm in 8-element
+    pieces, and three clipped adafactor updates still equal the JAX
+    package's within 1e-6."""
+    monkeypatch.setattr(opt_mod, "PIECE", 8)
+    rng = np.random.default_rng(11)
+    shapes = {"w": (3, 5, 8), "b": (8,), "m": (4, 6)}
+    params = _random_tree(rng, shapes)
+    j_oc = j_opt.OptConfig(kind="adafactor", learning_rate=1e-2,
+                           warmup_steps=2)
+    oc = OptConfig(kind="adafactor", learning_rate=1e-2, warmup_steps=2)
+    j_p = jax.tree.map(jnp.asarray, params)
+    j_s = j_opt.init(j_p, j_oc)
+    t_p = tree_map(torch.from_numpy, _random_tree(
+        np.random.default_rng(11), shapes))
+    t_s = opt_mod.init(t_p, oc)
+    for _ in range(3):
+        grads = _random_tree(rng, shapes)
+        j_g, j_norm = j_opt.clip_by_global_norm(
+            jax.tree.map(jnp.asarray, grads), 0.5)
+        t_g, t_norm = opt_mod.clip_by_global_norm(
+            tree_map(torch.from_numpy, grads), 0.5)
+        assert abs(float(t_norm) - float(j_norm)) <= OPT_TOL * float(j_norm)
+        assert _abs_err(j_g, t_g) <= OPT_TOL
+        j_p, j_s, _ = j_opt.update(j_p, j_g, j_s, j_oc)
+        t_p, t_s, _ = opt_mod.update(t_p, t_g, t_s, oc)
+        assert _abs_err(j_p, t_p) <= OPT_TOL
+        assert _abs_err(j_s["f"], t_s["f"]) <= OPT_TOL
+
+
 @pytest.mark.parametrize("seed", range(4))
 def test_quantize_int8_bit_equal(seed):
     rng = np.random.default_rng(seed)
