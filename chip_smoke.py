@@ -92,9 +92,10 @@ accounting), and every tuner-phase count equal to FullScanBaseline.
 
 Then kernel F (flash attention, csrc/flash_attention.cu) against its plain
 version on the TPU test shapes, the serving shape, unmasked, Sq != Sk and
-ragged S, in f32 (the SIMT route) and bf16 (the tensor-core route, also
-against its own numerics, ref.flash_attention_ref_bf16p), and the
-model-serving path at full width:
+ragged S, d 192 (v at 192 and at MLA's 128) and 256, in f32 (the SIMT
+route) and bf16 (the tensor-core routes, also against their own
+numerics, ref.flash_attention_ref_bf16p), and the model-serving path at
+full width:
 
   repro_torch.launch.serve.main(["--arch", "qwen3-1.7b", "--batch", "8",
                                  "--prompt-len", "512", "--gen", "32"])
@@ -113,14 +114,14 @@ MoE, MLA and vision serving at published widths, each cut to 4 layers:
   launch.serve.main, internvl2-76b with 1,024 seeded patch embeddings
   through make_serve_fns; batch 8, prompt 512, 32 greedy tokens
     -> prefill: every attention layer on kernel F (deepseek-v3: qk head
-       dim 192, v zero-padded from 128)
+       dim 192, v at its own 128, on flash_kernel_wgmma)
     -> the MoE layers: models/moe.py (routing, dispatch, experts)
 
-checked by (i) F on layer 0 against its plain version (the padded
-columns exactly 0), (ii) the first MoE layer's routing on the card
-against the CPU's from the same f32 logits and its f32 output against a
-per-expert loop, (iii) forward against prefill + decode in f32 at 2
-layers; each prefill's device time by kind from the profiler.
+checked by (i) F on layer 0 against its plain version (deepseek-v3's v
+and o 128 wide: no padded copy), (ii) the first MoE layer's routing on
+the card against the CPU's from the same f32 logits and its f32 output
+against a per-expert loop, (iii) forward against prefill + decode in f32
+at 2 layers; each prefill's device time by kind from the profiler.
 
 Then the recurrent, hybrid and encoder-decoder families at published
 widths:
@@ -167,7 +168,7 @@ recurrentgemma one rec, rec, attn period, rwkv6 2 layers, seamless 2 + 2
 layers; batch 8, S 256):
 
   (1) Model.loss and every gradient in bf16 through F's autograd
-      Function (d 128; 192 with v padded; 256 on the band; unmasked over
+      Function (d 128; 192 with v at 128; 256 on the band; unmasked over
       the frames and across at Sq != Sk) against autograd over the plain
       version, the MoE's top-k choice replayed from the first route;
       every gradient finite and non-zero, within F's bf16 bound of each
@@ -1130,6 +1131,30 @@ def _zero_counters() -> None:
     from repro_torch.kernels import substring_match as sm
     fused.launches = scan_fused.launches = bitvector_ops.launches = 0
     sm.match_launches = sm.kv_launches = fa.launches = 0
+    _zero_flash_routes()
+
+
+def _zero_flash_routes() -> None:
+    """Kernel F's launches by the source's kernel to 0."""
+    from repro_torch.kernels import flash_attention as fa
+    for name in fa.route_launches:
+        fa.route_launches[name] = 0
+
+
+def _wgmma_check(arch: str, cfg, launches: int) -> int:
+    """Kernel F's launches on ``flash_kernel_wgmma`` since the last
+    :func:`_zero_flash_routes`; raises unless they are all of ``launches``
+    where the config's qk head dim is 192 or 256 (MLA, recurrentgemma:
+    bf16 compute) and none elsewhere."""
+    from repro_torch.kernels import flash_attention as fa
+    qkd = (cfg.mla.qk_nope_head_dim + cfg.mla.qk_rope_head_dim
+           if cfg.attention == "mla" else cfg.hd())
+    got = fa.route_launches["flash_kernel_wgmma"]
+    want = launches if qkd >= 192 else 0
+    if got != want:
+        raise AssertionError(f"{arch}: {got} launches of flash_kernel_wgmma"
+                             f", want {want} (qk head dim {qkd})")
+    return got
 
 
 def _split_counters() -> dict:
@@ -1351,17 +1376,19 @@ def split_kernel_rows(run, split, dev, reduce) -> list[dict]:
 
 def check_flash(dev) -> int:
     """Kernel F against its plain versions: the TPU test shapes, the
-    serving shape, unmasked, Sq != Sk, ragged S, d = 192 and 256, and the
-    causal band (local attention) at recurrentgemma's shape and others,
-    window 1 and window >= S (bit-equal to causal); f32 (SIMT route) and
-    bf16 (tensor-core route, also against its own numerics); and the bf16
-    route's refusal of rows that are not 16-byte aligned."""
+    serving shape, unmasked, Sq != Sk, ragged S, d = 192 (v at 192 and at
+    MLA's 128: its prefill shape, ragged, Sq != Sk unmasked) and 256
+    (causal, ragged, unmasked), and the causal band (local attention) at
+    recurrentgemma's shape and others, window 1 and window >= S
+    (bit-equal to causal); f32 (SIMT route) and bf16 (tensor-core routes,
+    also against their own numerics over each instance's key tile); and
+    the bf16 route's refusal of rows that are not 16-byte aligned."""
     import numpy as np
     import torch
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref
 
-    cases = [  # B, H, Hkv, Sq, Sk, d, causal, window
+    cases = [  # B, H, Hkv, Sq, Sk, d, causal, window[, dv (default d)]
         (2, 4, 2, 128, 128, 64, True, 0), (1, 8, 8, 256, 256, 32, True, 0),
         (2, 4, 1, 64, 64, 128, False, 0), (1, 2, 2, 96, 96, 16, True, 0),
         (1, 2, 2, 64, 64, 32, True, 0),               # the TPU bf16 test
@@ -1369,21 +1396,31 @@ def check_flash(dev) -> int:
         (2, 16, 8, 512, 512, 128, False, 0),
         (2, 8, 4, 300, 700, 64, False, 0), (2, 8, 4, 700, 300, 64, True, 0),
         (2, 16, 8, 1000, 1000, 128, True, 0), (3, 4, 4, 77, 77, 16, False, 0),
-        (2, 16, 16, 512, 512, 192, True, 0),          # MLA's qk head dim
+        (2, 16, 16, 512, 512, 192, True, 0),          # d 192, v 192
         (1, 8, 8, 300, 700, 192, False, 0), (2, 4, 2, 130, 130, 192, True, 0),
+        (8, 128, 128, 512, 512, 192, True, 0, 128),   # MLA's prefill, v 128
+        (2, 4, 2, 130, 130, 192, True, 0, 128),       # ragged
+        (1, 8, 8, 300, 700, 192, False, 0, 128),      # Sq != Sk, unmasked
+        (1, 8, 8, 700, 300, 192, True, 0, 128),
         (2, 16, 1, 512, 512, 256, True, 0),           # recurrentgemma's d
+        (1, 8, 2, 333, 333, 256, True, 0),            # ragged, causal
         (1, 8, 8, 300, 700, 256, False, 0),
         (1, 16, 1, 2560, 2560, 256, True, 2048),      # recurrentgemma's band
+        (1, 4, 1, 1000, 1000, 256, True, 300),        # ragged band
         (2, 8, 2, 700, 700, 64, True, 128), (1, 4, 1, 300, 300, 256, True, 37),
         (1, 4, 2, 200, 200, 64, True, 1),             # each row sees itself
+        (1, 4, 2, 77, 77, 256, True, 1),
         (1, 4, 2, 150, 150, 128, True, 4096),         # window >= S: causal
+        (1, 4, 1, 150, 150, 256, True, 4096),
     ]
     worst = {"bf16p": 0.0}
-    for i, (B, H, Hkv, Sq, Sk, d, causal, window) in enumerate(cases):
+    for i, (B, H, Hkv, Sq, Sk, d, causal, window, *dv) in enumerate(cases):
+        dv = dv[0] if dv else d
         rng = np.random.default_rng(100 + i)
-        base = [torch.from_numpy(rng.normal(size=(B, S, h, d)).astype(
-            np.float32)).to(dev) for S, h in ((Sq, H), (Sk, Hkv), (Sk, Hkv))]
-        shape = (f"B={B} H={H} Hkv={Hkv} Sq={Sq} Sk={Sk} d={d} "
+        base = [torch.from_numpy(rng.normal(size=(B, S, h, w)).astype(
+            np.float32)).to(dev)
+            for S, h, w in ((Sq, H, d), (Sk, Hkv, d), (Sk, Hkv, dv))]
+        shape = (f"B={B} H={H} Hkv={Hkv} Sq={Sq} Sk={Sk} d={d} dv={dv} "
                  f"causal={causal} window={window}")
         for name, tol in FLASH_TOL.items():
             # (B, S, heads, d) handed over transposed, as the model does
@@ -1394,10 +1431,11 @@ def check_flash(dev) -> int:
                                            window=window)
             torch.cuda.synchronize()
             err = float((got.float() - want.float()).abs().max())
-            if not (err <= tol) or got.dtype != q.dtype:
+            if (not (err <= tol) or got.dtype != q.dtype
+                    or got.shape != (B, H, Sq, dv)):
                 raise AssertionError(
                     f"flash kernel != plain version: {name} {shape}: max "
-                    f"abs err {err} > {tol}")
+                    f"abs err {err} > {tol} (or out {tuple(got.shape)})")
             worst[name] = max(worst.get(name, 0.0), err)
             if window >= Sq and not torch.equal(
                     got, fa.flash_attention(q, k, v, causal=True)):
@@ -1413,8 +1451,10 @@ def check_flash(dev) -> int:
                         f"flash kernel != its bf16 numerics: {shape}: "
                         f"{rel} > {FLASH_BF16P_TOL}")
                 worst["bf16p"] = max(worst["bf16p"], rel)
-    print(f"  {len(cases)} shapes ({sum(1 for c in cases if c[-1])} with a "
-          f"band, {sum(1 for c in cases if c[5] == 256)} at d = 256): max "
+    print(f"  {len(cases)} shapes ({sum(1 for c in cases if c[7])} with a "
+          f"band, {sum(1 for c in cases if c[5] == 256)} at d = 256, "
+          f"{sum(1 for c in cases if c[8:] == (128,))} at MLA's (192, "
+          f"128)): max "
           f"abs err vs plain f32 {worst['float32']:.3g} (tol "
           f"{FLASH_TOL['float32']}), bf16 {worst['bfloat16']:.3g} (tol "
           f"{FLASH_TOL['bfloat16']}); bf16 vs ref.flash_attention_ref_bf16p "
@@ -1913,9 +1953,10 @@ def serve_model(arch: str, n_layers: int, dev) -> dict:
           + (f" + {cfg.frontend_len} patch embeddings" if cfg.frontend_len
              else "") + f", {res['generated']} tokens each); peak "
           f"max_memory_allocated {peak / 2**30:.2f} GiB")
+    wgmma = _wgmma_check(arch, cfg, launches)
     print(f"  kernel F launches: {launches} in {res['prefill_calls']} "
           f"prefills ({per_prefill:g} per prefill, {n_layers} attention "
-          f"layers)")
+          f"layers); {wgmma} of them on flash_kernel_wgmma")
     if res["generated"] != MODEL_GEN or per_prefill != n_layers:
         raise AssertionError(f"{arch}: {res}, F launches {launches}")
 
@@ -1923,21 +1964,24 @@ def serve_model(arch: str, n_layers: int, dev) -> dict:
     q, k, v = captured["q"], captured["k"], captured["v"]
     want = ref.flash_attention_ref(q, k, v)
     err = float((captured["out"].float() - want.float()).abs().max())
-    pad = ""
+    vwidth = ""
     if cfg.attention == "mla":
         vd = cfg.mla.v_head_dim
-        if captured["out"][..., vd:].any() or v[..., vd:].any():
-            raise AssertionError("(i) the padded columns of v or o are not 0")
-        pad = (f"; v padded {vd} -> {q.shape[-1]}, o's columns past {vd} "
-               f"exactly 0")
+        if v.shape[-1] != vd or captured["out"].shape[-1] != vd:
+            raise AssertionError(f"(i) F took v {tuple(v.shape)} and gave "
+                                 f"o {tuple(captured['out'].shape)}: want "
+                                 f"v and o at {vd}, unpadded")
+        vwidth = (f"; v {tuple(v.shape)} at its own head dim {vd} (no "
+                  f"padded copy), o {tuple(captured['out'].shape)}")
     print(f"  (i) layer 0: q {tuple(q.shape)} k {tuple(k.shape)} {q.dtype}, "
           f"causal; F vs plain max abs err {err:.3g} (tol "
-          f"{FLASH_TOL['bfloat16']}){pad}")
+          f"{FLASH_TOL['bfloat16']}){vwidth}")
     if not (err <= FLASH_TOL["bfloat16"]):
         raise AssertionError(f"(i) F != plain on layer 0: {err}")
     del captured, q, k, v, want
     out = {"result": res, "launches": launches, "peak_bytes": peak,
-           "param_count": n_params, "err": err, "layers": n_layers}
+           "param_count": n_params, "err": err, "layers": n_layers,
+           "wgmma_launches": wgmma}
     if cfg.moe is not None:
         out["moe"] = _moe_check(cfg, moe_in["h"], moe_in["p"], dev)
     del moe_in
@@ -2027,26 +2071,49 @@ def model_serving(dev) -> dict:
 FLASH_MLA_SHAPE = (8, 128, 512, 192, 128)
 
 
+def _flash_build_report(*pairs) -> dict:
+    """ptxas registers and spills, and shared memory a block, of kernel F's
+    instances at ``pairs`` ((d, dv)): the bf16 route's flash_kernel_wgmma
+    and the f32 route's flash_kernel."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+
+    out = {}
+    for d, dv in pairs:
+        bn = ref.flash_key_tile(d, dv)
+        out[f"flash_kernel_wgmma<{d}, {dv}, {bn}>"] = {
+            **ptxas_report("flash_attention",
+                           f"flash_kernel_wgmmaILi{d}ELi{dv}ELi{bn}E"),
+            "smem_bytes": fa.smem_bytes(torch.bfloat16, d, dv)}
+        out[f"flash_kernel<{d}, {dv}>"] = {
+            **ptxas_report("flash_attention", f"flash_kernelILi{d}ELi{dv}E"),
+            "smem_bytes": fa.smem_bytes(torch.float32, d, dv)}
+    for name, rep_ in out.items():
+        print(f"  {name}: {rep_}")
+    return out
+
+
 def flash_mla_timing(dev) -> dict:
-    """Kernel F at the MLA shape (v zero-padded to the qk head dim, as
-    ``attention.flash_kernel_padded_v`` hands it over), beside its plain
-    version and ``scaled_dot_product_attention`` at q/k 192, v 128.  The
-    bound counts MLA's function: q and k at 192, v and o at 128, causal
-    QK^T and P.V."""
+    """Kernel F at the MLA shape, v at its own head dim of 128 (a column
+    slice of the kv projection, as ``attention.run_flash_kernel`` hands
+    it over), beside its plain version and
+    ``scaled_dot_product_attention`` at q/k 192, v 128.  The bound counts
+    MLA's function: q and k at 192, v and o at 128, causal QK^T and P.V;
+    with the build's registers, spills and shared memory of the (192,
+    128) instances."""
     import numpy as np
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref
-    from repro_torch.models.attention import pad_head_dim
 
     B, H, S, dqk, dv = FLASH_MLA_SHAPE
     rng = np.random.default_rng(SEED + 2)
     q, k, v = (torch.from_numpy(rng.normal(size=(B, S, H, d)).astype(
         np.float32)).to(dev).to(torch.bfloat16) for d in (dqk, dqk, dv))
-    vp = pad_head_dim(v, dqk)
-    q, k, v, vp = (t.transpose(1, 2) for t in (q, k, v, vp))
-    ms = kernel_ms(lambda: fa.flash_attention(q, k, vp), 20, "flash_kernel")
+    q, k, v = (t.transpose(1, 2) for t in (q, k, v))
+    ms = kernel_ms(lambda: fa.flash_attention(q, k, v), 20, "flash_kernel")
     nbytes = (q.numel() + k.numel() + 2 * v.numel()) * q.element_size()
     flops = B * H * S * S * (dqk + dv)        # 2 S^2 (dqk + dv) / 2 causal
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
@@ -2058,20 +2125,21 @@ def flash_mla_timing(dev) -> dict:
         "source": "src/repro_torch/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:78",
         "ms": ms, "plain_ms": cuda_ms(
-            lambda: ref.flash_attention_ref(q, k, vp), 3),
+            lambda: ref.flash_attention_ref(q, k, v), 3),
         "bound_ms": max(bytes_ms, flops_ms),
         "bound_by": "bytes" if bytes_ms >= flops_ms else "operations",
         "library_ms": lib_ms,
         "library_note": "scaled_dot_product_attention(is_causal=True) at "
                         "q/k 192, v 128, timed only",
         "ms_from": ms_from("flash_kernel"), "wrapper_call_ms": cuda_ms(
-            lambda: fa.flash_attention(q, k, vp), 20),
-        "shape": f"B={B} H={H} Hkv={H} S={S} d={dqk} (v {dv} padded) "
-                 f"{q.dtype} causal",
+            lambda: fa.flash_attention(q, k, v), 20),
+        "shape": f"B={B} H={H} Hkv={H} S={S} d={dqk} dv={dv} {q.dtype} "
+                 f"causal",
         "bound_bytes_ms": bytes_ms, "bound_ops_ms": flops_ms,
         "tflop_per_s": flops / (ms * 1e-3) / 1e12,
         "bound_share": max(bytes_ms, flops_ms) / ms,
         "ms_over_library": ms / lib_ms,
+        "build": _flash_build_report((dqk, dv)),
     }
 
 
@@ -2315,9 +2383,10 @@ def serve_recurrent(arch: str, n_layers: int, B: int, S: int, n_gen: int,
           f"{res['tokens_per_s']:.1f} tokens/s over {res['wall_s']:.3f} s "
           f"(batch {res['batch']}, prompt {S}, {res['generated']} tokens "
           f"each); peak max_memory_allocated {peak / 2**30:.2f} GiB")
+    wgmma = _wgmma_check(arch, cfg, launches)
     print(f"  kernel F launches: {launches} in {res['prefill_calls']} "
           f"prefills ({per_prefill:g} per prefill; {want_per} attention "
-          f"calls per prefill)")
+          f"calls per prefill); {wgmma} of them on flash_kernel_wgmma")
     if res["generated"] != n_gen or per_prefill != want_per:
         raise AssertionError(f"{arch}: {res}, F launches {launches}")
 
@@ -2341,7 +2410,8 @@ def serve_recurrent(arch: str, n_layers: int, B: int, S: int, n_gen: int,
                              f"{sorted(want_forms)}")
     del captured
     out = {"result": res, "launches": launches, "peak_bytes": peak,
-           "param_count": n_params, "errs": errs, "layers": n_layers}
+           "param_count": n_params, "errs": errs, "layers": n_layers,
+           "wgmma_launches": wgmma}
     _free()
     out["breakdown"] = _prefill_breakdown(cfg, dev, B, S)
     _free()
@@ -2424,8 +2494,8 @@ def flash_band_timing(dev) -> dict:
     ``scaled_dot_product_attention`` with a boolean band mask.  The bound
     counts the band's pairs alone: 4 B H d per (query, key) pair with
     0 <= q - k < window, over the bf16 tensor-core rate, against q, k, v
-    and o once over the memory rate; with the build's registers and
-    spills of the d = 256 instances."""
+    and o once over the memory rate; with the build's registers, spills
+    and shared memory of the d = 256 instances."""
     import numpy as np
     import torch
     import torch.nn.functional as F
@@ -2468,10 +2538,7 @@ def flash_band_timing(dev) -> dict:
         "tflop_per_s": flops / (ms * 1e-3) / 1e12,
         "bound_share": max(bytes_ms, flops_ms) / ms,
         "ms_over_library": ms / lib_ms,
-        "ptxas": {"flash_kernel_mma<256>": ptxas_report(
-                      "flash_attention", "flash_kernel_mmaILi256E"),
-                  "flash_kernel<256>": ptxas_report(
-                      "flash_attention", "flash_kernelILi256E")},
+        "build": _flash_build_report((d, d)),
     }
 
 
@@ -2861,12 +2928,14 @@ def family_route(arch: str, cfg, model, params, batch, dev) -> dict:
     record: list = []
     torch.cuda.synchronize()
     fa.launches = 0
+    _zero_flash_routes()
     t0 = time.perf_counter()
     with _routing(record, replay=False):
         loss_f, g_f = value_and_grad(model, params, batch)
     torch.cuda.synchronize()
     t_f = time.perf_counter() - t0
     launches = fa.launches
+    wgmma = _wgmma_check(arch, cfg, launches)
     g_host = [g.to("cpu") for g in tree_leaves(g_f)]
     del g_f
     t0 = time.perf_counter()
@@ -2892,7 +2961,8 @@ def family_route(arch: str, cfg, model, params, batch, dev) -> dict:
           f"{float(loss_p):.6f} (plain); {len(_leaf_names(params))} "
           f"gradients, all finite and non-zero, F route vs plain max "
           f"{worst:.3g} of the leaf's max |g| (tol {tol}); F launches "
-          f"{launches} (want {want}: forward + the checkpoint's recompute)"
+          f"{launches} (want {want}: forward + the checkpoint's recompute;"
+          f" {wgmma} on flash_kernel_wgmma)"
           + (f"; routing replayed: the plain route's own top-k differs in "
              f"{moved[0]} of {n_assign} sorted expert ids (forward and "
              f"recompute)" if record else "")
@@ -2901,6 +2971,7 @@ def family_route(arch: str, cfg, model, params, batch, dev) -> dict:
         raise AssertionError(f"gradient route, {arch}: {bad}, F launches "
                              f"{launches} != {want}")
     return {"max_rel_err": worst, "launches": launches,
+            "wgmma_launches": wgmma,
             "routing_moved": moved[0] if record else None,
             "ms_f": t_f * 1e3, "ms_plain": t_p * 1e3}
 
@@ -2933,6 +3004,7 @@ def family_step(arch: str, cfg, model, params, batch, kind: str, dev,
     for _ in range(2):
         torch.cuda.synchronize()
         fa.launches = 0
+        _zero_flash_routes()
         t0 = time.perf_counter()
         params, state, metrics = step(params, state, batch)
         losses.append(float(metrics["loss"]))
@@ -2940,6 +3012,7 @@ def family_step(arch: str, cfg, model, params, batch, kind: str, dev,
         if fa.launches != want:
             raise AssertionError(f"train step, {arch}: F launches "
                                  f"{fa.launches} != {want}")
+        wgmma = _wgmma_check(arch, cfg, want)
     peak = torch.cuda.max_memory_allocated(dev)
     moved = not torch.equal(norm, params["ln_f"])
     B = FAMILY_BATCH
@@ -2959,7 +3032,8 @@ def family_step(arch: str, cfg, model, params, batch, kind: str, dev,
           f"(flops.estimate: {est.flops_global:.4e} FLOP, "
           f"{est.hbm_bytes_global:.4e} B), share {bound_ms / ms[1]:.2%}; "
           f"peak max_memory_allocated {peak / 2**30:.2f} GiB; F {want} a "
-          f"step; ln_f moved {moved}; {card}")
+          f"step ({wgmma} on flash_kernel_wgmma); ln_f moved {moved}; "
+          f"{card}")
     if not all(math.isfinite(x) for x in losses) or not moved:
         raise AssertionError(f"train step, {arch}: losses {losses}, ln_f "
                              f"moved {moved}")

@@ -1,42 +1,98 @@
 // Kernel F: causal, banded (local) or unmasked GQA attention with an online
-// softmax, over positions 0..S-1, scale d**-0.5.
+// softmax, over positions 0..S-1, scale d**-0.5 with d the qk head dim; v
+// has its own head dim dv (MLA: qk 192, v 128).
 //
 // Replaces the TPU kernel src/repro/kernels/flash_attention.py::
 // flash_attention_tpu (body _kernel).  Same function; the TPU's grid
 // (B, H, nq, nk) carried m, l and the accumulator in VMEM scratch across
 // its sequential kv steps.  Here blocks run in parallel and in no order,
-// so one block owns one 64-row q tile of one (b, h) and walks the K/V
-// tiles in a loop, keeping the running stats in registers.  Two routes,
-// chosen by dtype in ciao_flash_attention:
+// so one block (in flash_kernel_wgmma, one work item of a persistent
+// block) owns one q tile of one (b, h) and walks the K/V tiles in a loop,
+// keeping the running stats in registers.  Three routes, chosen by dtype
+// and (d, dv) in pick():
 //
-// bf16: flash_kernel_mma, on the tensor cores (FlashAttention-2's shape).
-//  * 128 threads, 4 warps of 16 q rows.  Q is loaded once; K and V tiles
-//    of 64 keys go through a two-stage ring of cp.async 16-byte copies
-//    (tile t+1 is in flight while tile t is multiplied).  Tiles stay
-//    bf16 in shared memory, rows padded by 16 bytes so that the eight
-//    row addresses of an ldmatrix land on eight distinct bank groups.
-//    Rows past Sq or Sk are zero-filled (src-size 0).
+// bf16, d = dv <= 128: flash_kernel_mma, on the tensor cores
+// (FlashAttention-2's shape).
+//  * 128 threads, 4 warps of 16 q rows, 64-row q tiles.  Q is loaded once;
+//    K and V tiles of 64 keys go through a two-stage ring of cp.async
+//    16-byte copies (tile t+1 is in flight while tile t is multiplied).
+//    Tiles stay bf16 in shared memory, rows padded by 16 bytes so that the
+//    eight row addresses of an ldmatrix land on eight distinct bank
+//    groups.  Rows past Sq or Sk are zero-filled (src-size 0).
 //  * S = Q K^T by mma.sync m16n8k16 (bf16 in, f32 accumulate); Q's
 //    fragments come from ldmatrix once and stay in registers, K's from
 //    ldmatrix per tile.  A thread holds parts of rows g and g + 8 of its
 //    warp's 16, so a row max is two xor shuffles within a quad; the row
 //    sums stay per thread and are reduced the same way once, at the end.
-//  * The causal mask is applied only on tiles that cross the diagonal,
-//    the key-past-Sk mask only on the last tile.
 //  * P.V: the f32 scores become p in registers, are packed to bf16x2 and
 //    serve directly as the A operand of the next mma (no shared-memory
 //    round trip); V's fragments come from ldmatrix.trans.  O accumulates
 //    in f32 and is rescaled by alpha per tile.
-//  * Numerics: p is rounded to bf16 for P.V (l sums the f32 p), which
-//    the JAX kernel does not do (its P.V is f32).  The plain version of
-//    exactly this is repro_torch.kernels.ref.flash_attention_ref_bf16p.
 //  * Bound on this card: at the serving shape (B 8, H 16, Hkv 8, S 512,
 //    d 128, causal) the bytes (q, k, v, o once: 50 MB, 0.015 ms at
 //    3.35 TB/s) bound it, the 8.6 GFLOP at the bf16 tensor-core rate
 //    taking 0.009 ms.  mma.sync reaches a part of that rate; each warp
-//    also reads the whole K and V tile from shared memory, which sets
-//    the pace next.  wgmma, TMA and warp specialisation are the next
-//    redesign's work.
+//    also reads the whole K and V tile from shared memory.
+//
+// bf16, (d, dv) = (192, 128), (192, 192), (256, 256): flash_kernel_wgmma,
+// designed for Hopper.  It replaces flash_kernel_mma<192> and <256>
+// (template instances of the design above), which at those widths used
+// 255 registers and spilled (8 and 64 bytes), fit one 4-warp block an SM
+// (128,000 and 168,960 B of shared memory), read Q again from shared
+// memory on every tile at d = 256, and had every warp read the whole K and
+// V tile through ldmatrix; MLA's v was zero-padded to 192 by the caller, so
+// a third of P.V and of o's bytes were zeros.  There they reached 14% of
+// the bytes bound at MLA's shape and 9% of the operations bound on the band.
+//  * Block: 384 threads, one block an SM, persistent.  Warpgroup 0 is the
+//    producer: one thread takes the work items (a q tile of 128 rows of one
+//    (b, h)) from a zeroed counter the wrapper passes, and issues every
+//    load; setmaxnreg lowers the warpgroup to 24 registers a thread, so
+//    that warpgroups 1 and 2, the consumers of 64 q rows each, rise to 240.
+//    The items go head by head (a head's q tiles at once, so their K/V
+//    tiles meet in L2) where no item is more than a tenth of a block's
+//    share of the work, else q tile by q tile; both take a head's heaviest
+//    q tiles first (head_major_order).
+//  * Loads: TMA (cp.async.bulk.tensor.4d) through tensor maps of the
+//    (d, S, heads, B) operands, encoded on the host for each call
+//    (cuTensorMapEncodeTiled, found through cudaGetDriverEntryPoint so the
+//    library links the runtime alone) from the wrapper's strides: the
+//    (B, S, H, d) views of the models and MLA's v, a column slice, need no
+//    copy.  A box is 64 columns (128 bytes) by the tile's rows, stored with
+//    the 128-byte swizzle, so a tile is width / 64 such chunks.  Q has one
+//    buffer; K and V a ring of two stages.  Each has a full mbarrier
+//    (completed by the copies' byte count) and an empty one; K and V are
+//    freed apart, K once S has landed, V once P.V has.  Rows past Sq or Sk
+//    are zero-filled by the TMA unit.
+//  * S = Q K^T: wgmma.mma_async m64nBNk16 with Q and K both read from
+//    shared memory by descriptor (K-major, 128-byte swizzle); no thread
+//    runs ldmatrix.  P.V: wgmma m64nDVk16 with p packed to bf16 in
+//    registers as the A operand (the accumulator's fragment is the A
+//    fragment) and V read by descriptor as a transposed (MN-major) B.
+//    Tile t's S is issued with tile t - 1's P.V, which runs on while tile
+//    t's softmax is computed; O is rescaled once it is done.
+//  * Output: at (192, 128) stored from the fragments, Q freed as soon as
+//    the last S has landed (MLA's items are short, and the next item's Q
+//    then loads during this one's end); at dv = d staged in the consumer's
+//    own Q rows with the 128-byte swizzle and written by a TMA store.
+//  * Tiles of 64 keys: at (192, 128) Q 48 KB + 2 x (K 24 KB + V 16 KB),
+//    132,184 B of shared memory with the barriers and the slack that
+//    aligns the tiles to the swizzle's 1,024-byte atoms, 64 f32 of O and
+//    32 of S a consumer thread; at (256, 256) Q 64 KB + 2 x (32 + 32 KB),
+//    197,720 B, 128 and 32; at (192, 192) 148,568 B, 96 and 32.  ptxas:
+//    168 registers at launch, no spill.  128-key tiles at (192, 128) ran
+//    MLA's shape about 5% faster, but p's bf16 rounding then took
+//    deepseek-v3's bf16 gradient-route check in chip_smoke.py from 0.017
+//    to 0.0206 of a leaf's max |g|, past its 2e-2 bound.  (On the card, a
+//    second Q buffer, 80-key tiles at d = 256, turns between the two
+//    consumers' products and skipping O's rescale where no row's max moved
+//    were each measured no faster.)
+//  * Bound on this card: at MLA's prefill (B 8, H 128, S 512, causal) the
+//    bytes (q and k at 192, v and o at 128, once: 671 MB, 0.200 ms);
+//    on recurrentgemma's band (B 2, H 16, S 2,560, window 2,048, d 256)
+//    the operations (4 B H d per valid pair, 0.104 ms at the bf16 rate).
+//    The design keeps the tensor cores fed from shared memory without
+//    register copies, overlaps loads, products and softmax, and hides the
+//    start and end of each item behind the next one's loads.
 //
 // f32: flash_kernel, on the CUDA cores, exact to f32 (no TF32).
 //  * 256 threads as a 16 x 16 grid.  Thread (ty, tx) owns q rows
@@ -45,90 +101,84 @@
 //    shared memory as f32 (rows padded so neither read conflicts on a
 //    bank).  The 16 threads of a row are one half-warp, so the row max
 //    and sum are xor shuffles within it.
-//  * P.V: the same thread owns output columns tx + 16 c (c < d / 16) of
-//    its four rows, so d = 128 needs 32 f32 accumulators per thread, not
+//  * P.V: the same thread owns output columns tx + 16 c (c < dv / 16) of
+//    its four rows, so dv = 128 needs 32 f32 accumulators per thread, not
 //    128 in one.  p is broadcast from its owner by a half-warp shuffle;
 //    V rows are read from shared memory.
 //  * Scores, stats, p and the accumulator are f32, as the reference
 //    computes them.
 //
-// Both routes:
+// Every route:
 //  * m, l, alpha and p follow _kernel: the NEG_INF / 2 guards, p = 0 where
 //    masked, alpha = 0 while a row has seen no key, and the final divide
 //    by max(l, 1e-30).  Keys past Sk and rows past Sq are masked, so any
 //    Sq and Sk work; the TPU kernel required S to divide its blocks.  The
-//    output is rounded once to the input type.
+//    output is rounded once to the input type.  The bf16 routes round p
+//    to bf16 for P.V (l sums the f32 p), which the JAX kernel does not do
+//    (its P.V is f32); the plain version of exactly this, over each
+//    instance's key tile, is repro_torch.kernels.ref.flash_attention_ref_bf16p.
 //  * Causal: a block stops at the K tile past its last row.  On such a
 //    tile _kernel leaves m, l and acc unchanged (alpha = 1, p = 0), so
 //    the skip is exact.  The heaviest q tiles are launched first.
 //  * Band (window > 0, causal): key k is valid for query q iff
 //    0 <= q - k < window, the JAX package's mask_mode="local"
 //    (src/repro/models/attention.py::flash_attention; the TPU kernel has
-//    no window).  A block starts at the 64-key tile that holds key
+//    no window).  A block starts at the key tile that holds key
 //    q0 - window + 1 (q0 its first row), skipping the tiles below it
-//    exactly as the causal skip above does, and masks the tiles that
-//    cross the band's lower edge as well as those that cross the
-//    diagonal.  tests/test_torch_flash_attention.py holds these
-//    expressions, in Python, to a numpy model of the mask: every valid
-//    pair is visited and every tile with an invalid pair masked.
-//    window = 0: no band.
-//  * Head dims 16, 32, 64, 128, 192 and 256, one template instance each
-//    per route.  d = 192 is MLA's qk head dim (deepseek-v3: nope 128 + rope
-//    64); its v head dim of 128 is zero-padded to 192 by the caller
-//    (repro_torch.models.attention.flash_kernel_padded_v), which leaves
-//    o's first 128 columns exact and the others 0.  Shared memory per
-//    block at d = 192: 128,000 B (bf16), 148,736 B (f32), both under the
-//    227 KB a block may opt into; the bf16 accumulator is 96 f32 a thread
-//    (64 at d = 128), which sets its register count.
-//  * d = 256 is recurrentgemma's head dim.  Shared memory: 168,960 B
-//    (bf16; pitch 528 B, still an odd number of 16-byte groups), 197,888 B
-//    (f32).  The bf16 accumulator is 128 f32 a thread; Q's fragments
-//    (another 64 registers at d = 256) are not kept in registers there but
-//    read again from shared memory by ldmatrix on every tile (kQRegs).
-//    ptxas still reports 255 registers and 64 bytes of spill, and one
-//    block fits an SM.  At recurrentgemma's prefill (B 2, H 16, Hkv 1,
-//    S 2,560, window 2,048) the band's operations bound it (4 B H d per
-//    valid pair: 0.104 ms at the bf16 tensor-core rate; q, k, v and o
-//    once: 0.027 ms); there the band skips 28 of the 820 causal tiles of
-//    a head.
+//    exactly as the causal skip above does.  In flash_kernel_wgmma each
+//    consumer computes only the tiles its own 64 rows reach (it still
+//    takes part in the ring on the others).  The bf16 routes mask a tile
+//    for a warp's 16 rows only where it crosses their diagonal, the band's
+//    lower edge or Sk; the f32 route masks every tile.
+//    tests/test_torch_flash_attention.py holds these expressions, in
+//    Python, for each instance's tiles, to a numpy model of the mask:
+//    every valid pair is visited and every tile with an invalid pair
+//    masked.  window = 0: no band.
+//  * Instances, (d, dv): (16, 16), (32, 32), (64, 64), (128, 128),
+//    (192, 128), (192, 192), (256, 256), on both dtypes.  d = 192 is MLA's
+//    qk head dim (deepseek-v3: nope 128 + rope 64), d = 256
+//    recurrentgemma's head dim.
 //  * GQA: q head h reads kv head h / G, the (Hkv, G) grouping of the
 //    JAX package.  q, k, v and o are read and written through strides
 //    (last dim contiguous), so (B, S, H, d) tensors need no copy.
 
 #include <cstdint>
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kBM = 64;               // q rows per block
-constexpr int kBN = 64;               // keys per K/V tile
+constexpr int kBM = 64;               // q rows per block (f32, mma.sync)
+constexpr int kBN = 64;               // keys per K/V tile (f32, mma.sync)
 constexpr int kThreads = 256;
 constexpr float kNegInf = -1e30f;
 constexpr unsigned kFull = 0xFFFFFFFFu;
+constexpr float kLog2e = 1.4426950408889634f;
 
 // Element strides of a (B, heads, S, d) operand; its last dim is dense.
 struct Strides {
   long long b, h, s;
 };
 
-// First key of the first K/V tile a block of q rows [q0, q0 + kBM) visits:
-// 0, or with a band the 64-key tile that holds key q0 - window + 1.  (The
-// tiles end at min(Sk, q0 + kBM) when causal, at Sk otherwise.)
-__device__ __forceinline__ int first_key_tile(int q0, int window) {
-  return window > 0 ? max(0, q0 - window + 1) / kBN * kBN : 0;
+// First key of the first BN-key tile that q rows from r0 on visit: 0, or
+// with a band the tile that holds key r0 - window + 1.  (For rows [r0, r0 +
+// n) the tiles end at min(Sk, r0 + n) when causal, at Sk otherwise.)
+template <int BN>
+__device__ __forceinline__ int first_key_tile(int r0, int window) {
+  return window > 0 ? max(0, r0 - window + 1) / BN * BN : 0;
 }
 
 // ---------------------------------------------------------------------------
 // f32 route: CUDA cores
 // ---------------------------------------------------------------------------
 
-template <int D>
+template <int D, int DV>
 constexpr int smem_floats() {
-  return kBM * (D + 4) + kBN * (D + 1) + kBN * D;
+  return kBM * (D + 4) + kBN * (D + 1) + kBN * DV;
 }
 
-template <int D>
+template <int D, int DV>
 __global__ void __launch_bounds__(kThreads)
 flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
              const float* __restrict__ v, float* __restrict__ o, int G,
@@ -136,11 +186,11 @@ flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
              float scale, bool causal, int window) {
   constexpr int QP = D + 4;           // Q row pitch: rows ty, ty+1 apart
   constexpr int KP = D + 1;           // K row pitch: 16 rows on 16 banks
-  constexpr int CJ = D / 16;          // output columns per thread
+  constexpr int CJ = DV / 16;         // output columns per thread
   extern __shared__ float smem[];
   float* Qs = smem;                   // [kBM][QP]
   float* Ks = Qs + kBM * QP;          // [kBN][KP]
-  float* Vs = Ks + kBN * KP;          // [kBN][D]
+  float* Vs = Ks + kBN * KP;          // [kBN][DV]
 
   const int tid = threadIdx.x;
   const int tx = tid & 15;
@@ -168,14 +218,15 @@ flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 
   const int k_end = causal ? min(Sk, q0 + kBM) : Sk;
-  for (int k0 = first_key_tile(q0, window); k0 < k_end; k0 += kBN) {
+  for (int k0 = first_key_tile<kBN>(q0, window); k0 < k_end; k0 += kBN) {
     __syncthreads();                  // Q stored; last tile's reads done
     for (int i = tid; i < kBN * D; i += kThreads) {
       const int r = i / D, c = i % D;
-      const bool in = k0 + r < Sk;
-      const long long row = k0 + r;
-      Ks[r * KP + c] = in ? kb[row * ks.s + c] : 0.f;
-      Vs[r * D + c] = in ? vb[row * vs.s + c] : 0.f;
+      Ks[r * KP + c] = k0 + r < Sk ? kb[(long long)(k0 + r) * ks.s + c] : 0.f;
+    }
+    for (int i = tid; i < kBN * DV; i += kThreads) {
+      const int r = i / DV, c = i % DV;
+      Vs[r * DV + c] = k0 + r < Sk ? vb[(long long)(k0 + r) * vs.s + c] : 0.f;
     }
     __syncthreads();
 
@@ -240,7 +291,7 @@ flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
         float p[4];
 #pragma unroll
         for (int i = 0; i < 4; ++i) p[i] = __shfl_sync(kFull, s[i][j], src, 16);
-        const float* vrow = Vs + (src + 16 * j) * D + tx;
+        const float* vrow = Vs + (src + 16 * j) * DV + tx;
 #pragma unroll
         for (int c = 0; c < CJ; ++c) {
           const float vv = vrow[16 * c];
@@ -262,17 +313,18 @@ flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-template <int D>
+template <int D, int DV>
 cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o,
-                       int B, int H, int G, int Sq, int Sk, Strides qs,
-                       Strides ks, Strides vs, Strides os, float scale,
-                       bool causal, int window, cudaStream_t stream) {
-  const int smem = smem_floats<D>() * (int)sizeof(float);
+                       void*, int B, int H, int G, int Sq, int Sk,
+                       Strides qs, Strides ks, Strides vs, Strides os,
+                       float scale, bool causal, int window,
+                       cudaStream_t stream) {
+  const int smem = smem_floats<D, DV>() * (int)sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
-      flash_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      flash_kernel<D, DV>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((Sq + kBM - 1) / kBM, H, B);
-  flash_kernel<D><<<grid, kThreads, smem, stream>>>(
+  flash_kernel<D, DV><<<grid, kThreads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(o), G, Sq, Sk, qs,
       ks, vs, os, scale, causal, window);
@@ -286,11 +338,10 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o,
 constexpr int kWarpsMma = kBM / 16;          // 16 q rows per warp
 constexpr int kThreadsMma = 32 * kWarpsMma;  // 128
 constexpr int kStages = 2;                   // K/V ring depth
-constexpr float kLog2e = 1.4426950408889634f;
 
 // Row pitch in bf16 elements: 16 bytes of padding, so 8 consecutive rows
-// start on 8 distinct 16-byte bank groups for every d in {16, 32, 64, 128,
-// 192, 256} (a pitch of 2d + 16 bytes is an odd number of 16-byte groups)
+// start on 8 distinct 16-byte bank groups for every d in {16, 32, 64, 128}
+// (a pitch of 2d + 16 bytes is an odd number of 16-byte groups)
 template <int D>
 __host__ __device__ constexpr int pitch() { return D + 8; }
 
@@ -383,9 +434,7 @@ flash_kernel_mma(const __nv_bfloat16* __restrict__ q,
                  float scale_log2, bool causal, int window) {
   constexpr int P = pitch<D>();
   constexpr int KS = D / 16;          // k-steps of QK^T
-  // Q's fragments stay in registers up to d = 192; at d = 256 they are
-  // read again from shared memory on every tile (see the note above)
-  constexpr bool kQRegs = D <= 192;
+  static_assert(D <= 128, "d 192 and 256 take flash_kernel_wgmma");
   constexpr int NT = kBN / 8;         // n8 tiles of a score row block
   constexpr int DT = D / 8;           // n8 tiles of the output
   extern __shared__ __align__(128) unsigned char smem_mma[];
@@ -408,7 +457,7 @@ flash_kernel_mma(const __nv_bfloat16* __restrict__ q,
 
   const int k_end = causal ? min(Sk, q0 + kBM) : Sk;
   const int n_tiles = (k_end + kBN - 1) / kBN;
-  const int t0 = first_key_tile(q0, window) / kBN;   // 0 without a band
+  const int t0 = first_key_tile<kBN>(q0, window) / kBN;   // 0 without a band
 
   load_tile<D>(sQ, qb, qs.s, q0, Sq, tid);
   cp_async_commit();
@@ -430,12 +479,10 @@ flash_kernel_mma(const __nv_bfloat16* __restrict__ q,
 
   cp_async_wait<1>();                 // Q has landed
   __syncthreads();
-  uint32_t qf[kQRegs ? KS : 1][4];
-  if constexpr (kQRegs) {
+  uint32_t qf[KS][4];
 #pragma unroll
-    for (int ks_ = 0; ks_ < KS; ++ks_)
-      ldmatrix_x4(qf[ks_], sQ + (a_row * P + ks_ * 16 + a_col) * 2);
-  }
+  for (int ks_ = 0; ks_ < KS; ++ks_)
+    ldmatrix_x4(qf[ks_], sQ + (a_row * P + ks_ * 16 + a_col) * 2);
 
   float acc[DT][4];
 #pragma unroll
@@ -467,9 +514,7 @@ flash_kernel_mma(const __nv_bfloat16* __restrict__ q,
       for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
 #pragma unroll
     for (int ks_ = 0; ks_ < KS; ++ks_) {
-      if constexpr (!kQRegs)
-        ldmatrix_x4(qf[0], sQ + (a_row * P + ks_ * 16 + a_col) * 2);
-      const uint32_t (&qa)[4] = qf[kQRegs ? ks_ : 0];
+      const uint32_t (&qa)[4] = qf[ks_];
 #pragma unroll
       for (int np = 0; np < NT / 2; ++np) {
         uint32_t kf[4];
@@ -582,9 +627,10 @@ flash_kernel_mma(const __nv_bfloat16* __restrict__ q,
 
 template <int D>
 cudaError_t launch_mma(const void* q, const void* k, const void* v, void* o,
-                       int B, int H, int G, int Sq, int Sk, Strides qs,
-                       Strides ks, Strides vs, Strides os, float scale,
-                       bool causal, int window, cudaStream_t stream) {
+                       void*, int B, int H, int G, int Sq, int Sk,
+                       Strides qs, Strides ks, Strides vs, Strides os,
+                       float scale, bool causal, int window,
+                       cudaStream_t stream) {
   constexpr int smem = smem_bytes_mma<D>();
   cudaError_t err = cudaFuncSetAttribute(
       flash_kernel_mma<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -598,46 +644,789 @@ cudaError_t launch_mma(const void* q, const void* k, const void* v, void* o,
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// bf16 route at d 192 and 256: wgmma, TMA, mbarriers, warp specialisation
+// ---------------------------------------------------------------------------
+
+constexpr int kWgRows = 64;               // q rows per consumer warpgroup
+constexpr int kWgBM = 2 * kWgRows;        // q rows per block
+constexpr int kWgThreads = 3 * 128;       // producer + two consumers
+constexpr int kWgStages = 2;              // K/V ring depth
+constexpr int kSwCols = 64;               // bf16 columns of a 128-byte row
+
+// Byte offsets in the (1,024-aligned) shared memory of a block: Q, then
+// the K stages, the V stages, the barriers (full and empty Q; full K and V,
+// empty K and V, one each a stage) and the current item.
+// A tile of `rows` rows is width / 64 chunks of rows x 128 bytes.
+template <int D, int DV, int BN>
+struct WgLayout {
+  static_assert(D % kSwCols == 0 && DV % kSwCols == 0 && BN % 16 == 0,
+                "tiles are whole 64-column chunks and 16-key steps");
+  static constexpr uint32_t kQ = kWgBM * D * 2;
+  static constexpr uint32_t kK = BN * D * 2;
+  static constexpr uint32_t kV = BN * DV * 2;
+  static constexpr uint32_t kBars = kQ + kWgStages * (kK + kV);
+  static constexpr int kSmem = 1024 + kBars + 8 * (3 + 4 * kWgStages);
+};
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+// arrive and add `bytes` to the transaction count the phase waits for
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+// wait until the phase of parity `parity` has completed
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// TMA: the box of `map` at (c0, c1, c2, c3) into shared memory at dst,
+// completing its bytes on `bar`
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int c0, int c1, int c2,
+                                         int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
+      "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// TMA: shared memory at src into the box of `map` at (c0, c1, c2, c3), in
+// this thread's bulk group (rows past the tensor's end are not written)
+__device__ __forceinline__ void tma_store(const CUtensorMap* map, uint32_t src,
+                                          int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group"
+      " [%0, {%2, %3, %4, %5}], [%1];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(src), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+__device__ __forceinline__ void st_shared(uint32_t addr, uint32_t v) {
+  asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(addr), "r"(v) : "memory");
+}
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+// wait until at most N committed wgmma groups of this warp are in flight
+template <int N>
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Keep the compiler from moving reads or writes of wgmma operands across
+// the asynchronous product (the asm statements name no register).
+template <int N>
+__device__ __forceinline__ void reg_fence(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void reg_fence(uint32_t (&r)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
+}
+
+// Shared-memory matrix descriptor of wgmma, 128-byte swizzle: start
+// address, leading and stride byte offsets, each in 16-byte units.
+// K-major (Q, K): rows 128 bytes apart, 8-row groups 1,024 apart (the
+// stride offset), the leading offset unused; a 16-column step within a
+// 64-column chunk moves the start by 32 bytes.  MN-major (V as the
+// transposed B of P.V): the leading offset is the distance between
+// 64-column chunks, the stride offset between groups of 8 keys.
+__device__ __forceinline__ uint64_t wg_desc(uint32_t addr, uint32_t lbo,
+                                            uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | (uint64_t)(lbo >> 4) << 16 |
+         (uint64_t)(sbo >> 4) << 32 | 1ull << 62;
+}
+
+#define WG_ACC8(d, i)                                                     \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]),             \
+      "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
+#define WG_ACC32_AT(d, i) \
+  WG_ACC8(d, i), WG_ACC8(d, i + 8), WG_ACC8(d, i + 16), WG_ACC8(d, i + 24)
+#define WG_ACC32(d) WG_ACC32_AT(d, 0)
+#define WG_ACC64(d) WG_ACC32_AT(d, 0), WG_ACC32_AT(d, 32)
+#define WG_ACC96(d) WG_ACC64(d), WG_ACC32_AT(d, 64)
+#define WG_ACC128(d) WG_ACC64(d), WG_ACC32_AT(d, 64), WG_ACC32_AT(d, 96)
+
+// d[64 x N] (+)= A[64 x 16] . B[16 x N], A and B from shared memory
+// (K-major); scale_d = 0 overwrites d.  The accumulator's fragment: d[4 j +
+// e] is row 16 w + lane / 4 + 8 (e / 2), column 8 j + 2 (lane % 4) + e % 2
+// of warp w of the warpgroup.
+template <int N>
+__device__ void wgmma_ss(float (&d)[N / 2], uint64_t a, uint64_t b,
+                         int scale_d);
+// d[64 x N] += A[64 x 16] . B[16 x N], A from registers (mma.sync's A
+// fragment for each warp's 16 rows), B from shared memory, MN-major
+template <int N>
+__device__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4],
+                         uint64_t b);
+
+template <>
+__device__ __forceinline__ void wgmma_ss<64>(float (&d)[32], uint64_t a,
+                                             uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, "
+      "%10, %11, %12, %13, %14, %15, %16, %17, %18, %19, "
+      "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : WG_ACC32(d)
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_ss<128>(float (&d)[64], uint64_t a,
+                                              uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, "
+      "%10, %11, %12, %13, %14, %15, %16, %17, %18, %19, "
+      "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
+      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : WG_ACC64(d)
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<128>(float (&d)[64],
+                                              const uint32_t (&a)[4],
+                                              uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, "
+      "%10, %11, %12, %13, %14, %15, %16, %17, %18, %19, "
+      "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
+      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : WG_ACC64(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<192>(float (&d)[96],
+                                              const uint32_t (&a)[4],
+                                              uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %101, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, "
+      "%10, %11, %12, %13, %14, %15, %16, %17, %18, %19, "
+      "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
+      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63, %64, %65, %66, %67, %68, %69, "
+      "%70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, "
+      "%90, %91, %92, %93, %94, %95"
+      "}, {%96, %97, %98, %99}, %100, p, 1, 1, 1;\n}\n"
+      : WG_ACC96(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<256>(float (&d)[128],
+                                              const uint32_t (&a)[4],
+                                              uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, "
+      "%10, %11, %12, %13, %14, %15, %16, %17, %18, %19, "
+      "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
+      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63, %64, %65, %66, %67, %68, %69, "
+      "%70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, "
+      "%90, %91, %92, %93, %94, %95, %96, %97, %98, %99, "
+      "%100, %101, %102, %103, %104, %105, %106, %107, %108, %109, "
+      "%110, %111, %112, %113, %114, %115, %116, %117, %118, %119, "
+      "%120, %121, %122, %123, %124, %125, %126, %127"
+      "}, {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      : WG_ACC128(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// One work item: q tile qt (of nq) of head h of batch b.  `head_major`
+// numbers the items head by head (a head's q tiles adjacent, so their K/V
+// tiles meet in L2), else q tile by q tile; both put a head's heaviest q
+// tiles first.
+struct WgItem {
+  int q0, h, b;
+};
+__device__ __forceinline__ WgItem wg_item(int item, int nq, int H, int B,
+                                          bool head_major) {
+  const int hb = head_major ? item / nq : item % (H * B);
+  const int qt = nq - 1 - (head_major ? item % nq : item / (H * B));
+  return {qt * kWgBM, hb % H, hb / H};
+}
+
+template <int D, int DV, int BN, bool STAGE_O>
+__global__ void __launch_bounds__(kWgThreads, 1)
+flash_kernel_wgmma(const __grid_constant__ CUtensorMap tq,
+                   const __grid_constant__ CUtensorMap tk,
+                   const __grid_constant__ CUtensorMap tv,
+                   const __grid_constant__ CUtensorMap to,
+                   __nv_bfloat16* __restrict__ o, Strides os,
+                   int* __restrict__ next, int H, int B, int G, int Sq,
+                   int Sk, float scale_log2, bool causal, int window,
+                   bool head_major) {
+  using L = WgLayout<D, DV, BN>;
+  extern __shared__ __align__(128) unsigned char smem_wg[];
+  const uint32_t sQ = (smem_addr(smem_wg) + 1023) & ~1023u;
+  const uint32_t sK = sQ + L::kQ;                  // [kWgStages]
+  const uint32_t sV = sK + kWgStages * L::kK;      // [kWgStages]
+  const uint32_t bar_q = sQ + L::kBars;            // Q full
+  const uint32_t bar_eq = bar_q + 8;               // Q empty
+  const uint32_t bar_k = bar_eq + 8;               // full K [kWgStages]
+  const uint32_t bar_v = bar_k + 8 * kWgStages;    // full V [kWgStages]
+  const uint32_t bar_ek = bar_v + 8 * kWgStages;   // empty K [kWgStages]
+  const uint32_t bar_ev = bar_ek + 8 * kWgStages;  // empty V [kWgStages]
+  // the item whose Q is in flight or in place (-1: no more work)
+  volatile int* item_slot = reinterpret_cast<volatile int*>(
+      smem_wg + (bar_ev + 8 * kWgStages - smem_addr(smem_wg)));
+
+  const int nq = (Sq + kWgBM - 1) / kWgBM;
+  const int n_items = nq * H * B;
+  // the K/V tiles of a block of q rows from q0: [t0, n_tiles)
+  auto tiles = [&](int q0, int& t0, int& n_tiles) {
+    t0 = first_key_tile<BN>(q0, window) / BN;
+    n_tiles = ((causal ? min(Sk, q0 + kWgBM) : Sk) + BN - 1) / BN;
+  };
+
+  if (threadIdx.x == 0) {
+    mbar_init(bar_q, 1);
+    mbar_init(bar_eq, STAGE_O ? 2 : 8);          // a consumer or its warps
+    for (int s = 0; s < kWgStages; ++s) {
+      mbar_init(bar_k + 8 * s, 1);
+      mbar_init(bar_v + 8 * s, 1);
+      mbar_init(bar_ek + 8 * s, 8);              // one arrival a consumer warp
+      mbar_init(bar_ev + 8 * s, 8);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {
+    // ---- producer: one thread takes the items and keeps the ring full ----
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    if (threadIdx.x == 0) {
+      int ring = 0;                   // K/V tiles loaded so far
+      for (int j = 0;; ++j) {
+        const int item = atomicAdd(next, 1);
+        // the last item's Q (and its output staged there) is done
+        mbar_wait(bar_eq, (j & 1) ^ 1);
+        if (item >= n_items) {
+          *item_slot = -1;
+          mbar_arrive(bar_q);
+          break;
+        }
+        *item_slot = item;
+        const WgItem w = wg_item(item, nq, H, B, head_major);
+        const int hk = w.h / G;
+        mbar_expect_tx(bar_q, L::kQ);
+        for (int c = 0; c < D / kSwCols; ++c)
+          tma_load(sQ + c * kWgBM * 128, &tq, bar_q, c * kSwCols, w.q0, w.h,
+                   w.b);
+        int t0, n_tiles;
+        tiles(w.q0, t0, n_tiles);
+        for (int t = t0; t < n_tiles; ++t, ++ring) {
+          const int s = ring % kWgStages;
+          const uint32_t free = ((ring / kWgStages) & 1) ^ 1;
+          mbar_wait(bar_ek + 8 * s, free);
+          mbar_expect_tx(bar_k + 8 * s, L::kK);
+          for (int c = 0; c < D / kSwCols; ++c)
+            tma_load(sK + s * L::kK + c * BN * 128, &tk, bar_k + 8 * s,
+                     c * kSwCols, t * BN, hk, w.b);
+          mbar_wait(bar_ev + 8 * s, free);
+          mbar_expect_tx(bar_v + 8 * s, L::kV);
+          for (int c = 0; c < DV / kSwCols; ++c)
+            tma_load(sV + s * L::kV + c * BN * 128, &tv, bar_v + 8 * s,
+                     c * kSwCols, t * BN, hk, w.b);
+        }
+      }
+    }
+  } else {
+    // ---- consumers: 64 q rows each of every item ----
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+    const int cw = (threadIdx.x >> 7) - 1;
+    const int ct = threadIdx.x & 127;  // thread of the consumer warpgroup
+    const int warp = (threadIdx.x >> 5) & 3;
+    const int lane = threadIdx.x & 31;
+    const int g = lane >> 2;          // fragment row (and row + 8)
+    const int tig = lane & 3;         // fragment column pair
+    const uint32_t sQw = sQ + cw * kWgRows * 128;
+    int ring = 0;                     // K/V tiles consumed so far
+
+    // one arrival of this warp on an empty barrier (its reads are done)
+    auto release = [&](uint32_t bar) {
+      __syncwarp();
+      if (lane == 0) mbar_arrive(bar);
+    };
+
+    for (int j = 0;; ++j) {
+      mbar_wait(bar_q, j & 1);
+      const int item = *item_slot;
+      if (item < 0) {
+        if (STAGE_O && ct == 0)
+          asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+        break;
+      }
+      const WgItem w = wg_item(item, nq, H, B, head_major);
+      int t0, n_tiles;
+      tiles(w.q0, t0, n_tiles);
+      const int r0 = w.q0 + cw * kWgRows;
+      const int wrow = r0 + warp * 16;  // this warp's 16 rows
+      const int row0 = wrow + g;        // this thread's rows: row0, row0 + 8
+      // the tiles this consumer's rows reach (none past Sq): [a, z); it
+      // takes part in the ring on the block's others, [t0, a) and [z,
+      // n_tiles)
+      const int lo = first_key_tile<BN>(r0, window) / BN;
+      const int hi =
+          r0 >= Sq ? 0
+                   : ((causal ? min(Sk, r0 + kWgRows) : Sk) + BN - 1) / BN;
+      const int a = min(lo, n_tiles);
+      const int z = max(a, hi);
+      // ring position, stage and phase of the item's tile t
+      const int base = ring - t0;
+      auto stage = [&](int t) { return (base + t) % kWgStages; };
+      auto phase = [&](int t) {
+        return (uint32_t)((base + t) / kWgStages) & 1;
+      };
+
+      float acc[DV / 2];
+#pragma unroll
+      for (int i = 0; i < DV / 2; ++i) acc[i] = 0.f;
+      float m[2] = {kNegInf, kNegInf};  // rows row0, row0 + 8 (log2 domain)
+      float l[2] = {0.f, 0.f};          // this thread's part of the row sums
+      uint32_t pa[BN / 16][4];          // p of a tile as bf16 A fragments
+
+      // a tile no row of this consumer reaches: keep in step with the ring
+      auto skip = [&](int t) {
+        mbar_wait(bar_k + 8 * stage(t), phase(t));
+        mbar_wait(bar_v + 8 * stage(t), phase(t));
+        release(bar_ek + 8 * stage(t));
+        release(bar_ev + 8 * stage(t));
+      };
+      // S = Q K^T (raw dot products) of tile t, one committed group (its K
+      // has landed)
+      auto issue_s = [&](int t, float (&sc)[BN / 2]) {
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk) {
+          const uint32_t col = (kk % 4) * 32;   // within the 64-column chunk
+          wgmma_ss<BN>(
+              sc, wg_desc(sQw + (kk / 4) * kWgBM * 128 + col, 16, 1024),
+              wg_desc(sK + stage(t) * L::kK + (kk / 4) * BN * 128 + col, 16,
+                      1024),
+              kk > 0);
+        }
+        wg_commit();
+      };
+      // O += P V of tile t (p in pa), one committed group (its V has landed)
+      auto issue_pv = [&](int t) {
+#pragma unroll
+        for (int kk = 0; kk < BN / 16; ++kk)
+          wgmma_rs<DV>(acc, pa[kk],
+                       wg_desc(sV + stage(t) * L::kV + kk * 16 * 128,
+                               BN * 128, 1024));
+        wg_commit();
+      };
+      // tile t's scores in sc become p (masked, online softmax); alpha
+      // rescales the rows' earlier sums
+      auto softmax = [&](int t, float (&sc)[BN / 2], float (&alpha)[2]) {
+        // scale to the log2 domain; mask only where the tile crosses the
+        // diagonal of this warp's rows, the band's lower edge or Sk
+        const int k0 = t * BN;
+        const bool mask = (causal && k0 + BN - 1 > wrow) ||
+                          (window > 0 && k0 <= wrow + 15 - window) ||
+                          k0 + BN > Sk;
+#pragma unroll
+        for (int j = 0; j < BN / 2; ++j) sc[j] *= scale_log2;
+        if (mask) {
+#pragma unroll
+          for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int key = k0 + j * 8 + 2 * tig + (e & 1);
+              const int row = row0 + (e >> 1) * 8;
+              if (key >= Sk || (causal && key > row) ||
+                  (window > 0 && row - key >= window))
+                sc[4 * j + e] = kNegInf;
+            }
+        }
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          float mx = kNegInf;
+#pragma unroll
+          for (int j = 0; j < BN / 8; ++j)
+            mx = fmaxf(mx, fmaxf(sc[4 * j + 2 * r], sc[4 * j + 2 * r + 1]));
+          mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, 1));
+          mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, 2));
+          const float m_new = fmaxf(m[r], mx);
+          const float shift = m_new <= kNegInf / 2 ? 0.f : m_new;
+          alpha[r] = m[r] <= kNegInf / 2 ? 0.f : exp2f(m[r] - shift);
+          float rsum = 0.f;
+#pragma unroll
+          for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+            for (int e = 2 * r; e < 2 * r + 2; ++e) {
+              const float x = sc[4 * j + e];
+              // p = 0 where masked (masked scores were set to NEG_INF)
+              sc[4 * j + e] = mask && x <= kNegInf / 2 ? 0.f : exp2f(x - shift);
+              rsum += sc[4 * j + e];
+            }
+          l[r] = l[r] * alpha[r] + rsum;
+          m[r] = m_new;
+        }
+      };
+      // O *= alpha, and p packed to bf16 as the A fragments of its P.V
+      auto rescale_and_pack = [&](const float (&sc)[BN / 2],
+                                  const float (&alpha)[2]) {
+#pragma unroll
+        for (int j = 0; j < DV / 8; ++j) {
+          acc[4 * j] *= alpha[0];
+          acc[4 * j + 1] *= alpha[0];
+          acc[4 * j + 2] *= alpha[1];
+          acc[4 * j + 3] *= alpha[1];
+        }
+#pragma unroll
+        for (int kk = 0; kk < BN / 16; ++kk) {
+          pa[kk][0] = pack_bf16(sc[8 * kk], sc[8 * kk + 1]);
+          pa[kk][1] = pack_bf16(sc[8 * kk + 2], sc[8 * kk + 3]);
+          pa[kk][2] = pack_bf16(sc[8 * kk + 4], sc[8 * kk + 5]);
+          pa[kk][3] = pack_bf16(sc[8 * kk + 6], sc[8 * kk + 7]);
+        }
+      };
+
+      // the block's tiles: [t0, a) and [z, n_tiles) skipped, [a, z) this
+      // consumer's own range
+      for (int t = t0; t < a; ++t) skip(t);
+      if (a < z) {
+        float alpha[2];
+        {
+          float sc[BN / 2];
+          mbar_wait(bar_k + 8 * stage(a), phase(a));
+          reg_fence(acc);
+          wg_fence();
+          issue_s(a, sc);
+          wg_wait<0>();
+          reg_fence(sc);
+          release(bar_ek + 8 * stage(a));
+          if (!STAGE_O && a + 1 == z) release(bar_eq);   // Q is done
+          softmax(a, sc, alpha);
+          rescale_and_pack(sc, alpha);
+        }
+        // tile t's S, then tile t - 1's P.V, which runs on while tile t's
+        // softmax is computed; O is rescaled once that P.V is done
+        for (int t = a + 1; t < z; ++t) {
+          float sc[BN / 2];
+          mbar_wait(bar_k + 8 * stage(t), phase(t));
+          mbar_wait(bar_v + 8 * stage(t - 1), phase(t - 1));
+          reg_fence(acc);
+          reg_fence(pa);
+          wg_fence();
+          issue_s(t, sc);
+          issue_pv(t - 1);
+          wg_wait<1>();
+          reg_fence(sc);
+          release(bar_ek + 8 * stage(t));
+          if (!STAGE_O && t + 1 == z) release(bar_eq);   // Q is done
+          softmax(t, sc, alpha);
+          wg_wait<0>();
+          reg_fence(acc);
+          reg_fence(pa);
+          release(bar_ev + 8 * stage(t - 1));
+          rescale_and_pack(sc, alpha);
+        }
+        mbar_wait(bar_v + 8 * stage(z - 1), phase(z - 1));
+        reg_fence(acc);
+        reg_fence(pa);
+        wg_fence();
+        issue_pv(z - 1);
+        wg_wait<0>();
+        reg_fence(acc);
+        release(bar_ev + 8 * stage(z - 1));
+      }
+      for (int t = z; t < n_tiles; ++t) skip(t);
+      if (n_tiles > t0) ring += n_tiles - t0;
+
+      // ---- out = acc / max(l, 1e-30), rounded once to bf16 ----
+      if (!STAGE_O) {
+        // stored from the fragments; Q was freed with the last S
+        if (a == z) release(bar_eq);
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          l[r] += __shfl_xor_sync(kFull, l[r], 1);
+          l[r] += __shfl_xor_sync(kFull, l[r], 2);
+          const int row = row0 + r * 8;
+          if (row >= Sq) continue;
+          const float inv = 1.f / fmaxf(l[r], 1e-30f);
+          __nv_bfloat16* orow = o + w.b * os.b + w.h * os.h +
+                                (long long)row * os.s + 2 * tig;
+#pragma unroll
+          for (int jj = 0; jj < DV / 8; ++jj)
+            *reinterpret_cast<uint32_t*>(orow + jj * 8) = pack_bf16(
+                acc[4 * jj + 2 * r] * inv, acc[4 * jj + 2 * r + 1] * inv);
+        }
+        continue;
+      }
+      // staged in this consumer's Q rows (done with: its last S has
+      // landed) with the 128-byte swizzle and written by a TMA store; then
+      // Q is free
+      if (r0 < Sq) {
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          l[r] += __shfl_xor_sync(kFull, l[r], 1);
+          l[r] += __shfl_xor_sync(kFull, l[r], 2);
+          l[r] = 1.f / fmaxf(l[r], 1e-30f);
+        }
+#pragma unroll
+        for (int jj = 0; jj < DV / 8; ++jj)
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            const int row = warp * 16 + g + r * 8;   // row % 8 == g
+            st_shared(sQw + (jj / 8) * kWgBM * 128 + row * 128 +
+                          (((jj % 8) ^ g) << 4) + 4 * tig,
+                      pack_bf16(acc[4 * jj + 2 * r] * l[r],
+                                acc[4 * jj + 2 * r + 1] * l[r]));
+          }
+        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+        asm volatile("bar.sync %0, 128;\n" ::"r"(1 + cw) : "memory");
+        if (ct == 0) {
+          for (int c = 0; c < DV / kSwCols; ++c)
+            tma_store(&to, sQw + c * kWgBM * 128, c * kSwCols, r0, w.h,
+                      w.b);
+          asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+          asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+        }
+      }
+      if (ct == 0) mbar_arrive(bar_eq);
+    }
+  }
+}
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+// the driver's cuTensorMapEncodeTiled, reached through the runtime so the
+// library links the runtime alone; nullptr where the driver has none
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// Tensor map of a (B, heads, S, width) bf16 operand (strides in elements,
+// the last dim dense), read in boxes of `rows` rows x 64 columns with the
+// 128-byte swizzle.  TMA wants every stride a multiple of 16 bytes; the
+// wrapper checks those of dims longer than 1, and a dim of size 1 (read at
+// coordinate 0 alone) is given a dense stride here.
+cudaError_t tensor_map(CUtensorMap* map, const void* ptr, int B, int heads,
+                       int S, int width, Strides st, int rows) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[4] = {(cuuint64_t)width, (cuuint64_t)S,
+                              (cuuint64_t)heads, (cuuint64_t)B};
+  cuuint64_t strides[3] = {(cuuint64_t)st.s * 2, (cuuint64_t)st.h * 2,
+                           (cuuint64_t)st.b * 2};
+  if (S == 1) strides[0] = (cuuint64_t)width * 2;
+  if (heads == 1) strides[1] = strides[0] * S;
+  if (B == 1) strides[2] = strides[1] * heads;
+  const cuuint32_t box[4] = {kSwCols, (cuuint32_t)rows, 1, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  const CUresult res = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
+      strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// Whether the items go head by head (a head's q tiles adjacent, their K/V
+// shared in L2): where the heaviest item is at most a tenth of a block's
+// share of the work, so that taking the items in that order leaves a tail
+// of at most a tenth; else q tile by q tile, the heaviest of every head
+// first.  An item costs its K/V tiles and one for its Q and output.
+template <int BN>
+bool head_major_order(int B, int H, int Sq, int Sk, bool causal, int window,
+                      int n_blocks) {
+  long long total = 0, heaviest = 0;
+  for (int q0 = 0; q0 < Sq; q0 += kWgBM) {
+    const int t0 = window > 0 && q0 >= window ? (q0 - window + 1) / BN : 0;
+    const int end = causal && q0 + kWgBM < Sk ? q0 + kWgBM : Sk;
+    const int t1 = (end + BN - 1) / BN;
+    const long long cost = t1 > t0 ? t1 - t0 + 1 : 1;
+    total += cost;
+    heaviest = cost > heaviest ? cost : heaviest;
+  }
+  return heaviest * n_blocks * 10 <= total * H * B;
+}
+
+// `work` is a zeroed int the blocks take their items from.
+template <int D, int DV, int BN, bool STAGE_O>
+cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
+                         void* o, void* work, int B, int H, int G, int Sq,
+                         int Sk, Strides qs, Strides ks, Strides vs,
+                         Strides os, float scale, bool causal, int window,
+                         cudaStream_t stream) {
+  if (work == nullptr) return cudaErrorInvalidValue;
+  CUtensorMap tq, tk, tv, to;
+  cudaError_t err = tensor_map(&tq, q, B, H, Sq, D, qs, kWgBM);
+  if (err == cudaSuccess) err = tensor_map(&tk, k, B, H / G, Sk, D, ks, BN);
+  if (err == cudaSuccess) err = tensor_map(&tv, v, B, H / G, Sk, DV, vs, BN);
+  if (err == cudaSuccess) err = tensor_map(&to, o, B, H, Sq, DV, os, kWgRows);
+  if (err != cudaSuccess) return err;
+  int device, sms;
+  err = cudaGetDevice(&device);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                 device);
+  if (err != cudaSuccess) return err;
+  constexpr int smem = WgLayout<D, DV, BN>::kSmem;
+  err = cudaFuncSetAttribute(flash_kernel_wgmma<D, DV, BN, STAGE_O>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem);
+  if (err != cudaSuccess) return err;
+  const long long items = (long long)((Sq + kWgBM - 1) / kWgBM) * H * B;
+  const int blocks = items < sms ? (int)items : sms;   // one an SM
+  flash_kernel_wgmma<D, DV, BN, STAGE_O>
+      <<<blocks, kWgThreads, smem, stream>>>(
+      tq, tk, tv, to, static_cast<__nv_bfloat16*>(o), os,
+      static_cast<int*>(work), H, B, G, Sq, Sk,
+      scale * kLog2e, causal, window,
+      head_major_order<BN>(B, H, Sq, Sk, causal, window, blocks));
+  return cudaGetLastError();
+}
+
 using Launch = cudaError_t (*)(const void*, const void*, const void*, void*,
-                               int, int, int, int, int, Strides, Strides,
-                               Strides, Strides, float, bool, int,
+                               void*, int, int, int, int, int, Strides,
+                               Strides, Strides, Strides, float, bool, int,
                                cudaStream_t);
 
-// the instance for (dtype, d): 0 = f32 on the CUDA cores, 1 = bf16 on the
-// tensor cores; nullptr where there is none
-Launch pick(int dtype, int d) {
-  switch (dtype * 1000 + d) {
-    case 16: return launch_f32<16>;
-    case 32: return launch_f32<32>;
-    case 64: return launch_f32<64>;
-    case 128: return launch_f32<128>;
-    case 192: return launch_f32<192>;
-    case 256: return launch_f32<256>;
-    case 1016: return launch_mma<16>;
-    case 1032: return launch_mma<32>;
-    case 1064: return launch_mma<64>;
-    case 1128: return launch_mma<128>;
-    case 1192: return launch_mma<192>;
-    case 1256: return launch_mma<256>;
-    default: return nullptr;
+// an instance: its launch and its dynamic shared memory in bytes
+struct Instance {
+  Launch launch;
+  int smem;
+};
+
+// the instance for (dtype, d, dv): dtype 0 = f32 on the CUDA cores, 1 = bf16
+// on the tensor cores; {nullptr, 0} where there is none
+Instance pick(int dtype, int d, int dv) {
+  if (dtype == 0) {
+    switch (d * 1000 + dv) {
+      case 16016: return {launch_f32<16, 16>, smem_floats<16, 16>() * 4};
+      case 32032: return {launch_f32<32, 32>, smem_floats<32, 32>() * 4};
+      case 64064: return {launch_f32<64, 64>, smem_floats<64, 64>() * 4};
+      case 128128: return {launch_f32<128, 128>, smem_floats<128, 128>() * 4};
+      case 192128: return {launch_f32<192, 128>, smem_floats<192, 128>() * 4};
+      case 192192: return {launch_f32<192, 192>, smem_floats<192, 192>() * 4};
+      case 256256: return {launch_f32<256, 256>, smem_floats<256, 256>() * 4};
+    }
+  } else if (dtype == 1) {
+    switch (d * 1000 + dv) {
+      case 16016: return {launch_mma<16>, smem_bytes_mma<16>()};
+      case 32032: return {launch_mma<32>, smem_bytes_mma<32>()};
+      case 64064: return {launch_mma<64>, smem_bytes_mma<64>()};
+      case 128128: return {launch_mma<128>, smem_bytes_mma<128>()};
+      case 192128:
+        return {launch_wgmma<192, 128, 64, false>,
+                WgLayout<192, 128, 64>::kSmem};
+      case 192192:
+        return {launch_wgmma<192, 192, 64, true>,
+                WgLayout<192, 192, 64>::kSmem};
+      case 256256:
+        return {launch_wgmma<256, 256, 64, true>,
+                WgLayout<256, 256, 64>::kSmem};
+    }
   }
+  return {nullptr, 0};
 }
 
 }  // namespace
 
 extern "C" {
 
-// o[b, h, :Sq, :d] = attention of q[b, h] over k[b, h / G], v[b, h / G]
-// with G = H / Hkv.  dtype 0 = f32, 1 = bf16 (q, k, v and o alike); d one
-// of 16, 32, 64, 128, 192, 256; strides in elements, the last dim
-// contiguous.  window > 0 (with causal) keeps keys 0 <= q - k < window;
-// 0 is no band.
+// o[b, h, :Sq, :dv] = attention of q[b, h] over k[b, h / G], v[b, h / G]
+// with G = H / Hkv.  dtype 0 = f32, 1 = bf16 (q, k, v and o alike); (d, dv)
+// one of (16, 16), (32, 32), (64, 64), (128, 128), (192, 128), (192, 192),
+// (256, 256), d the head dim of q and k, dv that of v and o; strides in
+// elements, the last dim contiguous.  window > 0 (with causal) keeps keys
+// 0 <= q - k < window; 0 is no band.
 // bf16 needs 16-byte aligned rows (base addresses and strides), which the
 // wrapper checks.  `device` is the CUDA ordinal the tensors and `stream`
-// belong to.  Returns the cudaError_t of the launch.
-int ciao_flash_attention(int device, int dtype, int d, const void* q,
-                         const void* k, const void* v, void* o, int B,
-                         int H, int Hkv, int Sq, int Sk, long long qsb,
+// belong to.  `work` is a zeroed int32 on that device, where the d 192 and
+// 256 bf16 route takes its blocks' work from (unused by the others).
+// Returns the cudaError_t of the launch.
+int ciao_flash_attention(int device, int dtype, int d, int dv, const void* q,
+                         const void* k, const void* v, void* o, void* work,
+                         int B, int H, int Hkv, int Sq, int Sk, long long qsb,
                          long long qsh, long long qss, long long ksb,
                          long long ksh, long long kss, long long vsb,
                          long long vsh, long long vss, long long osb,
@@ -646,14 +1435,20 @@ int ciao_flash_attention(int device, int dtype, int d, const void* q,
   if (B == 0 || H == 0 || Sq == 0) return 0;
   if (Hkv <= 0 || H % Hkv) return cudaErrorInvalidValue;
   if (window < 0 || (window > 0 && !causal)) return cudaErrorInvalidValue;
-  const Launch launch = pick(dtype, d);
+  const Launch launch = pick(dtype, d, dv).launch;
   if (launch == nullptr) return cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   const Strides qs{qsb, qsh, qss}, ks{ksb, ksh, kss}, vs{vsb, vsh, vss},
       os{osb, osh, oss};
-  return launch(q, k, v, o, B, H, H / Hkv, Sq, Sk, qs, ks, vs, os, scale,
-                causal != 0, window, (cudaStream_t)stream);
+  return launch(q, k, v, o, work, B, H, H / Hkv, Sq, Sk, qs, ks, vs, os,
+                scale, causal != 0, window, (cudaStream_t)stream);
+}
+
+// dynamic shared memory of one block of the (dtype, d, dv) instance in
+// bytes; 0 where there is none
+int ciao_flash_smem_bytes(int dtype, int d, int dv) {
+  return pick(dtype, d, dv).smem;
 }
 
 const char* ciao_error_string(int err) {

@@ -23,6 +23,8 @@ The plain version of the scan kernel is
 """
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
 from repro_torch.core import bitvector
@@ -192,15 +194,39 @@ def flash_attention_ref(q, k, v, *, causal: bool = True, window: int = 0):
     return out.transpose(1, 2)
 
 
-#: keys per K/V tile of kernel F's bf16 route (kBN in the source)
-FLASH_KEY_TILE = 64
+class FlashTile(NamedTuple):
+    """The tiles of one instance of kernel F's bf16 route (the source's
+    constants): q rows a block (or work item), keys a K/V tile, and q
+    rows a consumer, the rows whose own range of key tiles it computes.
+    Every instance decides a tile's mask for a warp's 16 rows."""
+    q_rows: int
+    key_tile: int
+    consumer_rows: int
+
+
+#: kernel F's instances, (qk head dim, v head dim) -> the bf16 route's
+#: tiles: ``flash_kernel_mma`` (kBM, kBN; one block walks one range) up to
+#: d 128, ``flash_kernel_wgmma`` (kWgBM, BN, kWgRows) at d 192 and 256.  The
+#: f32 route has the same instances, on 64 x 64 tiles.
+FLASH_TILES = {
+    (16, 16): FlashTile(64, 64, 64), (32, 32): FlashTile(64, 64, 64),
+    (64, 64): FlashTile(64, 64, 64), (128, 128): FlashTile(64, 64, 64),
+    (192, 128): FlashTile(128, 64, 64), (192, 192): FlashTile(128, 64, 64),
+    (256, 256): FlashTile(128, 64, 64),
+}
+
+
+def flash_key_tile(d: int, dv: int) -> int:
+    """Keys per K/V tile of kernel F's bf16 instance for ``(d, dv)``."""
+    return FLASH_TILES[(d, dv)].key_tile
 
 
 def flash_attention_ref_bf16p(q, k, v, *, causal: bool = True,
                               window: int = 0):
     """Plain version of kernel F's bf16 route: :func:`flash_attention_ref`
-    over the kernel's 64-key tiles, with p rounded to bf16 before each
-    tile's P.V, where the tensor-core kernel rounds it (l sums the f32 p).
+    over the key tiles of the instance for q's and v's head dims
+    (:func:`flash_key_tile`), with p rounded to bf16 before each tile's
+    P.V, where the tensor-core kernel rounds it (l sums the f32 p).
     """
     from repro_torch.models import attention
 
@@ -210,5 +236,6 @@ def flash_attention_ref_bf16p(q, k, v, *, causal: bool = True,
         q_positions=torch.arange(Sq, dtype=torch.int32, device=q.device),
         k_positions=torch.arange(Sk, dtype=torch.int32, device=q.device),
         mask_mode=attention.kernel_mask_mode(causal, window), window=window,
-        k_chunk=FLASH_KEY_TILE, p_dtype=torch.bfloat16)
+        k_chunk=flash_key_tile(q.shape[3], v.shape[3]),
+        p_dtype=torch.bfloat16)
     return out.transpose(1, 2)

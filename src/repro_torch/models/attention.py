@@ -11,9 +11,9 @@ The port of ``repro.models.attention``.
     :mod:`repro_torch.kernels.flash_attention`) where F's domain covers
     the call (causal, local as F's band, unmasked with Sq != Sk for
     cross attention), and raises where it does not: it never runs the
-    plain version on a card.  A v head dim below the qk
-    head dim (MLA) is zero-padded up to it for F and the output cut back
-    (:func:`flash_kernel_padded_v`).  Where a gradient is wanted it
+    plain version on a card.  F takes v at its own head dim (MLA: v 128
+    under q and k at 192), as the JAX package's attention does
+    (:func:`run_flash_kernel`).  Where a gradient is wanted it
     launches F through :class:`FlashAttention`, whose backward is the
     gradient of :func:`flash_attention_plain`.
   * On a mesh (q, k, v DTensors) :func:`flash_attention` runs on each
@@ -27,7 +27,8 @@ The port of ``repro.models.attention``.
     them, merged across a mesh axis when one is named.  Plain PyTorch on
     every device: the JAX package has no kernel for it either.
   * MLA (deepseek-v3): :func:`attend_mla`, the full-rank expansion for
-    prefill and training (kernel F at qk head dim nope + rope, v padded),
+    prefill and training (kernel F at qk head dim nope + rope, v at its
+    own head dim),
     and :func:`decode_attention_mla`, the absorbed decode on the
     compressed cache (plain f32, as the reference's jnp).
 """
@@ -376,12 +377,13 @@ def flash_attention(q, k, v, *, q_positions, k_positions,
     tensor it launches kernel F, which covers mask ``causal``, ``local``
     (F's band; ``window`` must be at least 1, else ``ValueError``) and
     ``none`` (also with Sq != Sk), positions 0..S-1 (what the models
-    pass, on the CPU, so the check costs no device sync), a v head dim
-    equal to the qk head dim or below it (zero-padded up to it, see
-    :func:`flash_kernel_padded_v`), and the default scale ``qkd ** -0.5``
-    (MLA's ``(nope + rope) ** -0.5`` is that scale); the chunk sizes are
-    the jnp path's tiling and do not change the result.  Any other call
-    on a card raises ``NotImplementedError``.
+    pass, on the CPU, so the check costs no device sync), v at its own
+    head dim up to the qk head dim where F has an instance for the pair
+    (:data:`repro_torch.kernels.flash_attention.PAIRS`; F's wrapper
+    raises ``ValueError`` for any other pair), and the default scale
+    ``qkd ** -0.5`` (MLA's ``(nope + rope) ** -0.5`` is that scale); the
+    chunk sizes are the jnp path's tiling and do not change the result.
+    Any other call on a card raises ``NotImplementedError``.
     """
     if sharding.is_dtensor(q):
         return _flash_on_mesh(q, k, v, dict(
@@ -410,11 +412,10 @@ def flash_attention(q, k, v, *, q_positions, k_positions,
         raise NotImplementedError(
             f"positions other than 0..S-1 on {q.device}: kernel F masks by "
             f"row and column index, and no model of the port passes others")
-    out = flash_kernel_padded_v(
+    return run_flash_kernel(
         q, k, v, causal=mask_mode != "none",
         window=window if mask_mode == "local" else 0, q_chunk=q_chunk,
         k_chunk=k_chunk)
-    return out if vd == qkd else out[..., :vd]
 
 
 def _head_layout(mesh, B: int, H: int, Hkv: int, q_dim: int = 2,
@@ -481,21 +482,19 @@ def pad_head_dim(x, d: int):
     return x if x.shape[-1] == d else _pad_to(x, d, x.dim() - 1)
 
 
-def flash_kernel_padded_v(q, k, v, *, causal: bool, window: int = 0,
-                          q_chunk: int = 1024, k_chunk: int = 1024):
-    """Kernel F on q, k ``(B, S, heads, qkd)`` and v ``(B, S, Hkv, vd)``,
-    ``vd <= qkd``, with v zero-padded to ``qkd``; returns ``(B, Sq, H,
-    qkd)``, whose first ``vd`` columns are the attention over the
-    unpadded v and whose other columns are exactly 0 (p . 0 = 0, and the
-    scale and softmax read q and k alone).  Positions 0..S-1, scale
-    ``qkd ** -0.5``; ``window > 0`` is F's causal band.
+def run_flash_kernel(q, k, v, *, causal: bool, window: int = 0,
+                     q_chunk: int = 1024, k_chunk: int = 1024):
+    """Kernel F on q, k ``(B, S, heads, qkd)`` and v ``(B, S, Hkv, vd)``
+    as they are (v at its own head dim, read in place through its
+    strides: MLA's v is a column slice); returns ``(B, Sq, H, vd)``.
+    Positions 0..S-1, scale ``qkd ** -0.5``; ``window > 0`` is F's causal
+    band.
 
     With grad mode on and q, k or v requiring a gradient (training), F
-    launches through :class:`FlashAttention`, which carries the gradient
-    (through the pad to v); otherwise (serving) through its wrapper.  On
-    CPU tensors the wrapper runs F's plain version.
+    launches through :class:`FlashAttention`, which carries the gradient;
+    otherwise (serving) through its wrapper.  On CPU tensors the wrapper
+    runs F's plain version.
     """
-    v = pad_head_dim(v, q.shape[-1])
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
         return FlashAttention.apply(q, k, v, causal, q_chunk, k_chunk,

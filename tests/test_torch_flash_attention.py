@@ -14,17 +14,23 @@ bound: a few bf16 steps of outputs of about unit size).
 The causal band (``window``, the JAX package's ``mask_mode="local"``)
 is held against the jnp ``flash_attention`` at windows 1, 7, 64 and
 beyond S, on ragged S, and its tile arithmetic (``_key_tiles``,
-``_tile_needs_mask``: the source's ``first_key_tile``, ``k_end`` and
-bf16 tile-mask expressions in Python) against a numpy model of the mask:
-every valid (q, k) pair lies in a visited tile, and every visited tile
-that holds an invalid pair is masked.
+``_tile_needs_mask``: the source's ``first_key_tile``, ``k_end``, each
+consumer's range and bf16 tile-mask expressions in Python), for the
+tiles of each bf16 instance (``ref.FLASH_TILES``), against a numpy model
+of the mask: every valid (q, k) pair lies in a tile its block and its
+consumer visit, and every visited tile that holds an invalid pair for a
+warp's rows is masked.
 
-On a card, bf16 runs the tensor-core route, which rounds p to bf16 for
-P.V.  Its plain numerics, ``ref.flash_attention_ref_bf16p``, are held
-against the TPU kernel (0.05) and against the f32 plain version within
-the bound ``chip_smoke.py`` holds the kernel to (2e-2: the output's
-rounding, up to 2^-7 at |o| < 4, plus p's, at most 2^-9 |v| per unit of
-the other keys' weight).
+v may be narrower than q and k (MLA: 192 and 128): the wrapper takes v
+at its own head dim where the kernel has an instance for the pair, and
+its plain version equals the JAX package's jnp attention there.
+
+On a card, bf16 runs the tensor-core routes, which round p to bf16 for
+P.V.  Their plain numerics, ``ref.flash_attention_ref_bf16p`` over each
+instance's key tile, are held against the TPU kernel (0.05) and against
+the f32 plain version within the bound ``chip_smoke.py`` holds the
+kernel to (2e-2: the output's rounding, up to 2^-7 at |o| < 4, plus
+p's, at most 2^-9 |v| per unit of the other keys' weight).
 """
 import re
 from pathlib import Path
@@ -143,6 +149,57 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(q, k, v, what):
         fa.flash_attention(*args)
 
 
+@pytest.mark.parametrize("sq,sk,causal", [(100, 100, True), (37, 90, False),
+                                          (130, 130, True), (70, 70, False)])
+def test_wrapper_takes_v_at_its_own_head_dim(sq, sk, causal):
+    """MLA's pair (q, k at 192, v at 128) on CPU tensors: the wrapper's
+    result, (B, H, Sq, 128), equals the JAX package's jnp attention at
+    qkd 192 and vd 128 within 1e-5 (f32), and equals bit for bit the
+    first 128 columns of the route that zero-padded v to 192."""
+    B, H, Hkv = 1, 4, 2
+    rng = np.random.default_rng(sq + 3 * sk)
+    q = _normal(rng, (B, H, sq, 192))
+    k, v = _normal(rng, (B, Hkv, sk, 192)), _normal(rng, (B, Hkv, sk, 128))
+    want = j_attn.flash_attention(
+        *(jnp.asarray(a).transpose(0, 2, 1, 3) for a in (q, k, v)),
+        q_positions=jnp.arange(sq), k_positions=jnp.arange(sk),
+        mask_mode="causal" if causal else "none", q_chunk=32,
+        k_chunk=32).transpose(0, 2, 1, 3)
+    tq, tk, tv = (torch.from_numpy(a) for a in (q, k, v))
+    got = fa.flash_attention(tq, tk, tv, causal=causal)
+    assert got.shape == (B, H, sq, 128)
+    assert _err(got, want) < 1e-5
+    padded = fa.flash_attention(tq, tk, t_attn.pad_head_dim(tv, 192),
+                                causal=causal)
+    assert torch.equal(got, padded[..., :128])
+
+
+def test_wrapper_checks_head_dim_pairs_on_meta():
+    """On ``meta`` tensors (the card's route up to the launch): MLA's
+    (192, 128) and every equal pair pass the wrapper's checks (the meta
+    device itself is then refused, after the output is laid out as q);
+    a v wider than q and k, and every pair without an instance, are
+    refused."""
+    for d, dv in fa.PAIRS:
+        q = torch.empty(2, 40, 4, d, device="meta").transpose(1, 2)
+        k = torch.empty(2, 40, 2, d, device="meta").transpose(1, 2)
+        v = torch.empty(2, 40, 2, dv, device="meta").transpose(1, 2)
+        with pytest.raises(ValueError, match="unsupported device meta"):
+            fa.flash_attention(q, k, v)
+    assert (192, 128) in fa.PAIRS
+    for d, dv in ((128, 192), (192, 256), (64, 32), (128, 64), (256, 128),
+                  (256, 192), (192, 64)):
+        q = torch.empty(1, 4, 40, d, device="meta")
+        v = torch.empty(1, 4, 40, dv, device="meta")
+        with pytest.raises(ValueError, match="head dims"):
+            fa.flash_attention(q, q, v)
+    # the output keeps q's layout at a narrower v: (B, S, H, dv) in memory
+    q = torch.empty(2, 40, 4, 192).transpose(1, 2)
+    out = fa._empty_like_q(q, 128)
+    assert out.shape == (2, 4, 40, 128)
+    assert out.transpose(1, 2).is_contiguous()
+
+
 @pytest.mark.parametrize("mode,window,qkd,vd,pad", [
     ("causal", 0, 16, 16, 0),
     ("causal", 0, 16, 16, 5),
@@ -231,6 +288,35 @@ def test_bf16p_oracle_matches_tpu_kernel_bf16(shape):
 
 
 @pytest.mark.parametrize("shape", [
+    (1, 2, 1, 256, 192, 128, True, 128),   # MLA's pair
+    (1, 2, 2, 192, 192, 128, False, 64),
+    (1, 2, 2, 128, 192, 192, True, 64),
+    (1, 2, 1, 256, 256, 256, True, 128),   # recurrentgemma's d
+    (1, 2, 1, 128, 256, 256, False, 64),
+])
+def test_bf16p_oracle_at_the_wgmma_key_tiles_matches_tpu_kernel(shape):
+    """The numerics of the d 192 and 256 instances, over their own key
+    tiles (``ref.flash_key_tile``: 64 keys), against the TPU kernel in
+    interpret mode within its bf16 bound; the
+    TPU kernel takes v at q's head dim, so a narrower v is zero-padded
+    for it and its output cut back (the zero columns change nothing
+    else)."""
+    B, H, Hkv, S, d, dv, causal, qb = shape
+    rng = np.random.default_rng(11 * S + d + dv)
+    q, k = _normal(rng, (B, H, S, d)), _normal(rng, (B, Hkv, S, d))
+    v = _normal(rng, (B, Hkv, S, dv))
+    vp = np.concatenate([v, np.zeros((B, Hkv, S, d - dv), np.float32)], -1)
+    jq, jk, jv = (jnp.asarray(a, jnp.bfloat16) for a in (q, k, vp))
+    want = flash_attention_tpu(jq, jk, jv, causal=causal, q_block=qb,
+                               k_block=qb, interpret=True)[..., :dv]
+    tq, tk, tv = (torch.from_numpy(a).to(torch.bfloat16) for a in (q, k, v))
+    got = ref.flash_attention_ref_bf16p(tq, tk, tv, causal=causal)
+    assert ref.flash_key_tile(d, dv) == 64
+    assert got.dtype == torch.bfloat16 and got.shape == (B, H, S, dv)
+    assert _err(got, want) < BF16_TOL
+
+
+@pytest.mark.parametrize("shape", [
     (1, 2, 1, 512, 512, 128, True),    # the serving head dim and length
     (2, 4, 2, 128, 128, 64, True),
     (1, 4, 2, 100, 300, 32, False),    # ragged tiles, Sq != Sk
@@ -265,9 +351,13 @@ def test_bf16p_oracle_rounds_p_before_pv(sk):
 
 
 def test_kernel_source_runs_bf16_on_the_tensor_cores():
-    """Kernel F's bf16 route is hand-written PTX in its one source:
-    mma.sync (bf16 in, f32 accumulate) fed by ldmatrix from a cp.async
-    ring; no header of its own and no library."""
+    """Kernel F's bf16 routes are hand-written PTX in its one source: up
+    to d 128, mma.sync (bf16 in, f32 accumulate) fed by ldmatrix from a
+    cp.async ring; at d 192 and 256, wgmma from shared-memory descriptors
+    (P from registers) fed by TMA through mbarriers, with setmaxnreg
+    moving registers from the producer to the consumers.  No header of
+    its own and no library: the includes grow only by cuda.h, for the
+    tensor map's type."""
     from repro_torch.kernels import cuda_build
     text = (cuda_build.CSRC / cuda_build.SOURCES["flash_attention"]
             ).read_text()
@@ -276,10 +366,17 @@ def test_kernel_source_runs_bf16_on_the_tensor_cores():
                    "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16",
                    "cp.async.cg.shared.global", "cp.async.commit_group",
                    "cp.async.wait_group", "flash_kernel_mma",
+                   "wgmma.mma_async.sync.aligned.m64n", "wgmma.fence",
+                   "wgmma.commit_group", "wgmma.wait_group",
+                   "mbarrier.try_wait.parity", "mbarrier.arrive.expect_tx",
+                   "cp.async.bulk.tensor", "setmaxnreg.dec",
+                   "setmaxnreg.inc", "__grid_constant__",
+                   "cuTensorMapEncodeTiled", "flash_kernel_wgmma",
                    "src/repro/kernels/"):
         assert needle in text, needle
     includes = re.findall(r"#include\s*[<\"]([^>\"]+)", text)
-    assert includes == ["cstdint", "cuda_bf16.h", "cuda_runtime.h"]
+    assert includes == ["cstdint", "cuda.h", "cuda_bf16.h",
+                        "cuda_runtime.h"]
     assert not re.search(r"cutlass|cublas|cudnn|wmma", text, re.I)
     assert not list(Path(cuda_build.CSRC).glob("*.cuh"))
 
@@ -357,26 +454,28 @@ def test_band_wider_than_s_is_causal(S):
                            ref.flash_attention_ref_bf16p(q, k, v))
 
 
-#: q rows per block and keys per K/V tile (kBM, kBN in the source)
-Q_TILE = KEY_TILE = ref.FLASH_KEY_TILE
+#: the distinct tiles of kernel F's bf16 instances
+TILES = sorted(set(ref.FLASH_TILES.values()))
 
 
-def _key_tiles(q0: int, Sk: int, causal: bool, window: int) -> range:
-    """First keys of the K/V tiles that the block of q rows ``[q0, q0 +
-    Q_TILE)`` visits: the source's ``first_key_tile`` up to ``k_end``."""
-    first = max(0, q0 - window + 1) // KEY_TILE * KEY_TILE if window else 0
-    end = min(Sk, q0 + Q_TILE) if causal else Sk
-    return range(first, end, KEY_TILE)
+def _key_tiles(r0: int, n_rows: int, Sk: int, causal: bool, window: int,
+               key_tile: int) -> range:
+    """First keys of the K/V tiles that q rows ``[r0, r0 + n_rows)``
+    reach: the source's ``first_key_tile`` up to ``k_end`` (a block's
+    range; a consumer's, ``lo`` to ``hi``, in flash_kernel_wgmma)."""
+    first = max(0, r0 - window + 1) // key_tile * key_tile if window else 0
+    end = min(Sk, r0 + n_rows) if causal else Sk
+    return range(first, end, key_tile)
 
 
 def _tile_needs_mask(k0: int, wrow: int, Sk: int, causal: bool,
-                     window: int) -> bool:
-    """The bf16 route's test whether the tile of keys ``[k0, k0 +
-    KEY_TILE)`` is masked for the warp of rows ``[wrow, wrow + 16)`` (the
+                     window: int, key_tile: int) -> bool:
+    """The bf16 routes' test whether the tile of keys ``[k0, k0 +
+    key_tile)`` is masked for the warp of rows ``[wrow, wrow + 16)`` (the
     f32 route masks every tile)."""
-    return ((causal and k0 + KEY_TILE - 1 > wrow)
+    return ((causal and k0 + key_tile - 1 > wrow)
             or (window > 0 and k0 <= wrow + 15 - window)
-            or k0 + KEY_TILE > Sk)
+            or k0 + key_tile > Sk)
 
 
 def _valid(rows, keys, Sk, causal, window):
@@ -390,37 +489,46 @@ def _valid(rows, keys, Sk, causal, window):
     return ok
 
 
+@pytest.mark.parametrize("tile", TILES, ids=lambda t: "q{}-k{}-c{}".format(
+    t.q_rows, t.key_tile, t.consumer_rows))
 @pytest.mark.parametrize("Sq,Sk,causal,window", [
     (Sq, Sq, True, w)
     for Sq in (1, 15, 64, 65, 200, 700, 2560)
     for w in (1, 7, 16, 37, 63, 64, 65, 128, 2048, 5000)
 ] + [(300, 700, False, 0), (700, 300, True, 0), (130, 130, True, 0)])
 def test_band_tile_plan_visits_every_valid_pair_and_masks_the_rest(
-        Sq, Sk, causal, window):
-    """For each 64-row block of q: the keys of the tiles it visits cover
-    every valid pair of its rows, and each of its four 16-row warps masks
-    every visited tile that holds an invalid pair for one of its rows
-    (keys past Sk included)."""
-    T = KEY_TILE
-    for q0 in range(0, Sq, Q_TILE):
-        tiles = list(_key_tiles(q0, Sk, causal, window))
+        Sq, Sk, causal, window, tile):
+    """For each block of q rows (one instance's tiles): the tiles it
+    visits cover every valid pair of its rows; each consumer's own range
+    (none for a consumer past Sq) lies in the block's and covers every
+    valid pair of its rows; and each 16-row warp masks every tile of its
+    consumer's range that holds an invalid pair for one of its rows (keys
+    past Sk included)."""
+    T, BM, C = tile.key_tile, tile.q_rows, tile.consumer_rows
+    keys = np.arange(Sk)
+    for q0 in range(0, Sq, BM):
+        tiles = list(_key_tiles(q0, BM, Sk, causal, window, T))
         assert tiles == sorted(set(tiles)) and all(t % T == 0 for t in tiles)
-        rows = np.arange(q0, min(q0 + Q_TILE, Sq))
-        keys = np.arange(Sk)
-        seen = np.zeros(Sk, bool)
-        for k0 in tiles:
-            seen[k0:k0 + T] = True
-        valid = _valid(rows, keys, Sk, causal, window)
-        assert not (valid & ~seen[None, :]).any(), (q0, tiles)
-        for wrow in range(q0, q0 + Q_TILE, 16):
-            wrows = np.arange(wrow, wrow + 16)
-            for k0 in tiles:
-                tile_keys = np.arange(k0, k0 + T)
-                if not _valid(wrows, tile_keys, Sk, causal, window).all():
-                    assert _tile_needs_mask(k0, wrow, Sk, causal, window), \
-                        (q0, wrow, k0)
-        if window:      # the band visits about window / 64 + 2 tiles
-            assert len(tiles) <= (window + 2 * T - 2) // T + 1
+        for r0 in range(q0, min(q0 + BM, Sq), C):
+            mine = list(_key_tiles(r0, C, Sk, causal, window, T))
+            assert set(mine) <= set(tiles), (q0, r0, mine, tiles)
+            rows = np.arange(r0, min(r0 + C, Sq))
+            seen = np.zeros(Sk, bool)
+            for k0 in mine:
+                seen[k0:k0 + T] = True
+            valid = _valid(rows, keys, Sk, causal, window)
+            assert not (valid & ~seen[None, :]).any(), (q0, r0, mine)
+            for wrow in range(r0, r0 + C, 16):
+                wrows = np.arange(wrow, wrow + 16)
+                for k0 in mine:
+                    tile_keys = np.arange(k0, k0 + T)
+                    if not _valid(wrows, tile_keys, Sk, causal,
+                                  window).all():
+                        assert _tile_needs_mask(k0, wrow, Sk, causal,
+                                                window, T), \
+                            (q0, wrow, k0)
+        if window:      # the band visits about (window + q rows) / T tiles
+            assert len(tiles) <= (window + BM + T - 2) // T + 1
 
 
 def test_wrapper_checks_head_dim_256_and_window_on_meta():

@@ -14,9 +14,11 @@ of max(1, their size)); the loss and its gradients as
 ``tests/test_torch_train.py``'s (f32: 1e-5 and 1e-4 of each leaf's max
 |g|; bf16: 1e-3 and 0.05).  The reference's
 ``tests/test_models_smoke.py`` cases for these archs run on the port.
-Kernel F's domain on a card (v zero-padded to the qk head dim, and every
-other mismatch refused) is held on ``meta`` tensors, which take the
-card's route up to the launch.
+Kernel F's domain on a card (v at its own head dim where F has an
+instance for the pair, and every other mismatch refused) is held on
+``meta`` tensors, which take the card's route up to the launch; F with a
+gradient on MLA's unpadded v is held to the zero-padded route it
+replaced.
 """
 import dataclasses
 import math
@@ -175,14 +177,17 @@ def test_decode_attention_mla_matches_jax(n_empty):
 def test_padded_v_through_plain_f_equals_unpadded_attention(causal):
     """MLA's shapes (qk 192, v 128): F's plain version on v zero-padded to
     192 gives the unpadded attention in its first 128 columns (1e-6) and
-    exactly 0 in the others."""
+    exactly 0 in the others; on v as it is, F gives those 128 columns."""
     rng = np.random.default_rng(23)
     B, S, H = 1, 40, 2
     q, k = (torch.from_numpy(rng.normal(size=(B, S, H, 192)).astype(
         np.float32)) for _ in range(2))
     v = torch.from_numpy(rng.normal(size=(B, S, H, 128)).astype(np.float32))
-    out = t_attn.flash_kernel_padded_v(q, k, v, causal=causal)
+    out = t_attn.run_flash_kernel(q, k, t_attn.pad_head_dim(v, 192),
+                                  causal=causal)
     assert out.shape == (B, S, H, 192)
+    assert torch.equal(t_attn.run_flash_kernel(q, k, v, causal=causal),
+                       out[..., :128])
     assert torch.equal(out[..., 128:], torch.zeros_like(out[..., 128:]))
     pos = torch.arange(S)
     want = t_attn.flash_attention_plain(
@@ -199,8 +204,8 @@ def test_padded_v_through_plain_f_equals_unpadded_attention(causal):
 def test_card_route_pads_v_and_refuses_other_mismatches(vd, scale, ok):
     """On a non-CPU tensor (``meta``: the card's route up to the launch),
     v head dims up to qk's at the default scale reach kernel F's wrapper
-    (which refuses the meta device itself), with the local band too;
-    other dims or scales raise ``NotImplementedError``."""
+    unpadded (which refuses the meta device itself), with the local band
+    too; other dims or scales raise ``NotImplementedError``."""
     B, S, H = 1, 8, 2
     q = torch.empty(B, S, H, 192, device="meta")
     v = torch.empty(B, S, H, vd, device="meta")
@@ -220,6 +225,30 @@ def test_card_route_pads_v_and_refuses_other_mismatches(vd, scale, ok):
     else:
         with pytest.raises(NotImplementedError, match="head dim"):
             t_attn.flash_attention(q, q, v, **local)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_function_on_unpadded_v_matches_the_padded_route(causal):
+    """``FlashAttention.apply`` (F with a gradient) on MLA's v at 128: the
+    output and dq, dk and dv equal the route that zero-padded v to 192
+    (the output and v's gradient cut back to 128), f32 on the CPU."""
+    rng = np.random.default_rng(31)
+    B, S, H = 1, 40, 2
+    base = [torch.from_numpy(rng.normal(size=(B, S, H, d)).astype(
+        np.float32)) for d in (192, 192, 128)]
+    a = [t.clone().requires_grad_() for t in base]
+    b = [t.clone().requires_grad_() for t in base]
+    out = t_attn.FlashAttention.apply(*a, causal, 16, 16)
+    padded = t_attn.FlashAttention.apply(
+        b[0], b[1], t_attn.pad_head_dim(b[2], 192), causal, 16, 16)
+    assert out.shape == (B, S, H, 128)
+    assert torch.equal(out, padded[..., :128])
+    g = torch.from_numpy(rng.normal(size=(B, S, H, 128)).astype(np.float32))
+    got = torch.autograd.grad(out, a, g)
+    want = torch.autograd.grad(padded[..., :128], b, g)
+    assert got[2].shape == (B, S, H, 128)
+    for x, y in zip(got, want):
+        assert torch.equal(x, y)
 
 
 def test_flash_wrapper_takes_head_dim_192():
