@@ -1144,13 +1144,17 @@ def _zero_flash_routes() -> None:
 def _wgmma_check(arch: str, cfg, launches: int) -> int:
     """Kernel F's launches on ``flash_kernel_wgmma`` since the last
     :func:`_zero_flash_routes`; raises unless they are all of ``launches``
-    where the config's qk head dim is 192 or 256 (MLA, recurrentgemma:
-    bf16 compute) and none elsewhere."""
+    where the wrapper sends the config's qk head dim there in bf16 (64
+    seamless, 128 qwen3, llama4 and internvl2, 192 MLA, 256
+    recurrentgemma) and none elsewhere (the small configs' 16 and 32, on
+    ``flash_kernel_mma``)."""
+    import torch
     from repro_torch.kernels import flash_attention as fa
     qkd = (cfg.mla.qk_nope_head_dim + cfg.mla.qk_rope_head_dim
            if cfg.attention == "mla" else cfg.hd())
     got = fa.route_launches["flash_kernel_wgmma"]
-    want = launches if qkd >= 192 else 0
+    on_wgmma = fa._kernel_name(torch.bfloat16, qkd) == "flash_kernel_wgmma"
+    want = launches if on_wgmma else 0
     if got != want:
         raise AssertionError(f"{arch}: {got} launches of flash_kernel_wgmma"
                              f", want {want} (qk head dim {qkd})")
@@ -1376,19 +1380,27 @@ def split_kernel_rows(run, split, dev, reduce) -> list[dict]:
 
 def check_flash(dev) -> int:
     """Kernel F against its plain versions: the TPU test shapes, the
-    serving shape, unmasked, Sq != Sk, ragged S, d = 192 (v at 192 and at
+    serving shape, internvl2's prefill, seamless's three calls at d 64,
+    unmasked, Sq != Sk, ragged S (at d 128 causal with Sq != Sk too), q,
+    k and v as column slices of one projection, d = 192 (v at 192 and at
     MLA's 128: its prefill shape, ragged, Sq != Sk unmasked) and 256
     (causal, ragged, unmasked), and the causal band (local attention) at
     recurrentgemma's shape and others, window 1 and window >= S
     (bit-equal to causal); f32 (SIMT route) and bf16 (tensor-core routes,
-    also against their own numerics over each instance's key tile); and
-    the bf16 route's refusal of rows that are not 16-byte aligned."""
+    also against their own numerics over each instance's key tile), with
+    flash_kernel_mma launched at d 16 and 32; and the bf16 route's
+    refusal of rows that are not 16-byte aligned."""
     import numpy as np
     import torch
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref
 
-    cases = [  # B, H, Hkv, Sq, Sk, d, causal, window[, dv (default d)]
+    # B, H, Hkv, Sq, Sk, d, causal, window[, dv (default d)[, "slice": q,
+    # k and v column slices of one (B, S, H + 2 Hkv, d) projection, as a
+    # fused qkv matmul leaves them]]
+    B8, H64, Hkv8, S1536, d128 = FLASH_VISION_SHAPE
+    B4, H16, Hkv16, d64 = FLASH_ENCDEC_SHAPE
+    cases = [
         (2, 4, 2, 128, 128, 64, True, 0), (1, 8, 8, 256, 256, 32, True, 0),
         (2, 4, 1, 64, 64, 128, False, 0), (1, 2, 2, 96, 96, 16, True, 0),
         (1, 2, 2, 64, 64, 32, True, 0),               # the TPU bf16 test
@@ -1412,20 +1424,40 @@ def check_flash(dev) -> int:
         (1, 4, 2, 77, 77, 256, True, 1),
         (1, 4, 2, 150, 150, 128, True, 4096),         # window >= S: causal
         (1, 4, 1, 150, 150, 256, True, 4096),
+        (B8, H64, Hkv8, S1536, S1536, d128, True, 0),  # internvl2's prefill
+        *((B4, H16, Hkv16, sq, sk, d64, causal, 0)     # seamless's calls
+          for _, sq, sk, causal in FLASH_ENCDEC_CALLS),
+        (2, 8, 2, 333, 517, 128, True, 0),            # ragged, Sq != Sk
+        (2, 16, 8, 300, 300, 128, True, 0, 128, "slice"),
     ]
     worst = {"bf16p": 0.0}
-    for i, (B, H, Hkv, Sq, Sk, d, causal, window, *dv) in enumerate(cases):
-        dv = dv[0] if dv else d
+    bf16p = {}                  # the bf16p check's worst, by (d, dv)
+    mma = fa.route_launches["flash_kernel_mma"]
+    for i, (B, H, Hkv, Sq, Sk, d, causal, window, *rest) in enumerate(cases):
+        dv = rest[0] if rest else d
+        sliced = rest[1:] == ["slice"]
         rng = np.random.default_rng(100 + i)
-        base = [torch.from_numpy(rng.normal(size=(B, S, h, w)).astype(
-            np.float32)).to(dev)
-            for S, h, w in ((Sq, H, d), (Sk, Hkv, d), (Sk, Hkv, dv))]
+        if sliced:
+            qkv = torch.from_numpy(rng.normal(size=(
+                B, Sq, H + 2 * Hkv, d)).astype(np.float32)).to(dev)
+            cuts = (slice(0, H), slice(H, H + Hkv), slice(H + Hkv, None))
+        else:
+            base = [torch.from_numpy(rng.normal(size=(B, S, h, w)).astype(
+                np.float32)).to(dev)
+                for S, h, w in ((Sq, H, d), (Sk, Hkv, d), (Sk, Hkv, dv))]
         shape = (f"B={B} H={H} Hkv={Hkv} Sq={Sq} Sk={Sk} d={d} dv={dv} "
-                 f"causal={causal} window={window}")
+                 f"causal={causal} window={window}"
+                 + (" (column slices)" if sliced else ""))
         for name, tol in FLASH_TOL.items():
             # (B, S, heads, d) handed over transposed, as the model does
-            q, k, v = (a.to(getattr(torch, name)).transpose(1, 2)
-                       for a in base)
+            if sliced:
+                cast = qkv.to(getattr(torch, name))
+                q, k, v = (cast[:, :, c].transpose(1, 2) for c in cuts)
+                if k.is_contiguous() or k.stride(2) != (H + 2 * Hkv) * d:
+                    raise AssertionError("the slices came out dense")
+            else:
+                q, k, v = (a.to(getattr(torch, name)).transpose(1, 2)
+                           for a in base)
             got = fa.flash_attention(q, k, v, causal=causal, window=window)
             want = ref.flash_attention_ref(q, k, v, causal=causal,
                                            window=window)
@@ -1451,6 +1483,14 @@ def check_flash(dev) -> int:
                         f"flash kernel != its bf16 numerics: {shape}: "
                         f"{rel} > {FLASH_BF16P_TOL}")
                 worst["bf16p"] = max(worst["bf16p"], rel)
+                bf16p[(d, dv)] = max(bf16p.get((d, dv), 0.0), rel)
+    mma = fa.route_launches["flash_kernel_mma"] - mma
+    want_mma = sum(1 for c in cases if fa._kernel_name(
+        torch.bfloat16, c[5]) == "flash_kernel_mma")
+    if not mma or mma != want_mma:
+        raise AssertionError(f"flash_kernel_mma launched {mma} times, want "
+                             f"{want_mma}, one a bf16 case at d 16 or 32")
+    print(f"  flash_kernel_mma checked at d 16 and 32: {mma} launches")
     print(f"  {len(cases)} shapes ({sum(1 for c in cases if c[7])} with a "
           f"band, {sum(1 for c in cases if c[5] == 256)} at d = 256, "
           f"{sum(1 for c in cases if c[8:] == (128,))} at MLA's (192, "
@@ -1460,6 +1500,8 @@ def check_flash(dev) -> int:
           f"{FLASH_TOL['bfloat16']}); bf16 vs ref.flash_attention_ref_bf16p "
           f"{worst['bf16p']:.3g} of max(1, |o|) (tol {FLASH_BF16P_TOL:.3g}); "
           f"window >= S bit-equal to causal on both routes")
+    print("  bf16 vs ref.flash_attention_ref_bf16p by (d, dv): " + ", ".join(
+        f"{pair} {rel:.3g}" for pair, rel in sorted(bf16p.items())))
     # a q whose rows start 2 bytes off a 16-byte boundary is refused
     q = torch.zeros(1, 64 * 32 + 1, dtype=torch.bfloat16, device=dev)
     q = q[:, 1:].view(1, 1, 64, 32)
@@ -1552,8 +1594,10 @@ def serve_path(dev) -> dict:
           f"(batch {res['batch']}, {res['generated']} tokens each; host "
           f"clock, device synchronised around each step); peak "
           f"max_memory_allocated {peak / 2**30:.2f} GiB")
+    wgmma = _wgmma_check(SERVE_ARCH, cfg, launches)
     print(f"  kernel F launches: {launches} in {res['prefill_calls']} "
-          f"prefills ({per_prefill:g} per prefill, {cfg.n_layers} layers)")
+          f"prefills ({per_prefill:g} per prefill, {cfg.n_layers} layers); "
+          f"{wgmma} of them on flash_kernel_wgmma")
     if res["generated"] != 32 or per_prefill != cfg.n_layers:
         raise AssertionError(f"serve path: {res}, F launches {launches}")
 
@@ -2344,12 +2388,15 @@ def serve_recurrent(arch: str, n_layers: int, B: int, S: int, n_gen: int,
           f"{n_params:,} ({n_params * 2 / 1e9:.1f} GB bf16; published "
           f"{build_model(full).param_count():,})")
 
-    captured = {}
+    captured, calls = {}, {}
     launch = fa.flash_attention
 
     def capture(q, k, v, *, causal=True, window=0):
+        before = fa.launches
         out = launch(q, k, v, causal=causal, window=window)
         form = (causal, window, q.shape[2] == k.shape[2])
+        # the wrapper's own count of this call's launches
+        calls[form] = calls.get(form, 0) + fa.launches - before
         if form not in captured:
             captured[form] = (q.clone(), k.clone(), v.clone(), out.clone())
         return out
@@ -2389,15 +2436,20 @@ def serve_recurrent(arch: str, n_layers: int, B: int, S: int, n_gen: int,
           f"calls per prefill); {wgmma} of them on flash_kernel_wgmma")
     if res["generated"] != n_gen or per_prefill != want_per:
         raise AssertionError(f"{arch}: {res}, F launches {launches}")
+    if sum(calls.values()) != launches:
+        raise AssertionError(f"{arch}: F's launches by form {calls} do not "
+                             f"add up to its {launches}")
 
-    errs = {}
+    errs, form_launches = {}, {}
     for (causal, window, square), (q, k, v, out) in sorted(captured.items()):
         want = ref.flash_attention_ref(q, k, v, causal=causal, window=window)
         err = float((out.float() - want.float()).abs().max())
         form = ("band" if window else "causal" if causal else
                 "unmasked" if square else "cross")
         errs[form] = err
-        print(f"  (i) first {form} call: q {tuple(q.shape)} k "
+        form_launches[form] = calls[(causal, window, square)]
+        print(f"  (i) first {form} call (of {form_launches[form]} launches):"
+              f" q {tuple(q.shape)} k "
               f"{tuple(k.shape)} {q.dtype}, window {window}; F vs plain max "
               f"abs err {err:.3g} (tol {FLASH_TOL['bfloat16']})")
         if not (err <= FLASH_TOL["bfloat16"]):
@@ -2411,7 +2463,7 @@ def serve_recurrent(arch: str, n_layers: int, B: int, S: int, n_gen: int,
     del captured
     out = {"result": res, "launches": launches, "peak_bytes": peak,
            "param_count": n_params, "errs": errs, "layers": n_layers,
-           "wgmma_launches": wgmma}
+           "wgmma_launches": wgmma, "form_launches": form_launches}
     _free()
     out["breakdown"] = _prefill_breakdown(cfg, dev, B, S)
     _free()
@@ -2722,6 +2774,8 @@ def train_full_width(dev, card: str) -> dict:
     if launches != per_step * steps:
         raise AssertionError(f"training: F launches {launches} != "
                              f"{per_step} x {steps} steps")
+    wgmma = _wgmma_check(SERVE_ARCH, cfg, launches)
+    print(f"  all {wgmma} of F's launches on flash_kernel_wgmma")
     return {"step_ms": step_ms, "median_ms": med, "tokens_per_s":
             tokens / (med * 1e-3), "mfu": mfu, "peak_bytes": peak,
             "launches": launches, "launches_per_step": launches // steps,
@@ -3186,6 +3240,7 @@ def mesh_serve(serve) -> dict:
     want = serve["result"]["tokens"]
     same = bool(torch.equal(res["tokens"].cpu(), want.cpu()))
     per_prefill = launches / res["prefill_calls"]
+    wgmma = _wgmma_check(SERVE_ARCH, cfg, launches)
     print(f"  (1) {' '.join(args)} (one-rank NCCL group, (1, 1) mesh, "
           f"DTensor parameters): prefill {res['prefill_ms']:.3f} ms, decode "
           f"{res['decode_ms_per_step']:.3f} ms/step (without a mesh: "
@@ -3193,7 +3248,7 @@ def mesh_serve(serve) -> dict:
           f"{serve['result']['decode_ms_per_step']:.3f}); greedy tokens "
           f"{tuple(res['tokens'].shape)} equal to the run without a mesh: "
           f"{same}; kernel F launches {launches} ({per_prefill:g} per "
-          f"prefill, {cfg.n_layers} layers)")
+          f"prefill, {cfg.n_layers} layers; {wgmma} on flash_kernel_wgmma)")
     if not same or per_prefill != cfg.n_layers:
         raise AssertionError(f"mesh serve: tokens equal {same}, F launches "
                              f"{launches}")
@@ -3439,49 +3494,132 @@ def model_mesh(serve, trained, rows, dev, card: str) -> dict:
 FLASH_SHAPE = (8, 16, 8, 512, 128)
 
 
-def flash_timing(dev) -> dict:
-    """Kernel F at the serving shape, on seeded bf16 q, k, v laid out as
-    the model hands them over ((B, S, heads, d) transposed), beside its
-    plain version and ``scaled_dot_product_attention``.  Timed before the
-    serve path: every profiler trace that missed its kernel in this
-    script's runs came after the model had served."""
+#: kernel F at internvl2's prefill (1,024 patch embeddings and 512 text
+#: tokens): batch, heads, kv heads, positions, head dim
+FLASH_VISION_SHAPE = (8, 64, 8, 1536, 128)
+#: kernel F at seamless-m4t-medium's prefill, d 64: batch, heads, kv
+#: heads, head dim; and its three calls, (form, Sq, Sk, causal)
+FLASH_ENCDEC_SHAPE = (4, 16, 16, 64)
+FLASH_ENCDEC_CALLS = (("unmasked", ENCDEC_FRAMES, ENCDEC_FRAMES, False),
+                      ("causal", 128, 128, True),
+                      ("cross", 128, ENCDEC_FRAMES, False))
+
+
+def _flash_timing(dev, name: str, shape, seed: int, build=None) -> dict:
+    """Kernel F at ``shape`` (B, H, Hkv, Sq, Sk, d, causal) on seeded bf16
+    q, k, v laid out as the model hands them over ((B, S, heads, d)
+    transposed), beside its plain version and
+    ``scaled_dot_product_attention``.  The bound counts q, k, v and o
+    once against 4 d operations a (query, key) pair, half of Sq Sk when
+    causal; ``build``: the (d, dv) pairs whose ptxas report to add."""
     import numpy as np
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref
 
-    B, H, Hkv, S, d = FLASH_SHAPE
-    rng = np.random.default_rng(SEED)
+    B, H, Hkv, Sq, Sk, d, causal = shape
+    rng = np.random.default_rng(seed)
     q, k, v = (torch.from_numpy(rng.normal(size=(B, S, h, d)).astype(
         np.float32)).to(dev).to(torch.bfloat16).transpose(1, 2)
-        for h in (H, Hkv, Hkv))
-    ms = kernel_ms(lambda: fa.flash_attention(q, k, v), 20, "flash_kernel")
+        for S, h in ((Sq, H), (Sk, Hkv), (Sk, Hkv)))
+    ms = kernel_ms(lambda: fa.flash_attention(q, k, v, causal=causal), 20,
+                   "flash_kernel")
     nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
-    flops = 2 * B * H * S * S * d
+    flops = 4 * B * H * Sq * Sk * d // (2 if causal else 1)
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     flops_ms = flops / BF16_FLOP_PER_S * 1e3
     lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
-        q, k, v, is_causal=True, enable_gqa=True), 20)
-    return {
-        "name": "flash_attention", "route": "cuda",
+        q, k, v, is_causal=causal, enable_gqa=True), 20)
+    mask = "causal" if causal else "unmasked"
+    out = {
+        "name": name, "route": "cuda",
         "source": "src/repro_torch/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:78",
         "ms": ms, "plain_ms": cuda_ms(
-            lambda: ref.flash_attention_ref(q, k, v), 3),
+            lambda: ref.flash_attention_ref(q, k, v, causal=causal), 3),
         "bound_ms": max(bytes_ms, flops_ms),
         "bound_by": "bytes" if bytes_ms >= flops_ms else "operations",
         "library_ms": lib_ms,
-        "library_note": "scaled_dot_product_attention(is_causal=True, "
-                        "enable_gqa=True), timed only",
+        "library_note": f"scaled_dot_product_attention(is_causal={causal}, "
+                        f"enable_gqa=True), timed only",
         "ms_from": ms_from("flash_kernel"), "wrapper_call_ms": cuda_ms(
-            lambda: fa.flash_attention(q, k, v), 20),
-        "shape": f"B={B} H={H} Hkv={Hkv} S={S} d={d} {q.dtype} causal",
+            lambda: fa.flash_attention(q, k, v, causal=causal), 20),
+        "shape": f"B={B} H={H} Hkv={Hkv} Sq={Sq} Sk={Sk} d={d} {q.dtype} "
+                 f"{mask}",
+        "kernel": fa._kernel_name(q.dtype, d),
         "bound_bytes_ms": bytes_ms, "bound_ops_ms": flops_ms,
         "tflop_per_s": flops / (ms * 1e-3) / 1e12,
         "bound_share": max(bytes_ms, flops_ms) / ms,
         "ms_over_library": ms / lib_ms,
     }
+    if build:
+        out["build"] = _flash_build_report(*build)
+    return out
+
+
+def flash_timing(dev) -> dict:
+    """Kernel F at the serving shape (:func:`_flash_timing`), with the
+    build's registers, spills and shared memory of the (128, 128)
+    instances.  Timed before the serve path: every profiler trace that
+    missed its kernel in this script's runs came after the model had
+    served."""
+    B, H, Hkv, S, d = FLASH_SHAPE
+    return _flash_timing(dev, "flash_attention", (B, H, Hkv, S, S, d, True),
+                         SEED, build=[(d, d)])
+
+
+def flash_vision_timing(dev) -> dict:
+    """Kernel F at internvl2's prefill shape (:func:`_flash_timing`)."""
+    from repro_torch.configs import get_config
+
+    B, H, Hkv, S, d = FLASH_VISION_SHAPE
+    cfg = get_config("internvl2-76b")
+    if (cfg.n_heads, cfg.n_kv_heads, cfg.hd(), cfg.frontend_len + MODEL_PROMPT,
+            MODEL_BATCH) != (H, Hkv, d, S, B):
+        raise AssertionError(f"FLASH_VISION_SHAPE {FLASH_VISION_SHAPE} is "
+                             f"not internvl2's prefill")
+    return _flash_timing(dev, "flash_attention (internvl2, S 1,536)",
+                         (B, H, Hkv, S, S, d, True), SEED + 6)
+
+
+def flash_encdec_timing(dev) -> list[dict]:
+    """Kernel F at seamless-m4t-medium's three prefill calls at d 64
+    (:func:`_flash_timing`): the encoder over the frames, unmasked; the
+    decoder, causal; cross attention from the decoder to the frames; with
+    the (64, 64) instances' ptxas report on the first."""
+    from repro_torch.configs import get_config
+
+    B, H, Hkv, d = FLASH_ENCDEC_SHAPE
+    cfg = get_config("seamless-m4t-medium")
+    if (cfg.n_heads, cfg.n_kv_heads, cfg.hd()) != (H, Hkv, d):
+        raise AssertionError(f"FLASH_ENCDEC_SHAPE {FLASH_ENCDEC_SHAPE} is "
+                             f"not seamless's")
+    return [_flash_timing(dev, f"flash_attention (seamless, {form}, d 64)",
+                          (B, H, Hkv, sq, sk, d, causal), SEED + 7 + i,
+                          build=[(d, d)] if i == 0 else None)
+            for i, (form, sq, sk, causal) in enumerate(FLASH_ENCDEC_CALLS)]
+
+
+def flash_vision_row(timing: dict, served: dict) -> dict:
+    """F's internvl2 row: :func:`flash_vision_timing` with internvl2's
+    serve-path launches and its check (i)."""
+    iv = served["internvl2-76b"]
+    return {**timing, "launches": iv["launches"], "max_abs_err": iv["err"],
+            "launches_per_prefill": iv["launches"]
+            // iv["result"]["prefill_calls"]}
+
+
+def flash_encdec_rows(timings: list, recurrent: dict) -> list[dict]:
+    """F's seamless rows: :func:`flash_encdec_timing` with seamless's
+    serve-path launches of each form and its check (i) on the first call
+    of that form."""
+    sm = recurrent["seamless-m4t-medium"]
+    return [{**t, "launches": sm["form_launches"][form],
+             "max_abs_err": sm["errs"][form],
+             "launches_per_prefill": sm["form_launches"][form]
+             // sm["result"]["prefill_calls"]}
+            for t, (form, *_) in zip(timings, FLASH_ENCDEC_CALLS)]
 
 
 def flash_row(timing: dict, serve) -> dict:
@@ -4561,6 +4699,8 @@ def main(argv=None) -> int:
     f_timing = flash_timing(dev)
     f_mla_timing = flash_mla_timing(dev)
     f_band_timing = flash_band_timing(dev)
+    f_vision_timing = flash_vision_timing(dev)
+    f_encdec_timing = flash_encdec_timing(dev)
     phase("sharded plane: the main path's records in 4 shards")
     t0 = time.perf_counter()
     sharded = sharded_plane(run, dev)
@@ -4650,6 +4790,8 @@ def main(argv=None) -> int:
         for a, r in families.items()}
     rows.append(flash_mla_row(f_mla_timing, served))
     rows.append(flash_band_row(f_band_timing, recurrent))
+    rows.append(flash_vision_row(f_vision_timing, served))
+    rows.extend(flash_encdec_rows(f_encdec_timing, recurrent))
     # launches on this slice's paths, each read from its own phase
     rows[0]["launches_client_fleet"] = fleet["launches"]["pushdown"]
     rows[1]["launches_sharded_plane"] = sharded["launches"]["scan"]

@@ -11,8 +11,9 @@
 // keeping the running stats in registers.  Three routes, chosen by dtype
 // and (d, dv) in pick():
 //
-// bf16, d = dv <= 128: flash_kernel_mma, on the tensor cores
-// (FlashAttention-2's shape).
+// bf16, (d, dv) = (16, 16), (32, 32): flash_kernel_mma, on the tensor
+// cores (FlashAttention-2's shape), for the widths of the small test
+// configurations; no served model has them.
 //  * 128 threads, 4 warps of 16 q rows, 64-row q tiles.  Q is loaded once;
 //    K and V tiles of 64 keys go through a two-stage ring of cp.async
 //    16-byte copies (tile t+1 is in flight while tile t is multiplied).
@@ -28,71 +29,94 @@
 //    serve directly as the A operand of the next mma (no shared-memory
 //    round trip); V's fragments come from ldmatrix.trans.  O accumulates
 //    in f32 and is rescaled by alpha per tile.
-//  * Bound on this card: at the serving shape (B 8, H 16, Hkv 8, S 512,
-//    d 128, causal) the bytes (q, k, v, o once: 50 MB, 0.015 ms at
-//    3.35 TB/s) bound it, the 8.6 GFLOP at the bf16 tensor-core rate
-//    taking 0.009 ms.  mma.sync reaches a part of that rate; each warp
-//    also reads the whole K and V tile from shared memory.
+//  * d 64 and 128 ran on this kernel too until flash_kernel_wgmma took
+//    them.  What held them there: mma.sync reaches a part of the
+//    tensor-core rate, every warp reads the whole K and V tile from
+//    shared memory, every thread spends registers and instructions on
+//    cp.async addresses, and blocks that are not persistent load Q and
+//    store O exposed.
 //
-// bf16, (d, dv) = (192, 128), (192, 192), (256, 256): flash_kernel_wgmma,
-// designed for Hopper.  It replaces flash_kernel_mma<192> and <256>
-// (template instances of the design above), which at those widths used
-// 255 registers and spilled (8 and 64 bytes), fit one 4-warp block an SM
+// bf16, (d, dv) = (64, 64), (128, 128), (192, 128), (192, 192),
+// (256, 256): flash_kernel_wgmma, designed for Hopper.  It replaces
+// flash_kernel_mma at those widths; at d 192 and 256 that kernel used 255
+// registers and spilled (8 and 64 bytes), fit one 4-warp block an SM
 // (128,000 and 168,960 B of shared memory), read Q again from shared
 // memory on every tile at d = 256, and had every warp read the whole K and
 // V tile through ldmatrix; MLA's v was zero-padded to 192 by the caller, so
-// a third of P.V and of o's bytes were zeros.  There they reached 14% of
-// the bytes bound at MLA's shape and 9% of the operations bound on the band.
-//  * Block: 384 threads, one block an SM, persistent.  Warpgroup 0 is the
-//    producer: one thread takes the work items (a q tile of 128 rows of one
-//    (b, h)) from a zeroed counter the wrapper passes, and issues every
-//    load; setmaxnreg lowers the warpgroup to 24 registers a thread, so
-//    that warpgroups 1 and 2, the consumers of 64 q rows each, rise to 240.
-//    The items go head by head (a head's q tiles at once, so their K/V
-//    tiles meet in L2) where no item is more than a tenth of a block's
-//    share of the work, else q tile by q tile; both take a head's heaviest
-//    q tiles first (head_major_order).
+// a third of P.V and of o's bytes were zeros.
+//  * Block: persistent, one an SM, a producer warpgroup and NC consumer
+//    warpgroups of 64 q rows each (WgDesign).  The producer's one thread
+//    takes the work items (a q tile of 64 NC rows of one (b, h)) from a
+//    zeroed counter the wrapper passes, and issues every load; setmaxnreg
+//    lowers the producer to 24 registers a thread, so that the consumers
+//    rise to 240 (two consumers, 384 threads) or 160 (three, 512).  The
+//    items go head by head (a head's q tiles at once, so their K/V tiles
+//    meet in L2) where no item is more than a tenth of a block's share of
+//    the work, else q tile by q tile; both take a head's heaviest q tiles
+//    first (head_major_order).
 //  * Loads: TMA (cp.async.bulk.tensor.4d) through tensor maps of the
 //    (d, S, heads, B) operands, encoded on the host for each call
 //    (cuTensorMapEncodeTiled, found through cudaGetDriverEntryPoint so the
 //    library links the runtime alone) from the wrapper's strides: the
 //    (B, S, H, d) views of the models and MLA's v, a column slice, need no
 //    copy.  A box is 64 columns (128 bytes) by the tile's rows, stored with
-//    the 128-byte swizzle, so a tile is width / 64 such chunks.  Q has one
-//    buffer; K and V a ring of two stages.  Each has a full mbarrier
-//    (completed by the copies' byte count) and an empty one; K and V are
-//    freed apart, K once S has landed, V once P.V has.  Rows past Sq or Sk
-//    are zero-filled by the TMA unit.
+//    the 128-byte swizzle, so a tile is width / 64 such chunks.  Q has QB
+//    buffers (two: the next item's Q loads during this one); K and V a
+//    ring of ST stages.  Each has a full mbarrier (completed by the
+//    copies' byte count) and an empty one; K and V are freed apart, K once
+//    S has landed, V once P.V has.  Rows past Sq or Sk are zero-filled by
+//    the TMA unit.
 //  * S = Q K^T: wgmma.mma_async m64nBNk16 with Q and K both read from
-//    shared memory by descriptor (K-major, 128-byte swizzle); no thread
-//    runs ldmatrix.  P.V: wgmma m64nDVk16 with p packed to bf16 in
-//    registers as the A operand (the accumulator's fragment is the A
-//    fragment) and V read by descriptor as a transposed (MN-major) B.
-//    Tile t's S is issued with tile t - 1's P.V, which runs on while tile
-//    t's softmax is computed; O is rescaled once it is done.
-//  * Output: at (192, 128) stored from the fragments, Q freed as soon as
-//    the last S has landed (MLA's items are short, and the next item's Q
-//    then loads during this one's end); at dv = d staged in the consumer's
-//    own Q rows with the 128-byte swizzle and written by a TMA store.
-//  * Tiles of 64 keys: at (192, 128) Q 48 KB + 2 x (K 24 KB + V 16 KB),
-//    132,184 B of shared memory with the barriers and the slack that
-//    aligns the tiles to the swizzle's 1,024-byte atoms, 64 f32 of O and
-//    32 of S a consumer thread; at (256, 256) Q 64 KB + 2 x (32 + 32 KB),
-//    197,720 B, 128 and 32; at (192, 192) 148,568 B, 96 and 32.  ptxas:
-//    168 registers at launch, no spill.  128-key tiles at (192, 128) ran
-//    MLA's shape about 5% faster, but p's bf16 rounding then took
-//    deepseek-v3's bf16 gradient-route check in chip_smoke.py from 0.017
-//    to 0.0206 of a leaf's max |g|, past its 2e-2 bound.  (On the card, a
-//    second Q buffer, 80-key tiles at d = 256, turns between the two
-//    consumers' products and skipping O's rescale where no row's max moved
-//    were each measured no faster.)
-//  * Bound on this card: at MLA's prefill (B 8, H 128, S 512, causal) the
-//    bytes (q and k at 192, v and o at 128, once: 671 MB, 0.200 ms);
-//    on recurrentgemma's band (B 2, H 16, S 2,560, window 2,048, d 256)
-//    the operations (4 B H d per valid pair, 0.104 ms at the bf16 rate).
-//    The design keeps the tensor cores fed from shared memory without
-//    register copies, overlaps loads, products and softmax, and hides the
-//    start and end of each item behind the next one's loads.
+//    shared memory by descriptor (K-major, 128-byte swizzle), or (QR)
+//    with Q's fragments loaded once an item by ldmatrix into registers.
+//    P.V: wgmma m64nDVk16 with p packed to bf16 in registers as the A
+//    operand (the accumulator's fragment is the A fragment) and V read by
+//    descriptor as a transposed (MN-major) B.  Tile t's S is issued with
+//    tile t - 1's P.V, which runs on while tile t's softmax is computed;
+//    O is rescaled once it is done, and only where a row of the warp
+//    moved its max.  The softmax takes the row max of the raw scores and
+//    p = 2^(s scale - max) by one fused multiply-add and ex2.approx.ftz.
+//  * Output: staged in the consumer's own Q rows with the 128-byte
+//    swizzle and written by a TMA store (STAGE_O); at (192, 128) stored
+//    from the fragments, Q freed as soon as the last S has landed (MLA's
+//    items are short, and the next item's Q then loads during this one's
+//    end).
+//  * Designs, each timed on the card beside the others (PERF.md):
+//    (128, 128): three consumers (192 q rows an item), four stages, two Q
+//    buffers, O by a TMA store: 230,576 B of shared memory, 128
+//    registers at launch and 160 a consumer, no spill.  (64, 64): the
+//    same with Q in registers for S: 115,888 B.  (192, 128): two
+//    consumers, two stages, one Q, O from the fragments: 132,184 B;
+//    (256, 256) and (192, 192) the same with O by a TMA store, 197,720 and
+//    148,568 B; 168 registers at launch, 240 a consumer, no spill.
+//    Measured and not kept at d 128 and 64: two consumers (slower at
+//    internvl2's shape), two or three stages, one Q buffer, O
+//    from the fragments, the two consumers' products in turns, Q in
+//    registers at d 128 (with three consumers it spills), and row max and
+//    sum by a tree; at d 192 and 256 (earlier): 128-key tiles at
+//    (192, 128), whose p rounding took deepseek-v3's bf16 gradient-route
+//    check in chip_smoke.py from 0.017 to 0.0206 of a leaf's max |g|,
+//    past its 2e-2 bound, a second Q buffer, 80-key tiles at d = 256,
+//    turns between the two consumers' products.  Every instance keeps
+//    64-key tiles, so ref.flash_attention_ref_bf16p is one function of
+//    the inputs at every width.
+//  * Bounds on this card (q, k, v and o once over 3.35 TB/s; 4 d
+//    operations a (query, key) pair, half of Sq Sk when causal, over the
+//    bf16 tensor-core rate, 989 TFLOP/s): qwen3's prefill (B 8, H 16/8,
+//    S 512, d 128, causal) the bytes, 50 MB, 0.0150 ms; internvl2's (B 8,
+//    H 64/8, S 1,536, d 128, causal) the operations, 309 GFLOP,
+//    0.3127 ms; seamless-m4t-medium's at d 64 (B 4, H 16): the encoder
+//    (1,024 frames, unmasked) the operations, 0.0174 ms, the decoder (128,
+//    causal) the bytes, 0.0013 ms, cross attention (128 over 1,024) the
+//    bytes, 0.0056 ms; MLA's prefill (B 8, H 128, S 512, causal) the bytes
+//    (q and k at 192, v and o at 128: 671 MB, 0.200 ms); recurrentgemma's
+//    band (B 2, H 16, S 2,560, window 2,048, d 256) the operations (4 B H
+//    d per valid pair, 0.104 ms).  The design keeps the tensor cores fed
+//    from shared memory without register copies, overlaps loads, products
+//    and softmax, and hides the start and end of each item behind the
+//    next one's loads; what holds it at d 128 is the per-tile work that a
+//    64-key tile does not amortise: each consumer's chain of S, softmax
+//    and P.V.
 //
 // f32: flash_kernel, on the CUDA cores, exact to f32 (no TF32).
 //  * 256 threads as a 16 x 16 grid.  Thread (ty, tx) owns q rows
@@ -340,7 +364,7 @@ constexpr int kThreadsMma = 32 * kWarpsMma;  // 128
 constexpr int kStages = 2;                   // K/V ring depth
 
 // Row pitch in bf16 elements: 16 bytes of padding, so 8 consecutive rows
-// start on 8 distinct 16-byte bank groups for every d in {16, 32, 64, 128}
+// start on 8 distinct 16-byte bank groups for every d in {16, 32}
 // (a pitch of 2d + 16 bytes is an odd number of 16-byte groups)
 template <int D>
 __host__ __device__ constexpr int pitch() { return D + 8; }
@@ -434,7 +458,7 @@ flash_kernel_mma(const __nv_bfloat16* __restrict__ q,
                  float scale_log2, bool causal, int window) {
   constexpr int P = pitch<D>();
   constexpr int KS = D / 16;          // k-steps of QK^T
-  static_assert(D <= 128, "d 192 and 256 take flash_kernel_wgmma");
+  static_assert(D <= 32, "d 64 and up take flash_kernel_wgmma");
   constexpr int NT = kBN / 8;         // n8 tiles of a score row block
   constexpr int DT = D / 8;           // n8 tiles of the output
   extern __shared__ __align__(128) unsigned char smem_mma[];
@@ -645,28 +669,47 @@ cudaError_t launch_mma(const void* q, const void* k, const void* v, void* o,
 }
 
 // ---------------------------------------------------------------------------
-// bf16 route at d 192 and 256: wgmma, TMA, mbarriers, warp specialisation
+// bf16 route from d 64 on: wgmma, TMA, mbarriers, warp specialisation
 // ---------------------------------------------------------------------------
 
 constexpr int kWgRows = 64;               // q rows per consumer warpgroup
-constexpr int kWgBM = 2 * kWgRows;        // q rows per block
-constexpr int kWgThreads = 3 * 128;       // producer + two consumers
-constexpr int kWgStages = 2;              // K/V ring depth
 constexpr int kSwCols = 64;               // bf16 columns of a 128-byte row
 
-// Byte offsets in the (1,024-aligned) shared memory of a block: Q, then
-// the K stages, the V stages, the barriers (full and empty Q; full K and V,
-// empty K and V, one each a stage) and the current item.
+// A design of flash_kernel_wgmma: NC consumer warpgroups of 64 q rows
+// (an item is BM = 64 NC q rows), a ring of ST K/V stages, QB Q buffers,
+// O staged in the consumer's Q rows for a TMA store (STAGE_O) or stored
+// from the fragments with Q freed after the last S, and (QR) Q's
+// fragments held in registers for S (Q freed once loaded, unless O is
+// staged there) rather than read from shared memory by every S.  The producer warpgroup
+// drops to 24 registers a thread so that the consumers rise to kRegs.
+template <int NC_, int ST_, int QB_, bool STAGE_O_, bool QR_>
+struct WgDesign {
+  static_assert(NC_ >= 2 && NC_ <= 3 && ST_ >= 2 && QB_ >= 1 && QB_ <= 2,
+                "two or three consumers, a ring, one or two Qs");
+  static constexpr int NC = NC_, ST = ST_, QB = QB_;
+  static constexpr bool STAGE_O = STAGE_O_, QR = QR_;
+  static constexpr int BM = NC * kWgRows;
+  static constexpr int kThreads = (NC + 1) * 128;
+  static constexpr int kRegs =
+      (65536 - 128 * 24) / (128 * NC) / 8 * 8 > 240
+          ? 240
+          : (65536 - 128 * 24) / (128 * NC) / 8 * 8;
+};
+
+// Byte offsets in the (1,024-aligned) shared memory of a block: the QB Q
+// buffers, then the ST K stages, the ST V stages, the barriers (full and
+// empty Q, one each a Q buffer; full K and V, empty K and V, one each a
+// stage) and each Q buffer's item.
 // A tile of `rows` rows is width / 64 chunks of rows x 128 bytes.
-template <int D, int DV, int BN>
+template <int D, int DV, int BN, class W>
 struct WgLayout {
   static_assert(D % kSwCols == 0 && DV % kSwCols == 0 && BN % 16 == 0,
                 "tiles are whole 64-column chunks and 16-key steps");
-  static constexpr uint32_t kQ = kWgBM * D * 2;
+  static constexpr uint32_t kQ = W::BM * D * 2;
   static constexpr uint32_t kK = BN * D * 2;
   static constexpr uint32_t kV = BN * DV * 2;
-  static constexpr uint32_t kBars = kQ + kWgStages * (kK + kV);
-  static constexpr int kSmem = 1024 + kBars + 8 * (3 + 4 * kWgStages);
+  static constexpr uint32_t kBars = W::QB * kQ + W::ST * (kK + kV);
+  static constexpr int kSmem = 1024 + kBars + 8 * (3 * W::QB + 4 * W::ST);
 };
 
 __device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
@@ -729,6 +772,13 @@ __device__ __forceinline__ void tma_store(const CUtensorMap* map, uint32_t src,
 
 __device__ __forceinline__ void st_shared(uint32_t addr, uint32_t v) {
   asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(addr), "r"(v) : "memory");
+}
+
+// 2^x on the special-function unit, subnormal results flushed to 0
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
 __device__ __forceinline__ void wg_fence() {
@@ -794,6 +844,24 @@ template <int N>
 __device__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4],
                          uint64_t b);
 
+// d[64 x 64] (+)= A[64 x 16] . B[16 x 64], A from registers, B from
+// shared memory, K-major (S = Q K^T with Q's fragments in registers)
+__device__ __forceinline__ void wgmma_rs_kmajor64(float (&d)[32],
+                                                  const uint32_t (&a)[4],
+                                                  uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, "
+      "%10, %11, %12, %13, %14, %15, %16, %17, %18, %19, "
+      "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+      : WG_ACC32(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
+
 template <>
 __device__ __forceinline__ void wgmma_ss<64>(float (&d)[32], uint64_t a,
                                              uint64_t b, int scale_d) {
@@ -827,6 +895,23 @@ __device__ __forceinline__ void wgmma_ss<128>(float (&d)[64], uint64_t a,
       "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
       : WG_ACC64(d)
       : "l"(a), "l"(b), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<64>(float (&d)[32],
+                                             const uint32_t (&a)[4],
+                                             uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, "
+      "%10, %11, %12, %13, %14, %15, %16, %17, %18, %19, "
+      "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : WG_ACC32(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
 template <>
@@ -905,15 +990,15 @@ __device__ __forceinline__ void wgmma_rs<256>(float (&d)[128],
 struct WgItem {
   int q0, h, b;
 };
-__device__ __forceinline__ WgItem wg_item(int item, int nq, int H, int B,
-                                          bool head_major) {
+__device__ __forceinline__ WgItem wg_item(int item, int nq, int BM, int H,
+                                          int B, bool head_major) {
   const int hb = head_major ? item / nq : item % (H * B);
   const int qt = nq - 1 - (head_major ? item % nq : item / (H * B));
-  return {qt * kWgBM, hb % H, hb / H};
+  return {qt * BM, hb % H, hb / H};
 }
 
-template <int D, int DV, int BN, bool STAGE_O>
-__global__ void __launch_bounds__(kWgThreads, 1)
+template <int D, int DV, int BN, class W>
+__global__ void __launch_bounds__(W::kThreads, 1)
 flash_kernel_wgmma(const __grid_constant__ CUtensorMap tq,
                    const __grid_constant__ CUtensorMap tk,
                    const __grid_constant__ CUtensorMap tv,
@@ -922,37 +1007,46 @@ flash_kernel_wgmma(const __grid_constant__ CUtensorMap tq,
                    int* __restrict__ next, int H, int B, int G, int Sq,
                    int Sk, float scale_log2, bool causal, int window,
                    bool head_major) {
-  using L = WgLayout<D, DV, BN>;
+  using L = WgLayout<D, DV, BN, W>;
+  constexpr int NC = W::NC, ST = W::ST, QB = W::QB, BM = W::BM;
+  constexpr bool STAGE_O = W::STAGE_O, QR = W::QR;
+  static_assert(!QR || BN == 64, "S from registers on 64-key tiles");
+  // Q is freed after the last S (not staging O, read by every S)
+  constexpr bool kFreeQAfterS = !STAGE_O && !QR;
   extern __shared__ __align__(128) unsigned char smem_wg[];
-  const uint32_t sQ = (smem_addr(smem_wg) + 1023) & ~1023u;
-  const uint32_t sK = sQ + L::kQ;                  // [kWgStages]
-  const uint32_t sV = sK + kWgStages * L::kK;      // [kWgStages]
-  const uint32_t bar_q = sQ + L::kBars;            // Q full
-  const uint32_t bar_eq = bar_q + 8;               // Q empty
-  const uint32_t bar_k = bar_eq + 8;               // full K [kWgStages]
-  const uint32_t bar_v = bar_k + 8 * kWgStages;    // full V [kWgStages]
-  const uint32_t bar_ek = bar_v + 8 * kWgStages;   // empty K [kWgStages]
-  const uint32_t bar_ev = bar_ek + 8 * kWgStages;  // empty V [kWgStages]
-  // the item whose Q is in flight or in place (-1: no more work)
+  const uint32_t sQ = (smem_addr(smem_wg) + 1023) & ~1023u;   // [QB]
+  const uint32_t sK = sQ + QB * L::kQ;             // [ST]
+  const uint32_t sV = sK + ST * L::kK;             // [ST]
+  const uint32_t bar_q = sQ + L::kBars;            // full Q [QB]
+  const uint32_t bar_eq = bar_q + 8 * QB;          // empty Q [QB]
+  const uint32_t bar_k = bar_eq + 8 * QB;          // full K [ST]
+  const uint32_t bar_v = bar_k + 8 * ST;           // full V [ST]
+  const uint32_t bar_ek = bar_v + 8 * ST;          // empty K [ST]
+  const uint32_t bar_ev = bar_ek + 8 * ST;         // empty V [ST]
+  // the item whose Q is in flight or in place in each Q buffer (-1: no
+  // more work), 8 bytes apart
   volatile int* item_slot = reinterpret_cast<volatile int*>(
-      smem_wg + (bar_ev + 8 * kWgStages - smem_addr(smem_wg)));
+      smem_wg + (bar_ev + 8 * ST - smem_addr(smem_wg)));
 
-  const int nq = (Sq + kWgBM - 1) / kWgBM;
+  const int nq = (Sq + BM - 1) / BM;
   const int n_items = nq * H * B;
   // the K/V tiles of a block of q rows from q0: [t0, n_tiles)
   auto tiles = [&](int q0, int& t0, int& n_tiles) {
     t0 = first_key_tile<BN>(q0, window) / BN;
-    n_tiles = ((causal ? min(Sk, q0 + kWgBM) : Sk) + BN - 1) / BN;
+    n_tiles = ((causal ? min(Sk, q0 + BM) : Sk) + BN - 1) / BN;
   };
 
   if (threadIdx.x == 0) {
-    mbar_init(bar_q, 1);
-    mbar_init(bar_eq, STAGE_O ? 2 : 8);          // a consumer or its warps
-    for (int s = 0; s < kWgStages; ++s) {
+    for (int i = 0; i < QB; ++i) {
+      mbar_init(bar_q + 8 * i, 1);
+      // one arrival a consumer (STAGE_O) or a consumer warp
+      mbar_init(bar_eq + 8 * i, STAGE_O ? NC : 4 * NC);
+    }
+    for (int s = 0; s < ST; ++s) {
       mbar_init(bar_k + 8 * s, 1);
       mbar_init(bar_v + 8 * s, 1);
-      mbar_init(bar_ek + 8 * s, 8);              // one arrival a consumer warp
-      mbar_init(bar_ev + 8 * s, 8);
+      mbar_init(bar_ek + 8 * s, 4 * NC);         // one arrival a consumer warp
+      mbar_init(bar_ev + 8 * s, 4 * NC);
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
@@ -964,26 +1058,27 @@ flash_kernel_wgmma(const __grid_constant__ CUtensorMap tq,
     if (threadIdx.x == 0) {
       int ring = 0;                   // K/V tiles loaded so far
       for (int j = 0;; ++j) {
+        const int qb = j % QB;        // item j's Q buffer
         const int item = atomicAdd(next, 1);
-        // the last item's Q (and its output staged there) is done
-        mbar_wait(bar_eq, (j & 1) ^ 1);
+        // the Q buffer's last item (and its output staged there) is done
+        mbar_wait(bar_eq + 8 * qb, ((j / QB) & 1) ^ 1);
         if (item >= n_items) {
-          *item_slot = -1;
-          mbar_arrive(bar_q);
+          item_slot[2 * qb] = -1;
+          mbar_arrive(bar_q + 8 * qb);
           break;
         }
-        *item_slot = item;
-        const WgItem w = wg_item(item, nq, H, B, head_major);
+        item_slot[2 * qb] = item;
+        const WgItem w = wg_item(item, nq, BM, H, B, head_major);
         const int hk = w.h / G;
-        mbar_expect_tx(bar_q, L::kQ);
+        mbar_expect_tx(bar_q + 8 * qb, L::kQ);
         for (int c = 0; c < D / kSwCols; ++c)
-          tma_load(sQ + c * kWgBM * 128, &tq, bar_q, c * kSwCols, w.q0, w.h,
-                   w.b);
+          tma_load(sQ + qb * L::kQ + c * BM * 128, &tq, bar_q + 8 * qb,
+                   c * kSwCols, w.q0, w.h, w.b);
         int t0, n_tiles;
         tiles(w.q0, t0, n_tiles);
         for (int t = t0; t < n_tiles; ++t, ++ring) {
-          const int s = ring % kWgStages;
-          const uint32_t free = ((ring / kWgStages) & 1) ^ 1;
+          const int s = ring % ST;
+          const uint32_t free = ((ring / ST) & 1) ^ 1;
           mbar_wait(bar_ek + 8 * s, free);
           mbar_expect_tx(bar_k + 8 * s, L::kK);
           for (int c = 0; c < D / kSwCols; ++c)
@@ -999,14 +1094,13 @@ flash_kernel_wgmma(const __grid_constant__ CUtensorMap tq,
     }
   } else {
     // ---- consumers: 64 q rows each of every item ----
-    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(W::kRegs));
     const int cw = (threadIdx.x >> 7) - 1;
     const int ct = threadIdx.x & 127;  // thread of the consumer warpgroup
     const int warp = (threadIdx.x >> 5) & 3;
     const int lane = threadIdx.x & 31;
     const int g = lane >> 2;          // fragment row (and row + 8)
     const int tig = lane & 3;         // fragment column pair
-    const uint32_t sQw = sQ + cw * kWgRows * 128;
     int ring = 0;                     // K/V tiles consumed so far
 
     // one arrival of this warp on an empty barrier (its reads are done)
@@ -1014,18 +1108,32 @@ flash_kernel_wgmma(const __grid_constant__ CUtensorMap tq,
       __syncwarp();
       if (lane == 0) mbar_arrive(bar);
     };
-
     for (int j = 0;; ++j) {
-      mbar_wait(bar_q, j & 1);
-      const int item = *item_slot;
+      const int qb = j % QB;          // item j's Q buffer
+      mbar_wait(bar_q + 8 * qb, (j / QB) & 1);
+      const int item = item_slot[2 * qb];
+      const uint32_t sQw = sQ + qb * L::kQ + cw * kWgRows * 128;
+      const uint32_t bar_eqj = bar_eq + 8 * qb;
       if (item < 0) {
         if (STAGE_O && ct == 0)
           asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
         break;
       }
-      const WgItem w = wg_item(item, nq, H, B, head_major);
+      const WgItem w = wg_item(item, nq, BM, H, B, head_major);
       int t0, n_tiles;
       tiles(w.q0, t0, n_tiles);
+      // QR: this warp's 16 rows of Q as the A fragments of S, from the
+      // 128-byte swizzled tile (16-byte group g of row r at (g ^ r % 8))
+      uint32_t qf[QR ? D / 16 : 1][4];
+      if constexpr (QR) {
+        const int r = warp * 16 + (lane & 15);
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk)
+          ldmatrix_x4(qf[kk], sQw + (kk / 4) * BM * 128 + r * 128 +
+                                  ((((kk % 4) * 2 + (lane >> 4)) ^ (r & 7))
+                                   << 4));
+        if (!STAGE_O) release(bar_eqj);   // Q is done
+      }
       const int r0 = w.q0 + cw * kWgRows;
       const int wrow = r0 + warp * 16;  // this warp's 16 rows
       const int row0 = wrow + g;        // this thread's rows: row0, row0 + 8
@@ -1040,9 +1148,9 @@ flash_kernel_wgmma(const __grid_constant__ CUtensorMap tq,
       const int z = max(a, hi);
       // ring position, stage and phase of the item's tile t
       const int base = ring - t0;
-      auto stage = [&](int t) { return (base + t) % kWgStages; };
+      auto stage = [&](int t) { return (base + t) % ST; };
       auto phase = [&](int t) {
-        return (uint32_t)((base + t) / kWgStages) & 1;
+        return (uint32_t)((base + t) / ST) & 1;
       };
 
       float acc[DV / 2];
@@ -1065,11 +1173,14 @@ flash_kernel_wgmma(const __grid_constant__ CUtensorMap tq,
 #pragma unroll
         for (int kk = 0; kk < D / 16; ++kk) {
           const uint32_t col = (kk % 4) * 32;   // within the 64-column chunk
-          wgmma_ss<BN>(
-              sc, wg_desc(sQw + (kk / 4) * kWgBM * 128 + col, 16, 1024),
-              wg_desc(sK + stage(t) * L::kK + (kk / 4) * BN * 128 + col, 16,
-                      1024),
-              kk > 0);
+          const uint64_t kd = wg_desc(
+              sK + stage(t) * L::kK + (kk / 4) * BN * 128 + col, 16, 1024);
+          if constexpr (QR)
+            wgmma_rs_kmajor64(sc, qf[kk], kd, kk > 0);
+          else
+            wgmma_ss<BN>(
+                sc, wg_desc(sQw + (kk / 4) * BM * 128 + col, 16, 1024), kd,
+                kk > 0);
         }
         wg_commit();
       };
@@ -1085,14 +1196,12 @@ flash_kernel_wgmma(const __grid_constant__ CUtensorMap tq,
       // tile t's scores in sc become p (masked, online softmax); alpha
       // rescales the rows' earlier sums
       auto softmax = [&](int t, float (&sc)[BN / 2], float (&alpha)[2]) {
-        // scale to the log2 domain; mask only where the tile crosses the
-        // diagonal of this warp's rows, the band's lower edge or Sk
+        // mask only where the tile crosses the diagonal of this warp's
+        // rows, the band's lower edge or Sk
         const int k0 = t * BN;
         const bool mask = (causal && k0 + BN - 1 > wrow) ||
                           (window > 0 && k0 <= wrow + 15 - window) ||
                           k0 + BN > Sk;
-#pragma unroll
-        for (int j = 0; j < BN / 2; ++j) sc[j] *= scale_log2;
         if (mask) {
 #pragma unroll
           for (int j = 0; j < BN / 8; ++j)
@@ -1107,38 +1216,46 @@ flash_kernel_wgmma(const __grid_constant__ CUtensorMap tq,
         }
 #pragma unroll
         for (int r = 0; r < 2; ++r) {
+          // the row's max of the raw scores, then in the log2 domain
+          // (NEG_INF while the row has seen no key)
           float mx = kNegInf;
 #pragma unroll
           for (int j = 0; j < BN / 8; ++j)
             mx = fmaxf(mx, fmaxf(sc[4 * j + 2 * r], sc[4 * j + 2 * r + 1]));
           mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, 1));
           mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, 2));
-          const float m_new = fmaxf(m[r], mx);
+          const float m_new =
+              fmaxf(m[r], mx <= kNegInf / 2 ? kNegInf : mx * scale_log2);
           const float shift = m_new <= kNegInf / 2 ? 0.f : m_new;
-          alpha[r] = m[r] <= kNegInf / 2 ? 0.f : exp2f(m[r] - shift);
+          alpha[r] = m[r] <= kNegInf / 2 ? 0.f
+                     : m[r] == m_new     ? 1.f
+                                         : ex2(m[r] - shift);
+          // p = 2^(s scale - shift): 0 where masked (NEG_INF scaled is
+          // far below any shift)
           float rsum = 0.f;
 #pragma unroll
           for (int j = 0; j < BN / 8; ++j)
 #pragma unroll
             for (int e = 2 * r; e < 2 * r + 2; ++e) {
-              const float x = sc[4 * j + e];
-              // p = 0 where masked (masked scores were set to NEG_INF)
-              sc[4 * j + e] = mask && x <= kNegInf / 2 ? 0.f : exp2f(x - shift);
+              sc[4 * j + e] = ex2(fmaf(sc[4 * j + e], scale_log2, -shift));
               rsum += sc[4 * j + e];
             }
           l[r] = l[r] * alpha[r] + rsum;
           m[r] = m_new;
         }
       };
-      // O *= alpha, and p packed to bf16 as the A fragments of its P.V
+      // O *= alpha (skipped where no row of the warp's max moved), and p
+      // packed to bf16 as the A fragments of its P.V
       auto rescale_and_pack = [&](const float (&sc)[BN / 2],
                                   const float (&alpha)[2]) {
+        if (__any_sync(kFull, alpha[0] != 1.f || alpha[1] != 1.f)) {
 #pragma unroll
-        for (int j = 0; j < DV / 8; ++j) {
-          acc[4 * j] *= alpha[0];
-          acc[4 * j + 1] *= alpha[0];
-          acc[4 * j + 2] *= alpha[1];
-          acc[4 * j + 3] *= alpha[1];
+          for (int j = 0; j < DV / 8; ++j) {
+            acc[4 * j] *= alpha[0];
+            acc[4 * j + 1] *= alpha[0];
+            acc[4 * j + 2] *= alpha[1];
+            acc[4 * j + 3] *= alpha[1];
+          }
         }
 #pragma unroll
         for (int kk = 0; kk < BN / 16; ++kk) {
@@ -1158,12 +1275,13 @@ flash_kernel_wgmma(const __grid_constant__ CUtensorMap tq,
           float sc[BN / 2];
           mbar_wait(bar_k + 8 * stage(a), phase(a));
           reg_fence(acc);
+          if constexpr (QR) reg_fence(qf);
           wg_fence();
           issue_s(a, sc);
           wg_wait<0>();
           reg_fence(sc);
           release(bar_ek + 8 * stage(a));
-          if (!STAGE_O && a + 1 == z) release(bar_eq);   // Q is done
+          if (kFreeQAfterS && a + 1 == z) release(bar_eqj);   // Q is done
           softmax(a, sc, alpha);
           rescale_and_pack(sc, alpha);
         }
@@ -1175,13 +1293,14 @@ flash_kernel_wgmma(const __grid_constant__ CUtensorMap tq,
           mbar_wait(bar_v + 8 * stage(t - 1), phase(t - 1));
           reg_fence(acc);
           reg_fence(pa);
+          if constexpr (QR) reg_fence(qf);
           wg_fence();
           issue_s(t, sc);
           issue_pv(t - 1);
           wg_wait<1>();
           reg_fence(sc);
           release(bar_ek + 8 * stage(t));
-          if (!STAGE_O && t + 1 == z) release(bar_eq);   // Q is done
+          if (kFreeQAfterS && t + 1 == z) release(bar_eqj);   // Q is done
           softmax(t, sc, alpha);
           wg_wait<0>();
           reg_fence(acc);
@@ -1204,7 +1323,7 @@ flash_kernel_wgmma(const __grid_constant__ CUtensorMap tq,
       // ---- out = acc / max(l, 1e-30), rounded once to bf16 ----
       if (!STAGE_O) {
         // stored from the fragments; Q was freed with the last S
-        if (a == z) release(bar_eq);
+        if (kFreeQAfterS && a == z) release(bar_eqj);
 #pragma unroll
         for (int r = 0; r < 2; ++r) {
           l[r] += __shfl_xor_sync(kFull, l[r], 1);
@@ -1236,7 +1355,7 @@ flash_kernel_wgmma(const __grid_constant__ CUtensorMap tq,
 #pragma unroll
           for (int r = 0; r < 2; ++r) {
             const int row = warp * 16 + g + r * 8;   // row % 8 == g
-            st_shared(sQw + (jj / 8) * kWgBM * 128 + row * 128 +
+            st_shared(sQw + (jj / 8) * BM * 128 + row * 128 +
                           (((jj % 8) ^ g) << 4) + 4 * tig,
                       pack_bf16(acc[4 * jj + 2 * r] * l[r],
                                 acc[4 * jj + 2 * r + 1] * l[r]));
@@ -1245,13 +1364,13 @@ flash_kernel_wgmma(const __grid_constant__ CUtensorMap tq,
         asm volatile("bar.sync %0, 128;\n" ::"r"(1 + cw) : "memory");
         if (ct == 0) {
           for (int c = 0; c < DV / kSwCols; ++c)
-            tma_store(&to, sQw + c * kWgBM * 128, c * kSwCols, r0, w.h,
+            tma_store(&to, sQw + c * BM * 128, c * kSwCols, r0, w.h,
                       w.b);
           asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
           asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
         }
       }
-      if (ct == 0) mbar_arrive(bar_eq);
+      if (ct == 0) mbar_arrive(bar_eqj);
     }
   }
 }
@@ -1314,13 +1433,13 @@ cudaError_t tensor_map(CUtensorMap* map, const void* ptr, int B, int heads,
 // share of the work, so that taking the items in that order leaves a tail
 // of at most a tenth; else q tile by q tile, the heaviest of every head
 // first.  An item costs its K/V tiles and one for its Q and output.
-template <int BN>
+template <int BN, int BM>
 bool head_major_order(int B, int H, int Sq, int Sk, bool causal, int window,
                       int n_blocks) {
   long long total = 0, heaviest = 0;
-  for (int q0 = 0; q0 < Sq; q0 += kWgBM) {
+  for (int q0 = 0; q0 < Sq; q0 += BM) {
     const int t0 = window > 0 && q0 >= window ? (q0 - window + 1) / BN : 0;
-    const int end = causal && q0 + kWgBM < Sk ? q0 + kWgBM : Sk;
+    const int end = causal && q0 + BM < Sk ? q0 + BM : Sk;
     const int t1 = (end + BN - 1) / BN;
     const long long cost = t1 > t0 ? t1 - t0 + 1 : 1;
     total += cost;
@@ -1330,7 +1449,7 @@ bool head_major_order(int B, int H, int Sq, int Sk, bool causal, int window,
 }
 
 // `work` is a zeroed int the blocks take their items from.
-template <int D, int DV, int BN, bool STAGE_O>
+template <int D, int DV, int BN, class W>
 cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
                          void* o, void* work, int B, int H, int G, int Sq,
                          int Sk, Strides qs, Strides ks, Strides vs,
@@ -1338,7 +1457,7 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
                          cudaStream_t stream) {
   if (work == nullptr) return cudaErrorInvalidValue;
   CUtensorMap tq, tk, tv, to;
-  cudaError_t err = tensor_map(&tq, q, B, H, Sq, D, qs, kWgBM);
+  cudaError_t err = tensor_map(&tq, q, B, H, Sq, D, qs, W::BM);
   if (err == cudaSuccess) err = tensor_map(&tk, k, B, H / G, Sk, D, ks, BN);
   if (err == cudaSuccess) err = tensor_map(&tv, v, B, H / G, Sk, DV, vs, BN);
   if (err == cudaSuccess) err = tensor_map(&to, o, B, H, Sq, DV, os, kWgRows);
@@ -1349,19 +1468,18 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
                                  device);
   if (err != cudaSuccess) return err;
-  constexpr int smem = WgLayout<D, DV, BN>::kSmem;
-  err = cudaFuncSetAttribute(flash_kernel_wgmma<D, DV, BN, STAGE_O>,
+  constexpr int smem = WgLayout<D, DV, BN, W>::kSmem;
+  err = cudaFuncSetAttribute(flash_kernel_wgmma<D, DV, BN, W>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              smem);
   if (err != cudaSuccess) return err;
-  const long long items = (long long)((Sq + kWgBM - 1) / kWgBM) * H * B;
+  const long long items = (long long)((Sq + W::BM - 1) / W::BM) * H * B;
   const int blocks = items < sms ? (int)items : sms;   // one an SM
-  flash_kernel_wgmma<D, DV, BN, STAGE_O>
-      <<<blocks, kWgThreads, smem, stream>>>(
+  flash_kernel_wgmma<D, DV, BN, W><<<blocks, W::kThreads, smem, stream>>>(
       tq, tk, tv, to, static_cast<__nv_bfloat16*>(o), os,
       static_cast<int*>(work), H, B, G, Sq, Sk,
       scale * kLog2e, causal, window,
-      head_major_order<BN>(B, H, Sq, Sk, causal, window, blocks));
+      head_major_order<BN, W::BM>(B, H, Sq, Sk, causal, window, blocks));
   return cudaGetLastError();
 }
 
@@ -1375,6 +1493,11 @@ struct Instance {
   Launch launch;
   int smem;
 };
+
+template <int D, int DV, int BN, class W>
+Instance wg_instance() {
+  return {launch_wgmma<D, DV, BN, W>, WgLayout<D, DV, BN, W>::kSmem};
+}
 
 // the instance for (dtype, d, dv): dtype 0 = f32 on the CUDA cores, 1 = bf16
 // on the tensor cores; {nullptr, 0} where there is none
@@ -1393,17 +1516,16 @@ Instance pick(int dtype, int d, int dv) {
     switch (d * 1000 + dv) {
       case 16016: return {launch_mma<16>, smem_bytes_mma<16>()};
       case 32032: return {launch_mma<32>, smem_bytes_mma<32>()};
-      case 64064: return {launch_mma<64>, smem_bytes_mma<64>()};
-      case 128128: return {launch_mma<128>, smem_bytes_mma<128>()};
+      case 64064:
+        return wg_instance<64, 64, 64, WgDesign<3, 4, 2, true, true>>();
+      case 128128:
+        return wg_instance<128, 128, 64, WgDesign<3, 4, 2, true, false>>();
       case 192128:
-        return {launch_wgmma<192, 128, 64, false>,
-                WgLayout<192, 128, 64>::kSmem};
+        return wg_instance<192, 128, 64, WgDesign<2, 2, 1, false, false>>();
       case 192192:
-        return {launch_wgmma<192, 192, 64, true>,
-                WgLayout<192, 192, 64>::kSmem};
+        return wg_instance<192, 192, 64, WgDesign<2, 2, 1, true, false>>();
       case 256256:
-        return {launch_wgmma<256, 256, 64, true>,
-                WgLayout<256, 256, 64>::kSmem};
+        return wg_instance<256, 256, 64, WgDesign<2, 2, 1, true, false>>();
     }
   }
   return {nullptr, 0};

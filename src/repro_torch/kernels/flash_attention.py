@@ -11,8 +11,10 @@ kernel has an instance for each ``(d, dv)`` in :data:`PAIRS` and the
 wrapper refuses any other pair.  bf16 runs on the tensor cores, p
 rounded to bf16 for P.V (its plain version, over each instance's key
 tile, is :func:`repro_torch.kernels.ref.flash_attention_ref_bf16p`):
-``mma.sync`` up to d 128, ``wgmma`` fed by TMA at (192, 128), (192, 192)
-and (256, 256).  f32 runs on the CUDA cores in full f32.  The bf16 route
+``wgmma`` fed by TMA (``flash_kernel_wgmma``) at (64, 64), (128, 128),
+(192, 128), (192, 192) and (256, 256), ``mma.sync``
+(``flash_kernel_mma``) at d 16 and 32, the widths of the small test
+configs.  f32 runs on the CUDA cores in full f32.  The bf16 route
 copies rows in 16-byte units (``cp.async``, TMA), so on a card it
 refuses (``ValueError``) tensors whose base address or strides are not
 multiples of 16 bytes.
@@ -35,7 +37,7 @@ from . import cuda_build, ref
 #: launches of the CUDA kernel in this process (the main-path proof)
 launches = 0
 #: the same launches by the source's kernel: f32 on the CUDA cores, bf16
-#: by mma.sync (d <= 128) or by wgmma (d 192 and 256)
+#: by mma.sync (d 16 and 32) or by wgmma (d 64 and up)
 route_launches = {"flash_kernel": 0, "flash_kernel_mma": 0,
                   "flash_kernel_wgmma": 0}
 
@@ -165,7 +167,7 @@ def _kernel_name(dtype: torch.dtype, d: int) -> str:
     """The source's kernel that computes ``dtype`` at qk head dim ``d``."""
     if dtype == torch.float32:
         return "flash_kernel"
-    return "flash_kernel_mma" if d <= 128 else "flash_kernel_wgmma"
+    return "flash_kernel_mma" if d <= 32 else "flash_kernel_wgmma"
 
 
 def smem_bytes(dtype: torch.dtype, d: int, dv: int) -> int:

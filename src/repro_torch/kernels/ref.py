@@ -205,12 +205,15 @@ class FlashTile(NamedTuple):
 
 
 #: kernel F's instances, (qk head dim, v head dim) -> the bf16 route's
-#: tiles: ``flash_kernel_mma`` (kBM, kBN; one block walks one range) up to
-#: d 128, ``flash_kernel_wgmma`` (kWgBM, BN, kWgRows) at d 192 and 256.  The
-#: f32 route has the same instances, on 64 x 64 tiles.
+#: tiles: ``flash_kernel_mma`` (kBM, kBN; one block walks one range) at d
+#: 16 and 32, ``flash_kernel_wgmma`` (its design's BM = 64 NC, BN,
+#: kWgRows) from d 64 on: three consumers at (64, 64) and (128, 128), two
+#: at d 192 and 256.  Every instance walks 64-key tiles, so the bf16
+#: numerics (:func:`flash_attention_ref_bf16p`) are one function at every
+#: width.  The f32 route has the same instances, on 64 x 64 tiles.
 FLASH_TILES = {
     (16, 16): FlashTile(64, 64, 64), (32, 32): FlashTile(64, 64, 64),
-    (64, 64): FlashTile(64, 64, 64), (128, 128): FlashTile(64, 64, 64),
+    (64, 64): FlashTile(192, 64, 64), (128, 128): FlashTile(192, 64, 64),
     (192, 128): FlashTile(128, 64, 64), (192, 192): FlashTile(128, 64, 64),
     (256, 256): FlashTile(128, 64, 64),
 }

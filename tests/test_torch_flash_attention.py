@@ -293,11 +293,14 @@ def test_bf16p_oracle_matches_tpu_kernel_bf16(shape):
     (1, 2, 2, 128, 192, 192, True, 64),
     (1, 2, 1, 256, 256, 256, True, 128),   # recurrentgemma's d
     (1, 2, 1, 128, 256, 256, False, 64),
+    (1, 2, 1, 256, 128, 128, True, 128),   # qwen3's d, GQA
+    (1, 2, 2, 192, 128, 128, False, 64),
+    (1, 2, 2, 256, 64, 64, False, 128),    # seamless's d
 ])
 def test_bf16p_oracle_at_the_wgmma_key_tiles_matches_tpu_kernel(shape):
-    """The numerics of the d 192 and 256 instances, over their own key
-    tiles (``ref.flash_key_tile``: 64 keys), against the TPU kernel in
-    interpret mode within its bf16 bound; the
+    """The numerics of the wgmma instances (d 64, 128, 192 and 256), over
+    their own key tiles (``ref.flash_key_tile``: 64 keys), against the TPU
+    kernel in interpret mode within its bf16 bound; the
     TPU kernel takes v at q's head dim, so a narrower v is zero-padded
     for it and its output cut back (the zero columns change nothing
     else)."""
@@ -351,16 +354,34 @@ def test_bf16p_oracle_rounds_p_before_pv(sk):
 
 
 def test_kernel_source_runs_bf16_on_the_tensor_cores():
-    """Kernel F's bf16 routes are hand-written PTX in its one source: up
-    to d 128, mma.sync (bf16 in, f32 accumulate) fed by ldmatrix from a
-    cp.async ring; at d 192 and 256, wgmma from shared-memory descriptors
-    (P from registers) fed by TMA through mbarriers, with setmaxnreg
-    moving registers from the producer to the consumers.  No header of
-    its own and no library: the includes grow only by cuda.h, for the
-    tensor map's type."""
+    """Kernel F's bf16 routes are hand-written PTX in its one source: at
+    d 16 and 32, mma.sync (bf16 in, f32 accumulate) fed by ldmatrix from
+    a cp.async ring; at (64, 64), (128, 128), (192, 128), (192, 192) and
+    (256, 256), wgmma from shared-memory descriptors (P from registers)
+    fed by TMA through mbarriers, with setmaxnreg moving registers from
+    the producer to the consumers, each an instance in ``pick()`` on
+    64-key tiles (the key tile of ``ref.FLASH_TILES``).  No header of its
+    own and no library: the includes grow only by cuda.h,
+    for the tensor map's type."""
     from repro_torch.kernels import cuda_build
     text = (cuda_build.CSRC / cuda_build.SOURCES["flash_attention"]
             ).read_text()
+    pick = text[text.index("Instance pick("):]
+    pick = pick[:pick.index("\n}\n")]
+    for d, dv in fa.PAIRS:
+        if d in (16, 32):
+            assert (f"case {d * 1000 + dv}: return {{launch_mma<{d}>,"
+                    in pick), d
+            continue
+        # each wgmma instance's q rows an item are 64 a consumer warpgroup
+        m = re.search(rf"case {d * 1000 + dv}:\s*return wg_instance<"
+                      rf"{d}, {dv}, {ref.flash_key_tile(d, dv)}, "
+                      rf"WgDesign<(\d+),", pick)
+        assert m, (d, dv)
+        assert ref.FLASH_TILES[(d, dv)].q_rows == 64 * int(m.group(1)), (
+            d, dv)
+    assert "launch_mma<64>" not in pick and "launch_mma<128>" not in pick
+    assert "wgmma_rs<64>" in text and "m64n64k16" in text
     for needle in ("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32",
                    "ldmatrix.sync.aligned.m8n8.x4.shared.b16",
                    "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16",
@@ -379,6 +400,32 @@ def test_kernel_source_runs_bf16_on_the_tensor_cores():
                         "cuda_runtime.h"]
     assert not re.search(r"cutlass|cublas|cudnn|wmma", text, re.I)
     assert not list(Path(cuda_build.CSRC).glob("*.cuh"))
+
+
+@pytest.mark.parametrize("d", sorted(fa.HEAD_DIMS))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernel_route_by_dtype_and_head_dim(dtype, d):
+    """The source's kernel each launch goes to: f32 to ``flash_kernel``
+    on the CUDA cores at every d; bf16 to ``flash_kernel_mma`` at 16 and
+    32 (the small test configs' widths) and to ``flash_kernel_wgmma`` from
+    d 64 on (seamless 64; qwen3, llama4, internvl2 128; MLA 192;
+    recurrentgemma 256), whose instances take 128 or 192 q rows a work
+    item in consumers of 64.  Every route counts its launches apart."""
+    name = fa._kernel_name(dtype, d)
+    assert name in fa.route_launches
+    if dtype == torch.float32:
+        assert name == "flash_kernel"
+    elif d <= 32:
+        assert name == "flash_kernel_mma"
+    else:
+        assert name == "flash_kernel_wgmma"
+    dv = dict(fa.PAIRS).get(d) if d != 192 else 128
+    tile = ref.FLASH_TILES[(d, dv)]
+    assert (tile.key_tile, tile.consumer_rows) == (64, 64)
+    if d <= 32:
+        assert tile.q_rows == 64
+    else:                   # two or three consumer warpgroups an item
+        assert tile.q_rows in (128, 192)
 
 
 def test_bf16_route_refuses_rows_off_16_byte_boundaries():
