@@ -414,6 +414,7 @@ class ColumnarSegment:
         self._clause_masks: dict[Clause, tuple] = {}
         self._possible: dict[Clause, bool] = {}
         self._and_masks: dict[tuple[int, ...], np.ndarray] = {}
+        self._and_counts: dict[tuple[int, ...], int] = {}
 
     def key_col(self, key: str) -> KeyColumn | None:
         """Per-key column, materializing a lazy key on first touch.
@@ -483,6 +484,17 @@ class ColumnarSegment:
                 self._and_masks = {}
             self._and_masks[key] = m
         return m
+
+    def pushed_count(self, pushed: Sequence[int]) -> int:
+        """Rows in :meth:`pushed_mask`'s candidate set (memoized, as it is)."""
+        key = tuple(pushed)
+        n = self._and_counts.get(key)
+        if n is None:
+            n = int(self.pushed_mask(key).sum())
+            if len(self._and_counts) >= _AND_CACHE_CAP:
+                self._and_counts = {}
+            self._and_counts[key] = n
+        return n
 
     # -- zone maps -----------------------------------------------------------
     def clause_possible(self, c: Clause) -> bool:

@@ -231,6 +231,22 @@ class TelemetryPlane:
                 tg["raw_parsed"] += g.raw_parsed
                 tg["segments_pruned"] += g.segments_pruned
 
+    def record_rows(self, *, tenant: str = "default", rows_scanned: int = 0,
+                    rows_skipped: int = 0, segments_scanned: int = 0,
+                    segments_pruned: int = 0) -> None:
+        """Fold counts of a reader that is not a scan (the training
+        batcher's pass over the store, segment by segment): the row and
+        segment counters only, so ``scans`` and the latency histogram keep
+        their per-query meaning."""
+        with self._lock:
+            ts = self._tenants.get(tenant)
+            if ts is None:
+                ts = self._tenants[tenant] = _TenantStats()
+            ts.rows_scanned += int(rows_scanned)
+            ts.rows_skipped += int(rows_skipped)
+            ts.segments_scanned += int(segments_scanned)
+            ts.segments_pruned += int(segments_pruned)
+
     def record_backpressure(self, *, tenant: str = "default",
                             blocked_s: float = 0.0,
                             rejected: int = 0) -> None:

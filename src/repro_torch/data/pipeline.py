@@ -26,6 +26,7 @@ from typing import Callable, Iterator, Sequence
 
 import numpy as np
 
+from repro_torch import tracing
 from repro_torch.core import bitvector
 from repro_torch.core.client import Chunk, encode_chunk
 from repro_torch.core.columnar import query_mask
@@ -392,8 +393,32 @@ class IngestCoordinator:
         self.makespan = max(clock)
 
 
+#: the telemetry tenant under which :class:`RecipeBatcher` counts its rows
+RECIPE_TENANT = "recipe"
+
+
+def _record_segment(telemetry, seg, pushed, mask) -> None:
+    """One segment's rows and itself, counted as the store's scan counts
+    them in its ``ScanResult`` (``DataSkippingScanner._scan_segment``);
+    the segment memoizes its candidate count, so later passes count no
+    bits."""
+    if mask is None:
+        telemetry.record_rows(tenant=RECIPE_TENANT, rows_skipped=seg.n_rows,
+                              segments_pruned=1)
+        return
+    cand = seg.pushed_count(pushed) if pushed else seg.n_rows
+    telemetry.record_rows(tenant=RECIPE_TENANT, rows_scanned=cand,
+                          rows_skipped=seg.n_rows - cand, segments_scanned=1)
+
+
 class RecipeBatcher:
-    """Turns recipe-matching store rows into fixed-shape token batches."""
+    """Turns recipe-matching store rows into fixed-shape token batches.
+
+    Each pass over the store folds its rows scanned and skipped, segment
+    by segment, into the store's telemetry plane under
+    :data:`RECIPE_TENANT` (``TelemetryPlane.record_rows``), and each batch
+    is made inside a ``data.batch`` span (:mod:`repro_torch.tracing`).
+    """
 
     def __init__(self, store: AnyStore, tokenizer: ByteTokenizer,
                  *, seq_len: int, batch_size: int):
@@ -416,6 +441,7 @@ class RecipeBatcher:
         for seg in store.blocks:
             pushed = pushed_by_epoch[(seg.epoch, seg.n_covered)]
             mask = query_mask(seg, recipe, pushed)
+            _record_segment(store.telemetry, seg, pushed, mask)
             if mask is None:                  # zone-map pruned whole
                 continue
             for i in np.nonzero(mask)[0]:
@@ -423,32 +449,45 @@ class RecipeBatcher:
         store.promote_uncovered_raw(pushed_by_epoch)
         for seg in store.jit_blocks:
             if pushed_by_epoch[(seg.epoch, seg.n_covered)]:
+                store.telemetry.record_rows(tenant=RECIPE_TENANT,
+                                            rows_skipped=seg.n_rows)
                 continue
             mask = query_mask(seg, recipe)
+            _record_segment(store.telemetry, seg, (), mask)
             if mask is None:
                 continue
             for i in np.nonzero(mask)[0]:
                 yield seg.record(i)
 
-    def batches(self, recipe: Query, *, repeat: bool = True
-                ) -> Iterator[tuple[np.ndarray, np.ndarray]]:
-        """Yields (tokens, loss_mask) of shape (batch, seq_len): packed docs."""
-        buf: list[int] = []
+    def _rows(self, recipe: Query, repeat: bool) -> Iterator[bytes]:
+        """The recipe's rows, pass after pass while ``repeat``; ends after
+        a pass that found none."""
         while True:
             made_any = False
             for rec in self.matching_records(recipe):
                 made_any = True
-                buf.extend(self.tok.encode(rec).tolist())
-                while len(buf) >= self.batch_size * self.seq_len:
-                    flat = np.array(
-                        buf[: self.batch_size * self.seq_len], dtype=np.int32
-                    )
-                    del buf[: self.batch_size * self.seq_len]
-                    tokens = flat.reshape(self.batch_size, self.seq_len)
-                    mask = np.ones_like(tokens, dtype=np.float32)
-                    yield tokens, mask
+                yield rec
             if not repeat or not made_any:
                 return
+
+    def batches(self, recipe: Query, *, repeat: bool = True
+                ) -> Iterator[tuple[np.ndarray, np.ndarray]]:
+        """Yields (tokens, loss_mask) of shape (batch, seq_len): packed docs."""
+        n = self.batch_size * self.seq_len
+        rows = self._rows(recipe, repeat)
+        buf: list[int] = []
+        while True:
+            with tracing.span("data.batch"):
+                while len(buf) < n:
+                    rec = next(rows, None)
+                    if rec is None:
+                        return
+                    buf.extend(self.tok.encode(rec).tolist())
+                flat = np.array(buf[:n], dtype=np.int32)
+                del buf[:n]
+                tokens = flat.reshape(self.batch_size, self.seq_len)
+                mask = np.ones_like(tokens, dtype=np.float32)
+            yield tokens, mask
 
 
 class Prefetcher:

@@ -38,6 +38,7 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch import tracing
 from repro_torch.dist import sharding
 from repro_torch.kernels import flash_attention as fa_kernel
 
@@ -349,8 +350,8 @@ class FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, grad_out):
-        q, k, v = (t.detach().requires_grad_() for t in ctx.saved_tensors)
-        with torch.enable_grad():
+        with tracing.span("attention.backward"), torch.enable_grad():
+            q, k, v = (t.detach().requires_grad_() for t in ctx.saved_tensors)
             out = flash_attention_plain(
                 q, k, v,
                 q_positions=torch.arange(q.shape[1], device=q.device),

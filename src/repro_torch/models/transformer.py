@@ -64,6 +64,7 @@ from torch.utils.checkpoint import (
     CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts,
 )
 
+from repro_torch import tracing
 from repro_torch.dist import collectives, sharding
 from repro_torch.dist.sharding import constrain_act, constrain_seq
 
@@ -376,33 +377,37 @@ def _apply_block_seq(p, x, cfg, block_type: str, pos: _Positions, cache,
     """Full-sequence application of one block; ``cache`` is None
     (forward) or the layer's cache views, written in place; ``attention``
     as :func:`forward`'s.  Returns (x, aux)."""
-    if block_type in ("rec", "rwkv"):
-        return _apply_recurrent(p, x, cfg, block_type, cache), _zero_aux(x)
-    h = rmsnorm(x, p["ln1"], cfg.norm_eps)
-    if cfg.attention == "mla":
-        parts = attn._mla_qkv(p["attn"], h, cfg, pos.rope)
-        a = attn._attend_mla_parts(p["attn"], parts, cfg, pos.host,
-                                   attention)
-        if cache is not None:
-            _write_cache_mla(cache, parts.c_kv, parts.k_rope[:, :, 0],
-                             pos.device)
-    else:
-        q, k, v = attn._project_qkv(p["attn"], h, cfg, pos.rope)
-        a = (attention or attn.flash_attention)(
-            q, k, v, q_positions=pos.host, k_positions=pos.host,
-            mask_mode="local" if is_local(cfg, block_type) else "causal",
-            window=cfg.window, q_chunk=cfg.attn_q_chunk,
-            k_chunk=cfg.attn_k_chunk,
-        )
-        a = attn._out_proj(a, p["attn"]["wo"])
-        if cache is not None:
-            _write_cache_kv(cache, k, v, pos.device)
-    a = checkpoint_name(a, "attn_out")
-    x, h = _add_then_norm(x, a, p["ln2"], cfg.norm_eps)
-    x = _constrain_stream(x, cfg)
-    f, aux = _ffn(p, h, cfg, block_type)
-    f = checkpoint_name(f, "ffn_out")
-    return _constrain_stream(x + f, cfg), aux
+    with tracing.span("layer"):
+        if block_type in ("rec", "rwkv"):
+            return _apply_recurrent(p, x, cfg, block_type, cache), _zero_aux(x)
+        h = rmsnorm(x, p["ln1"], cfg.norm_eps)
+        if cfg.attention == "mla":
+            parts = attn._mla_qkv(p["attn"], h, cfg, pos.rope)
+            with tracing.span("layer.attention"):
+                a = attn._attend_mla_parts(p["attn"], parts, cfg, pos.host,
+                                           attention)
+            if cache is not None:
+                _write_cache_mla(cache, parts.c_kv, parts.k_rope[:, :, 0],
+                                 pos.device)
+        else:
+            q, k, v = attn._project_qkv(p["attn"], h, cfg, pos.rope)
+            with tracing.span("layer.attention"):
+                a = (attention or attn.flash_attention)(
+                    q, k, v, q_positions=pos.host, k_positions=pos.host,
+                    mask_mode="local" if is_local(cfg, block_type) else "causal",
+                    window=cfg.window, q_chunk=cfg.attn_q_chunk,
+                    k_chunk=cfg.attn_k_chunk,
+                )
+            a = attn._out_proj(a, p["attn"]["wo"])
+            if cache is not None:
+                _write_cache_kv(cache, k, v, pos.device)
+        a = checkpoint_name(a, "attn_out")
+        x, h = _add_then_norm(x, a, p["ln2"], cfg.norm_eps)
+        x = _constrain_stream(x, cfg)
+        with tracing.span("layer.ffn"):
+            f, aux = _ffn(p, h, cfg, block_type)
+        f = checkpoint_name(f, "ffn_out")
+        return _constrain_stream(x + f, cfg), aux
 
 
 def _write_slot(cur_index: int, alloc: int, local: bool) -> int:
@@ -416,39 +421,44 @@ def _apply_block_decode(p, x, cfg, block_type: str, cache, cur_index: int,
                         rope, axis_name=None):
     """One-token application; x: (B, 1, d); ``cache`` written in place;
     ``axis_name`` as :func:`decode_step`'s."""
-    if block_type in ("rec", "rwkv"):
-        return _apply_recurrent(p, x, cfg, block_type, cache)
-    h = rmsnorm(x, p["ln1"], cfg.norm_eps)
-    local = is_local(cfg, block_type)
-    if cfg.attention == "mla":
-        parts = attn._mla_qkv(p["attn"], h, cfg, rope)
-        wslot = _write_slot(cur_index, cache["ckv"].shape[1], local)
-        cache["ckv"][:, wslot].copy_(parts.c_kv[:, 0])
-        cache["krope"][:, wslot].copy_(parts.k_rope[:, 0, 0])
-        cache["pos"][wslot] = cur_index
-        part = attn.decode_attention_mla(
-            parts.q_nope[:, 0], parts.q_rope[:, 0], cache["ckv"],
-            cache["krope"], cache["pos"], p["attn"]["wkv_b"],
-            nope_dim=cfg.mla.qk_nope_head_dim, scale=attn.mla_scale(cfg))
-    else:
-        q, k, v = attn._project_qkv(p["attn"], h, cfg, rope)
-        wslot = _write_slot(cur_index, cache["k"].shape[1], local)
-        cache["k"][:, wslot].copy_(k[:, 0])
-        cache["v"][:, wslot].copy_(v[:, 0])
-        cache["pos"][wslot] = cur_index
-        if axis_name is None and _use_sharded_decode(cache["k"].shape[1]):
-            # the JAX package's flash-decoding path: its stub, which raises
-            collectives.sharded_decode_attention_gqa(
-                q[:, 0], cache["k"], cache["v"], cache["pos"],
-                window=cfg.window if local else 0, q_position=cur_index)
-        part = attn.decode_attention_gqa(
-            q[:, 0], cache["k"], cache["v"], cache["pos"],
-            window=cfg.window if local else 0, q_position=cur_index)
-    o = attn.combine_partials(part, axis_name)
-    a = attn._out_proj(o.to(x.dtype), p["attn"]["wo"])
-    x, h = _add_then_norm(x, a[:, None], p["ln2"], cfg.norm_eps)
-    f, _ = _ffn(p, h, cfg, block_type)
-    return x + f
+    with tracing.span("layer"):
+        if block_type in ("rec", "rwkv"):
+            return _apply_recurrent(p, x, cfg, block_type, cache)
+        h = rmsnorm(x, p["ln1"], cfg.norm_eps)
+        local = is_local(cfg, block_type)
+        if cfg.attention == "mla":
+            parts = attn._mla_qkv(p["attn"], h, cfg, rope)
+            wslot = _write_slot(cur_index, cache["ckv"].shape[1], local)
+            cache["ckv"][:, wslot].copy_(parts.c_kv[:, 0])
+            cache["krope"][:, wslot].copy_(parts.k_rope[:, 0, 0])
+            cache["pos"][wslot] = cur_index
+            with tracing.span("layer.attention"):
+                part = attn.decode_attention_mla(
+                    parts.q_nope[:, 0], parts.q_rope[:, 0], cache["ckv"],
+                    cache["krope"], cache["pos"], p["attn"]["wkv_b"],
+                    nope_dim=cfg.mla.qk_nope_head_dim, scale=attn.mla_scale(cfg))
+                o = attn.combine_partials(part, axis_name)
+        else:
+            q, k, v = attn._project_qkv(p["attn"], h, cfg, rope)
+            wslot = _write_slot(cur_index, cache["k"].shape[1], local)
+            cache["k"][:, wslot].copy_(k[:, 0])
+            cache["v"][:, wslot].copy_(v[:, 0])
+            cache["pos"][wslot] = cur_index
+            if axis_name is None and _use_sharded_decode(cache["k"].shape[1]):
+                # the JAX package's flash-decoding path: its stub, which raises
+                collectives.sharded_decode_attention_gqa(
+                    q[:, 0], cache["k"], cache["v"], cache["pos"],
+                    window=cfg.window if local else 0, q_position=cur_index)
+            with tracing.span("layer.attention"):
+                part = attn.decode_attention_gqa(
+                    q[:, 0], cache["k"], cache["v"], cache["pos"],
+                    window=cfg.window if local else 0, q_position=cur_index)
+                o = attn.combine_partials(part, axis_name)
+        a = attn._out_proj(o.to(x.dtype), p["attn"]["wo"])
+        x, h = _add_then_norm(x, a[:, None], p["ln2"], cfg.norm_eps)
+        with tracing.span("layer.ffn"):
+            f, _ = _ffn(p, h, cfg, block_type)
+        return x + f
 
 
 def _layers(params, cfg, caches=None):

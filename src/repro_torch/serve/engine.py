@@ -32,6 +32,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch import tracing
 from repro_torch.configs import cache_alloc_len
 from repro_torch.dist import sharding as shd
 from repro_torch.models.layers import tree_map
@@ -72,15 +73,17 @@ def make_serve_fns(model, mesh=None, *, batch: int, seq_len: int,
         if inputs["tokens"].shape[0] != batch:
             raise ValueError(f"prefill built for batch {batch}, got "
                              f"{inputs['tokens'].shape[0]}")
-        inputs = {k: _laid_out(v, mesh, batch) for k, v in inputs.items()}
-        with shd.use_mesh(mesh):
-            return model.prefill(placed(params), inputs, s_alloc=s_alloc,
-                                 cache_dtype=cache_dtype)
+        with tracing.span("serve.prefill"):
+            inputs = {k: _laid_out(v, mesh, batch) for k, v in inputs.items()}
+            with shd.use_mesh(mesh):
+                return model.prefill(placed(params), inputs, s_alloc=s_alloc,
+                                     cache_dtype=cache_dtype)
 
     def decode(params, cache, tokens, cur_index):
-        tokens = _laid_out(tokens, mesh, batch)
-        with shd.use_mesh(mesh):
-            return model.decode(placed(params), cache, tokens, cur_index)
+        with tracing.span("serve.decode"):
+            tokens = _laid_out(tokens, mesh, batch)
+            with shd.use_mesh(mesh):
+                return model.decode(placed(params), cache, tokens, cur_index)
 
     return {"prefill": prefill, "decode": decode, "s_alloc": s_alloc,
             "s_cross": s_cross}

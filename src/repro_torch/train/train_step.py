@@ -31,6 +31,7 @@ from typing import Callable
 
 import torch
 
+from repro_torch import tracing
 from repro_torch.dist import sharding
 from repro_torch.models.layers import tree_leaves, tree_map, tree_unflatten
 
@@ -76,8 +77,10 @@ def value_and_grad(model, params, batch, *, attention=None):
     flat = [p.detach().requires_grad_() for p in tree_leaves(params)]
     live = tree_unflatten(params, flat)
     with torch.enable_grad(), sharding.mesh_ops(flat[0]):
-        loss = model.loss(live, batch, attention=attention)
-        grads = torch.autograd.grad(loss, flat)
+        with tracing.span("train.forward"):
+            loss = model.loss(live, batch, attention=attention)
+        with tracing.span("train.backward"):
+            grads = torch.autograd.grad(loss, flat)
     return loss.detach(), tree_unflatten(params, list(grads))
 
 
@@ -136,9 +139,10 @@ def make_train_step(model, opt_cfg: OptConfig, *, n_micro: int = 1,
             grads = deq
             opt_state = {**opt_state, "ef": new_ef}
 
-        grads, gnorm = opt_mod.clip_by_global_norm(grads, opt_cfg.grad_clip)
-        inner = {k: v for k, v in opt_state.items() if k != "ef"}
-        params, inner, lr = opt_mod.update(params, grads, inner, opt_cfg)
+        with tracing.span("train.optimizer"):
+            grads, gnorm = opt_mod.clip_by_global_norm(grads, opt_cfg.grad_clip)
+            inner = {k: v for k, v in opt_state.items() if k != "ef"}
+            params, inner, lr = opt_mod.update(params, grads, inner, opt_cfg)
         if "ef" in opt_state:
             inner["ef"] = opt_state["ef"]
         metrics = {
