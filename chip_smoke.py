@@ -266,6 +266,27 @@ FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 # order of f32 sums, so where that flips a rounding they are one bf16
 # step apart: 2^-7 at unit size, scaled with |o| above it
 FLASH_BF16P_TOL = 2.0 ** -7
+# kernel F's backward (bf16, (128, 128)) against its own numerics
+# (ref.flash_attention_bwd_ref_bf16p): max |got - want| / max |want| of
+# each of dq, dk and dv.  Both round P and dS to bf16 as the operands of
+# their products; they differ in the order of f32 sums (which can flip a
+# rounding of P or dS), the kernel's ex2.approx and the gradient's one
+# rounding to bf16 (2^-9 of an element); 0.0016-0.0036 on the first card
+# runs.  The forward's row log-sum-exp against its oracle: f32 in another
+# order, |lse| under 20 at these shapes
+FLASH_BWD_TOL = 1e-2
+FLASH_LSE_TOL = 1e-4
+# (B, H, Hkv, Sq, Sk, causal, window[, "slice"]) of the backward check at
+# d 128: qwen3's train shape first; G 1, 2 and 8, ragged, unmasked with
+# Sq != Sk, causal with Sq < Sk (keys past Sq get no gradient), the band
+# (window 2: each row sees two keys), q, k and v as column slices of one
+# projection
+FLASH_BWD_CASES = (
+    (8, 16, 8, 2048, 2048, True, 0), (1, 2, 2, 64, 64, True, 0),
+    (2, 4, 2, 300, 300, True, 0), (2, 4, 2, 200, 333, False, 0),
+    (2, 4, 2, 333, 200, False, 0), (1, 8, 1, 257, 257, True, 0),
+    (1, 4, 2, 100, 300, True, 0), (1, 4, 1, 1000, 1000, True, 300),
+    (1, 4, 2, 700, 700, True, 2), (2, 16, 8, 300, 300, True, 0, "slice"))
 # (ii): f32 logits of about unit size after 28 layers, forward (kernel F)
 # against prefill + decode (plain decode attention), TF32 off
 EXACT_TOL = 1e-3
@@ -1135,10 +1156,39 @@ def _zero_counters() -> None:
 
 
 def _zero_flash_routes() -> None:
-    """Kernel F's launches by the source's kernel to 0."""
+    """Kernel F's launches by the source's kernel, and its backwards on
+    the plain recompute, to 0."""
     from repro_torch.kernels import flash_attention as fa
     for name in fa.route_launches:
         fa.route_launches[name] = 0
+    fa.plain_backwards = 0
+
+
+def _backward_check(what: str, cfg, n: int) -> str:
+    """F's backwards since the last :func:`_zero_flash_routes`: raises
+    unless all ``n`` ran the backward kernel where the wrapper sends the
+    config's (qk, v) head dims in its compute dtype there (bf16 at (128,
+    128): qwen3, llama4, internvl2), and all ``n`` took the plain
+    recompute elsewhere (f32, MLA's (192, 128), d 256, d 64)."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    if cfg.attention == "mla":
+        pair = (cfg.mla.qk_nope_head_dim + cfg.mla.qk_rope_head_dim,
+                cfg.mla.v_head_dim)
+    else:
+        pair = (cfg.hd(), cfg.hd())
+    kernel = fa.backward_on_kernel(torch.device("cuda"),
+                                   getattr(torch, cfg.compute_dtype), *pair)
+    got = {name: fa.route_launches[name] for name in (
+        "flash_bwd_delta", "flash_bwd_dq_wgmma", "flash_bwd_dkdv_wgmma")}
+    want_k, want_p = (n, 0) if kernel else (0, n)
+    if set(got.values()) != {want_k} or fa.plain_backwards != want_p:
+        raise AssertionError(
+            f"{what}: F's backwards {got} on the kernel, "
+            f"{fa.plain_backwards} plain; want {want_k} and {want_p} "
+            f"({cfg.compute_dtype} at {pair})")
+    route = "the backward kernel" if kernel else "the plain recompute"
+    return f"F's {n} backwards on {route} ({cfg.compute_dtype} at {pair})"
 
 
 def _wgmma_check(arch: str, cfg, launches: int) -> int:
@@ -1513,6 +1563,125 @@ def check_flash(dev) -> int:
     else:
         raise AssertionError("flash kernel took misaligned bf16 rows")
     return 2 * len(cases)
+
+
+def check_flash_backward(dev) -> dict:
+    """Kernel F's backward (``flash_attention_backward``: delta, dq,
+    dk/dv) against its plain numerics,
+    ``ref.flash_attention_bwd_ref_bf16p``, from the forward's own output
+    and row log-sum-exp, which the training instance stores and which is
+    held against ``ref.flash_attention_lse_ref``; at FLASH_BWD_CASES (qwen3's
+    train shape first), every gradient finite, in bf16 and in its input's
+    shape; the same bits twice at qwen3's shape (no atomics)."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+
+    worst = {"dq": 0.0, "dk": 0.0, "dv": 0.0, "lse": 0.0}
+    d = 128
+    for i, (B, H, Hkv, Sq, Sk, causal, window, *rest) in enumerate(
+            FLASH_BWD_CASES):
+        rng = np.random.default_rng(500 + i)
+
+        def draw(*shape):
+            return torch.from_numpy(rng.normal(size=shape).astype(
+                np.float32)).to(dev).to(torch.bfloat16)
+
+        if rest == ["slice"]:
+            qkv = draw(B, Sq, H + 2 * Hkv, d)
+            q, k, v = (qkv[:, :, c].transpose(1, 2) for c in (
+                slice(0, H), slice(H, H + Hkv), slice(H + Hkv, None)))
+        else:
+            q, k, v = (draw(B, S, h, d).transpose(1, 2)
+                       for S, h in ((Sq, H), (Sk, Hkv), (Sk, Hkv)))
+        dout = draw(B, Sq, H, d).transpose(1, 2)
+        shape = (f"B={B} H={H} Hkv={Hkv} Sq={Sq} Sk={Sk} causal={causal} "
+                 f"window={window}" + (" (column slices)" if rest else ""))
+        out, lse = fa.flash_attention(q, k, v, causal=causal, window=window,
+                                      with_lse=True)
+        grads = fa.flash_attention_backward(q, k, v, out, lse, dout,
+                                            causal=causal, window=window)
+        torch.cuda.synchronize()
+        lse_err = float((lse - ref.flash_attention_lse_ref(
+            q, k, causal=causal, window=window)).abs().max())
+        worst["lse"] = max(worst["lse"], lse_err)
+        if not lse_err <= FLASH_LSE_TOL:
+            raise AssertionError(f"F's lse != its oracle: {shape}: "
+                                 f"{lse_err} > {FLASH_LSE_TOL}")
+        want = ref.flash_attention_bwd_ref_bf16p(q, k, v, out, dout, lse,
+                                                 causal=causal, window=window)
+        for name, got, w, x in zip(("dq", "dk", "dv"), grads, want,
+                                   (q, k, v)):
+            if (got.dtype != torch.bfloat16 or got.shape != x.shape
+                    or not bool(torch.isfinite(got).all())):
+                raise AssertionError(f"F's backward {name}: {shape}: "
+                                     f"{got.dtype} {tuple(got.shape)}")
+            rel = float((got.float() - w).abs().max() / w.abs().max())
+            worst[name] = max(worst[name], rel)
+            if not rel <= FLASH_BWD_TOL:
+                raise AssertionError(
+                    f"F's backward != its bf16 numerics: {name} {shape}: "
+                    f"{rel} > {FLASH_BWD_TOL} of max |{name}|")
+        if i == 0:
+            again = fa.flash_attention_backward(q, k, v, out, lse, dout)
+            if not all(torch.equal(a, b) for a, b in zip(grads, again)):
+                raise AssertionError("F's backward: two runs differ")
+            del again
+            timing = _flash_backward_kernels(q, k, v, out, lse, dout)
+        del want, grads
+    print(f"  F's backward at {len(FLASH_BWD_CASES)} shapes (qwen3's train "
+          f"shape, ragged, Sq != Sk unmasked, causal Sq < Sk, band, G 1/2/8,"
+          f" column slices) vs ref.flash_attention_bwd_ref_bf16p: max "
+          f"{worst['dq']:.3g} / {worst['dk']:.3g} / {worst['dv']:.3g} of "
+          f"max |g| (dq / dk / dv; tol {FLASH_BWD_TOL}); lse vs its oracle "
+          f"{worst['lse']:.3g} (tol {FLASH_LSE_TOL}); the same bits twice")
+    return {"max_rel_err": worst, **timing}
+
+
+def _flash_backward_kernels(q, k, v, out, lse, dout) -> dict:
+    """At qwen3's train shape (q, k, v, dout in F's layout, transposed
+    from the model's): the backward's three kernels apart (profiler),
+    their registers, spills and shared memory, and the device kernels of
+    one ``FlashAttention`` backward, none of them a GEMM (the f32
+    recompute's SIMT and xmma products are gone)."""
+    import torch
+    from torch.autograd import DeviceType
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import attention as attn
+
+    names = ("flash_bwd_delta", "flash_bwd_dq_wgmma", "flash_bwd_dkdv_wgmma")
+    row = {}
+    for name in names:
+        row[name + "_ms"] = kernel_ms(
+            lambda: fa.flash_attention_backward(q, k, v, out, lse, dout), 5,
+            name)
+        row[name + "_ms_from"] = ms_from(name)
+    row["backward_build"] = {n: ptxas_report("flash_attention", n)
+                             for n in names[1:]}
+    row["backward_smem_bytes"] = fa.backward_smem_bytes(q.shape[3])
+    print("  the backward's kernels at qwen3's train shape: " + ", ".join(
+        f"{n} {row[n + '_ms']:.4f} ms ({row[n + '_ms_from']})"
+        for n in names) + f"; ptxas {row['backward_build']}; dynamic shared "
+        f"memory {row['backward_smem_bytes']}")
+    leaves = [t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v)]
+    y = attn.FlashAttention.apply(*leaves, True, 1024, 1024, 0)
+    prof = profiled(lambda: torch.autograd.grad(
+        y, leaves, dout.transpose(1, 2), retain_graph=True), "flash_bwd")
+    if prof is None:
+        row["backward_device_kernels"] = NOT_TRACED
+        print(f"  one FlashAttention backward's device kernels: "
+              f"{NOT_TRACED}")
+        return row
+    kernels = sorted({e.key for e in prof.key_averages()
+                      if e.device_type == DeviceType.CUDA
+                      and e.self_device_time_total > 0})
+    row["backward_device_kernels"] = kernels
+    print(f"  one FlashAttention backward's device kernels: {kernels}")
+    if any("gemm" in n.lower() for n in kernels) or not all(
+            any(n in key for key in kernels) for n in names):
+        raise AssertionError(f"F's backward ran {kernels}")
+    return row
 
 
 def ptxas_report(lib: str, mark: str) -> dict:
@@ -2661,11 +2830,14 @@ def gradient_routes(dev) -> dict:
             cfg, ShapeConfig("grad", "train", 256, 8), seed=SEED).items()}
         torch.cuda.synchronize()
         fa.launches = 0
+        _zero_flash_routes()
         t0 = time.perf_counter()
         loss_f, g_f = value_and_grad(model, params, batch)
         torch.cuda.synchronize()
         t_f = time.perf_counter() - t0
         launches = fa.launches
+        backwards = _backward_check(f"gradient routes, {dt}", cfg,
+                                    GRAD_LAYERS)
         t0 = time.perf_counter()
         loss_p, g_p = value_and_grad(model, params, batch,
                                      attention=flash_attention_plain)
@@ -2690,8 +2862,8 @@ def gradient_routes(dev) -> dict:
               f" {len(g_f)} gradients, all finite and non-zero, F route vs "
               f"plain max {worst:.3g} of the leaf's max |g| (tol {tol}); F "
               f"launches {launches} ({GRAD_LAYERS} forward + {GRAD_LAYERS} "
-              f"in the checkpoint's recompute); {t_f * 1e3:.1f} ms vs "
-              f"{t_p * 1e3:.1f} ms (host clock)")
+              f"in the checkpoint's recompute), {backwards}; "
+              f"{t_f * 1e3:.1f} ms vs {t_p * 1e3:.1f} ms (host clock)")
         if bad or launches != 2 * GRAD_LAYERS:
             raise AssertionError(f"gradient routes, {dt}: {bad}, F "
                                  f"launches {launches}")
@@ -2775,7 +2947,9 @@ def train_full_width(dev, card: str) -> dict:
         raise AssertionError(f"training: F launches {launches} != "
                              f"{per_step} x {steps} steps")
     wgmma = _wgmma_check(SERVE_ARCH, cfg, launches)
-    print(f"  all {wgmma} of F's launches on flash_kernel_wgmma")
+    backwards = _backward_check("training", cfg, cfg.n_layers * steps)
+    print(f"  all {wgmma} of F's launches on flash_kernel_wgmma; "
+          f"{backwards}: {cfg.n_layers} a step, none plain")
     return {"step_ms": step_ms, "median_ms": med, "tokens_per_s":
             tokens / (med * 1e-3), "mfu": mfu, "peak_bytes": peak,
             "launches": launches, "launches_per_step": launches // steps,
@@ -2823,36 +2997,56 @@ def crash_and_resume(n_params: int) -> dict:
 
 
 def flash_training_timing(dev) -> dict:
-    """Kernel F at the training shape (B 8, H 16/8, S 256, d 128, bf16),
-    CUDA events: its forward launch and its backward, the plain
-    version's recompute under autograd (FlashAttention.backward's
-    work)."""
+    """Kernel F at the training shapes (B 8, H 16/8, d 128, bf16, causal;
+    S 256, and S 2,048, the benchmark's train cell), CUDA events: its
+    forward launch (the training instance, which stores lse, beside the
+    serving one), its backward kernel (delta, dq, dk/dv) and the plain
+    version's recompute under autograd (the backward before the kernel,
+    still every other pair's)."""
     import numpy as np
     import torch
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.models import attention as attn
 
-    B, S = 8, 256
     _, H, Hkv, _, d = FLASH_SHAPE
-    rng = np.random.default_rng(SEED)
-    q, k, v, g = (torch.from_numpy(rng.normal(size=(B, S, h, d)).astype(
-        np.float32)).to(dev).to(torch.bfloat16) for h in (H, Hkv, Hkv, H))
-    pos = torch.arange(S, device=dev)
+    B = 8
+    out = {}
+    for S in (256, 2048):
+        rng = np.random.default_rng(SEED + S)
+        q, k, v, g = (torch.from_numpy(rng.normal(size=(B, S, h, d)).astype(
+            np.float32)).to(dev).to(torch.bfloat16) for h in (H, Hkv, Hkv, H))
+        pos = torch.arange(S, device=dev)
+        qt, kt, vt, gt = (t.transpose(1, 2) for t in (q, k, v, g))
+        o, lse = fa.flash_attention(qt, kt, vt, with_lse=True)
 
-    def backward():
-        qd, kd, vd = (t.detach().requires_grad_() for t in (q, k, v))
-        out = attn.flash_attention_plain(qd, kd, vd, q_positions=pos,
-                                         k_positions=pos)
-        torch.autograd.grad(out, (qd, kd, vd), g)
+        def plain():
+            qd, kd, vd = (t.detach().requires_grad_() for t in (q, k, v))
+            y = attn.flash_attention_plain(qd, kd, vd, q_positions=pos,
+                                           k_positions=pos)
+            torch.autograd.grad(y, (qd, kd, vd), g)
 
-    fwd = cuda_ms(lambda: fa.flash_attention(
-        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)), 20)
-    bwd = cuda_ms(backward, 5)
-    print(f"  F at the training shape B={B} H={H}/{Hkv} S={S} d={d} bf16: "
-          f"forward {fwd:.4f} ms, backward (plain recompute + autograd) "
-          f"{bwd:.3f} ms (CUDA events)")
-    return {"shape": f"B={B} H={H} Hkv={Hkv} S={S} d={d} bfloat16 causal",
-            "forward_ms": fwd, "backward_recompute_ms": bwd}
+        fwd = cuda_ms(lambda: fa.flash_attention(qt, kt, vt), 20)
+        fwd_lse = cuda_ms(lambda: fa.flash_attention(qt, kt, vt,
+                                                     with_lse=True), 20)
+        bwd = cuda_ms(lambda: fa.flash_attention_backward(
+            qt, kt, vt, o, lse, gt), 20)
+        rec = cuda_ms(plain, 3, warmup=1)
+        flop = 5 * 2 * B * H * S * S * d / 2     # five products, causal
+        row = {"shape": f"B={B} H={H} Hkv={Hkv} S={S} d={d} bfloat16 "
+                        f"causal", "forward_ms": fwd,
+               "forward_lse_ms": fwd_lse, "backward_ms": bwd,
+               "backward_tflop_per_s": flop / bwd / 1e9,
+               "backward_bound_ms": flop / BF16_FLOP_PER_S * 1e3,
+               "backward_recompute_ms": rec}
+        print(f"  F at the training shape B={B} H={H}/{Hkv} S={S} d={d} "
+              f"bf16: forward {fwd:.4f} ms (training instance {fwd_lse:.4f}"
+              f"), backward kernel {bwd:.4f} ms ({flop / bwd / 1e9:.1f} "
+              f"TFLOP/s of the five causal products, "
+              f"{flop / BF16_FLOP_PER_S * 1e3 / bwd:.1%} of the bf16 "
+              f"bound {flop / BF16_FLOP_PER_S * 1e3:.4f} ms), plain "
+              f"recompute + autograd {rec:.3f} ms (CUDA events)")
+        out[f"seq_{S}"] = row
+    return out
 
 
 def training(dev, card: str) -> dict:
@@ -2990,6 +3184,7 @@ def family_route(arch: str, cfg, model, params, batch, dev) -> dict:
     t_f = time.perf_counter() - t0
     launches = fa.launches
     wgmma = _wgmma_check(arch, cfg, launches)
+    backwards = _backward_check(arch, cfg, _f_per_prefill(cfg))
     g_host = [g.to("cpu") for g in tree_leaves(g_f)]
     del g_f
     t0 = time.perf_counter()
@@ -3016,7 +3211,7 @@ def family_route(arch: str, cfg, model, params, batch, dev) -> dict:
           f"gradients, all finite and non-zero, F route vs plain max "
           f"{worst:.3g} of the leaf's max |g| (tol {tol}); F launches "
           f"{launches} (want {want}: forward + the checkpoint's recompute;"
-          f" {wgmma} on flash_kernel_wgmma)"
+          f" {wgmma} on flash_kernel_wgmma), {backwards}"
           + (f"; routing replayed: the plain route's own top-k differs in "
              f"{moved[0]} of {n_assign} sorted expert ids (forward and "
              f"recompute)" if record else "")
@@ -4732,6 +4927,7 @@ def main(argv=None) -> int:
         oracle[0].shutdown(cancel_futures=True)
     phase("kernel F: flash attention vs plain version")
     check_flash(dev)
+    f_backward = check_flash_backward(dev)
     phase(f"serve path: {' '.join(SERVE_ARGS)}")
     serve = serve_path(dev)
     phase("serve path breakdown: one prefill, one decode step (profiler)")
@@ -4774,7 +4970,7 @@ def main(argv=None) -> int:
     rows[-1]["training"] = {
         "launches": trained["train"]["launches"],
         "launches_per_step": trained["train"]["launches_per_step"],
-        **trained["flash"],
+        **trained["flash"], "backward": f_backward,
         "gradient_route_max_rel_err": {
             dt: r["max_rel_err"] for dt, r in trained["routes"].items()}}
     rows[-1]["launches_moe_mla_vision"] = {

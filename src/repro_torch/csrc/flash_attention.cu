@@ -132,6 +132,11 @@
 //  * Scores, stats, p and the accumulator are f32, as the reference
 //    computes them.
 //
+// The backward (bf16 at (128, 128)) is its own section below, before the
+// C interface: flash_bwd_delta, flash_bwd_dq_wgmma, flash_bwd_dkdv_wgmma,
+// from the row log-sum-exp that flash_kernel_wgmma's training instance
+// (LSE) stores.
+//
 // Every route:
 //  * m, l, alpha and p follow _kernel: the NEG_INF / 2 guards, p = 0 where
 //    masked, alpha = 0 while a row has seen no key, and the final divide
@@ -341,7 +346,7 @@ template <int D, int DV>
 cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o,
                        void*, int B, int H, int G, int Sq, int Sk,
                        Strides qs, Strides ks, Strides vs, Strides os,
-                       float scale, bool causal, int window,
+                       float scale, bool causal, int window, float*, int,
                        cudaStream_t stream) {
   const int smem = smem_floats<D, DV>() * (int)sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
@@ -653,7 +658,7 @@ template <int D>
 cudaError_t launch_mma(const void* q, const void* k, const void* v, void* o,
                        void*, int B, int H, int G, int Sq, int Sk,
                        Strides qs, Strides ks, Strides vs, Strides os,
-                       float scale, bool causal, int window,
+                       float scale, bool causal, int window, float*, int,
                        cudaStream_t stream) {
   constexpr int smem = smem_bytes_mma<D>();
   cudaError_t err = cudaFuncSetAttribute(
@@ -997,7 +1002,12 @@ __device__ __forceinline__ WgItem wg_item(int item, int nq, int BM, int H,
   return {qt * BM, hb % H, hb / H};
 }
 
-template <int D, int DV, int BN, class W>
+// LSE (the training instance): also store each row's log-sum-exp of the
+// scaled scores, ln sum_k exp(s scale), to lse[(b H + h) lse_ld + row] in
+// f32 (0 for rows Sq..lse_ld - 1 of a consumer's range, +1e30 for a row
+// that sees no key), for the backward (flash_bwd_*).  The serving instance
+// (LSE false) compiles without it.
+template <int D, int DV, int BN, class W, bool LSE = false>
 __global__ void __launch_bounds__(W::kThreads, 1)
 flash_kernel_wgmma(const __grid_constant__ CUtensorMap tq,
                    const __grid_constant__ CUtensorMap tk,
@@ -1006,7 +1016,7 @@ flash_kernel_wgmma(const __grid_constant__ CUtensorMap tq,
                    __nv_bfloat16* __restrict__ o, Strides os,
                    int* __restrict__ next, int H, int B, int G, int Sq,
                    int Sk, float scale_log2, bool causal, int window,
-                   bool head_major) {
+                   bool head_major, float* __restrict__ lse, int lse_ld) {
   using L = WgLayout<D, DV, BN, W>;
   constexpr int NC = W::NC, ST = W::ST, QB = W::QB, BM = W::BM;
   constexpr bool STAGE_O = W::STAGE_O, QR = W::QR;
@@ -1320,6 +1330,16 @@ flash_kernel_wgmma(const __grid_constant__ CUtensorMap tq,
       for (int t = z; t < n_tiles; ++t) skip(t);
       if (n_tiles > t0) ring += n_tiles - t0;
 
+      // row row0 + 8 r's log-sum-exp (l the whole row's sum), by the
+      // quad's first thread
+      auto store_lse = [&](int r) {
+        const int row = row0 + r * 8;
+        if (tig == 0 && row < lse_ld)
+          lse[((long long)w.b * H + w.h) * lse_ld + row] =
+              row >= Sq ? 0.f
+              : l[r] > 0.f ? (m[r] + log2f(l[r])) * 0.6931471805599453f
+                           : 1e30f;
+      };
       // ---- out = acc / max(l, 1e-30), rounded once to bf16 ----
       if (!STAGE_O) {
         // stored from the fragments; Q was freed with the last S
@@ -1328,6 +1348,7 @@ flash_kernel_wgmma(const __grid_constant__ CUtensorMap tq,
         for (int r = 0; r < 2; ++r) {
           l[r] += __shfl_xor_sync(kFull, l[r], 1);
           l[r] += __shfl_xor_sync(kFull, l[r], 2);
+          if constexpr (LSE) store_lse(r);
           const int row = row0 + r * 8;
           if (row >= Sq) continue;
           const float inv = 1.f / fmaxf(l[r], 1e-30f);
@@ -1348,6 +1369,7 @@ flash_kernel_wgmma(const __grid_constant__ CUtensorMap tq,
         for (int r = 0; r < 2; ++r) {
           l[r] += __shfl_xor_sync(kFull, l[r], 1);
           l[r] += __shfl_xor_sync(kFull, l[r], 2);
+          if constexpr (LSE) store_lse(r);
           l[r] = 1.f / fmaxf(l[r], 1e-30f);
         }
 #pragma unroll
@@ -1448,13 +1470,14 @@ bool head_major_order(int B, int H, int Sq, int Sk, bool causal, int window,
   return heaviest * n_blocks * 10 <= total * H * B;
 }
 
-// `work` is a zeroed int the blocks take their items from.
-template <int D, int DV, int BN, class W>
+// `work` is a zeroed int the blocks take their items from; `lse` (LSE
+// alone) the (B, H, lse_ld) log-sum-exp rows.
+template <int D, int DV, int BN, class W, bool LSE = false>
 cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
                          void* o, void* work, int B, int H, int G, int Sq,
                          int Sk, Strides qs, Strides ks, Strides vs,
                          Strides os, float scale, bool causal, int window,
-                         cudaStream_t stream) {
+                         float* lse, int lse_ld, cudaStream_t stream) {
   if (work == nullptr) return cudaErrorInvalidValue;
   CUtensorMap tq, tk, tv, to;
   cudaError_t err = tensor_map(&tq, q, B, H, Sq, D, qs, W::BM);
@@ -1469,24 +1492,26 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
                                  device);
   if (err != cudaSuccess) return err;
   constexpr int smem = WgLayout<D, DV, BN, W>::kSmem;
-  err = cudaFuncSetAttribute(flash_kernel_wgmma<D, DV, BN, W>,
+  err = cudaFuncSetAttribute(flash_kernel_wgmma<D, DV, BN, W, LSE>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              smem);
   if (err != cudaSuccess) return err;
   const long long items = (long long)((Sq + W::BM - 1) / W::BM) * H * B;
   const int blocks = items < sms ? (int)items : sms;   // one an SM
-  flash_kernel_wgmma<D, DV, BN, W><<<blocks, W::kThreads, smem, stream>>>(
-      tq, tk, tv, to, static_cast<__nv_bfloat16*>(o), os,
-      static_cast<int*>(work), H, B, G, Sq, Sk,
-      scale * kLog2e, causal, window,
-      head_major_order<BN, W::BM>(B, H, Sq, Sk, causal, window, blocks));
+  flash_kernel_wgmma<D, DV, BN, W, LSE>
+      <<<blocks, W::kThreads, smem, stream>>>(
+          tq, tk, tv, to, static_cast<__nv_bfloat16*>(o), os,
+          static_cast<int*>(work), H, B, G, Sq, Sk, scale * kLog2e, causal,
+          window,
+          head_major_order<BN, W::BM>(B, H, Sq, Sk, causal, window, blocks),
+          lse, lse_ld);
   return cudaGetLastError();
 }
 
 using Launch = cudaError_t (*)(const void*, const void*, const void*, void*,
                                void*, int, int, int, int, int, Strides,
                                Strides, Strides, Strides, float, bool, int,
-                               cudaStream_t);
+                               float*, int, cudaStream_t);
 
 // an instance: its launch and its dynamic shared memory in bytes
 struct Instance {
@@ -1494,14 +1519,22 @@ struct Instance {
   int smem;
 };
 
-template <int D, int DV, int BN, class W>
+template <int D, int DV, int BN, class W, bool LSE = false>
 Instance wg_instance() {
-  return {launch_wgmma<D, DV, BN, W>, WgLayout<D, DV, BN, W>::kSmem};
+  return {launch_wgmma<D, DV, BN, W, LSE>, WgLayout<D, DV, BN, W>::kSmem};
 }
 
 // the instance for (dtype, d, dv): dtype 0 = f32 on the CUDA cores, 1 = bf16
-// on the tensor cores; {nullptr, 0} where there is none
-Instance pick(int dtype, int d, int dv) {
+// on the tensor cores; with `lse` the training instance that also stores
+// the rows' log-sum-exp, for each pair the backward takes (bf16 (128,
+// 128)); {nullptr, 0} where there is none
+Instance pick(int dtype, int d, int dv, bool lse = false) {
+  if (lse) {
+    if (dtype == 1 && d == 128 && dv == 128)
+      return wg_instance<128, 128, 64, WgDesign<3, 4, 2, true, false>,
+                         true>();
+    return {nullptr, 0};
+  }
   if (dtype == 0) {
     switch (d * 1000 + dv) {
       case 16016: return {launch_f32<16, 16>, smem_floats<16, 16>() * 4};
@@ -1531,6 +1564,782 @@ Instance pick(int dtype, int d, int dv) {
   return {nullptr, 0};
 }
 
+
+// ---------------------------------------------------------------------------
+// The backward, bf16 at (d, dv) = (128, 128): flash_bwd_delta,
+// flash_bwd_dq_wgmma and flash_bwd_dkdv_wgmma
+// ---------------------------------------------------------------------------
+//
+// Replaces no TPU kernel: the JAX package's training differentiates its
+// chunked jnp attention by autodiff, and flash_attention_tpu has no
+// custom_vjp.  Until this backward the port did the same on the card (an
+// f32 recompute under autograd, f32 products on the CUDA cores and a dozen
+// elementwise passes over every score).  The design follows the public
+// FlashAttention-2 and -3 backward (Dao; Shah et al.): from the forward's
+// row log-sum-exp (lse, stored by its training instance) and delta =
+// rowsum(dO o), in f32,
+//   P = exp(S scale - lse), dP = dO V^T, dS = P (dP - delta),
+//   dV = P^T dO, dK = scale dS^T Q, dQ = scale dS K,
+// with S, dP and the three gradients accumulated in f32 and P and dS
+// rounded to bf16 only as the operands of their products (the rounding
+// the bf16 forward makes for P.V).  Its plain version is
+// repro_torch.kernels.ref.flash_attention_bwd_ref_bf16p.
+//  * Bound: the five products (S, dP, dV, dK, dQ), 2 d operations each a
+//    valid (query, key) pair, over the bf16 tensor-core rate; at qwen3's
+//    train shape (B 8, H 16/8, S 2,048, causal) 343.6 GFLOP a layer,
+//    0.347 ms.  The bytes (q, k, v, o, dO and the three gradients once)
+//    are 0.40 GB, 0.120 ms.
+//  * Split, deterministic: flash_bwd_dkdv_wgmma owns keys and walks the
+//    queries (dK, dV in registers, no atomics), flash_bwd_dq_wgmma owns
+//    queries and walks the keys (dQ in registers), recomputing S and dP:
+//    seven products for five, and no f32 dQ workspace, no atomics, the
+//    same bits on every run.
+//  * Both kernels have F's forward shape: persistent blocks, one an SM, a
+//    producer warpgroup whose one thread takes the items from a zeroed
+//    counter and issues every TMA load into mbarrier rings, and two
+//    consumer warpgroups (240 registers a thread) that run wgmma.
+//  * flash_bwd_dkdv_wgmma: an item is 128 keys of one (b, kv head), 64 a
+//    consumer; its K and V stay in shared memory while the block walks the
+//    64-row q tiles of all G query heads of the kv head (a ring of four
+//    stages of Q, dO, lse and delta), so dK and dV sum the group in
+//    registers.  S^T = K Q^T and dP^T = V dO^T with keys as the wgmma
+//    rows (both operands from shared memory), so P^T and dS^T come out as
+//    accumulator fragments that serve as the register A operand of dV +=
+//    P^T dO and dK += dS^T Q (Q and dO read MN-major, as the forward reads
+//    V).  Items go key tile by key tile, the heaviest (the first, when
+//    causal) first.
+//  * flash_bwd_dq_wgmma: an item is 128 q rows of one (b, h), 64 a
+//    consumer, Q and dO in one of two buffers; K/V tiles of 64 keys in a
+//    ring of two.  S = Q K^T and dP = dO V^T from shared memory, dS packed
+//    to bf16 in registers as the A operand of dQ += dS K (K MN-major).
+//    Tile t's S and dP are issued with tile t - 1's dS K, which runs on
+//    while tile t's dS is computed.
+//  * Masks as the forward: tiles no valid pair reaches are skipped (each
+//    consumer keeps its place in the ring), and only tiles that cross the
+//    diagonal, the band's edge, Sq or Sk are masked, for a warp's 16 rows.
+//  * flash_bwd_delta: delta = rowsum(dO o) in f32, d / 8 threads a row,
+//    16 bytes each; rows Sq..ld - 1 of the padded (B, H, ld) rows get 0.
+//  * Measured at qwen3's train shape (H100 SXM, 700 W): 1.244 ms, 276
+//    TFLOP/s of the five products, 28% of the bound (delta 0.052, dq
+//    0.572, dk/dv 0.593 ms); 240 registers a consumer, 197,744 and 199,768
+//    B of shared memory, dk/dv spilling 24 bytes.
+
+constexpr int kBwdRows = 64;              // rows of a consumer, keys or q
+constexpr int kBwdNC = 2;                 // consumer warpgroups a block
+constexpr int kBwdThreads = (kBwdNC + 1) * 128;
+constexpr int kBwdRegs = 240;             // a consumer thread's registers
+constexpr int kBwdDqQB = 2;               // dq: Q/dO buffers
+constexpr int kBwdDqST = 2;               // dq: K/V stages
+constexpr int kBwdKvST = 4;               // dkdv: Q/dO/lse/delta stages
+
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+__device__ __forceinline__ float2 ld_shared_f2(uint32_t addr) {
+  float2 v;
+  asm volatile("ld.shared.v2.f32 {%0, %1}, [%2];\n"
+               : "=f"(v.x), "=f"(v.y)
+               : "r"(addr)
+               : "memory");
+  return v;
+}
+
+// delta[r] = sum_c dO[r, c] o[r, c] over the (B, H, ld) rows r, 0 past Sq
+template <int D>
+__global__ void __launch_bounds__(256)
+flash_bwd_delta(const __nv_bfloat16* __restrict__ o,
+                const __nv_bfloat16* __restrict__ dout,
+                float* __restrict__ delta, int H, int Sq, int ld, Strides os,
+                Strides gs, long long rows) {
+  constexpr int TPR = D / 8;          // threads a row, 16 bytes each
+  constexpr int RPB = 256 / TPR;      // rows a block a step
+  const int sub = threadIdx.x % TPR;
+  // rows is a multiple of 64, so a warp's rows agree on the loop's end
+  for (long long r = (long long)blockIdx.x * RPB + threadIdx.x / TPR;
+       r < rows; r += (long long)gridDim.x * RPB) {
+    const int i = (int)(r % ld);
+    const long long bh = r / ld;
+    const int h = (int)(bh % H), b = (int)(bh / H);
+    float sum = 0.f;
+    if (i < Sq) {
+      const uint4 a = *reinterpret_cast<const uint4*>(
+          o + b * os.b + h * os.h + (long long)i * os.s + sub * 8);
+      const uint4 g = *reinterpret_cast<const uint4*>(
+          dout + b * gs.b + h * gs.h + (long long)i * gs.s + sub * 8);
+      const __nv_bfloat162* a2 = reinterpret_cast<const __nv_bfloat162*>(&a);
+      const __nv_bfloat162* g2 = reinterpret_cast<const __nv_bfloat162*>(&g);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float2 x = __bfloat1622float2(a2[e]);
+        const float2 y = __bfloat1622float2(g2[e]);
+        sum = fmaf(x.x, y.x, sum);
+        sum = fmaf(x.y, y.y, sum);
+      }
+    }
+#pragma unroll
+    for (int off = TPR / 2; off > 0; off >>= 1)
+      sum += __shfl_xor_sync(kFull, sum, off);
+    if (sub == 0) delta[r] = sum;
+  }
+}
+
+// Shared memory of flash_bwd_dq_wgmma: QB buffers of Q then dO (BM rows
+// each), ST K stages, ST V stages of 64 keys, the barriers (full and empty
+// Q/dO a buffer; full K, full V, empty K, empty V a stage) and each
+// buffer's item.
+template <int D>
+struct DqLayout {
+  static constexpr int BM = kBwdNC * kBwdRows;
+  static constexpr int BN = kBwdRows;
+  static constexpr uint32_t kQ = BM * D * 2;       // one of Q, dO
+  static constexpr uint32_t kK = BN * D * 2;       // one of K, V
+  static constexpr uint32_t kBars = kBwdDqQB * 2 * kQ + kBwdDqST * 2 * kK;
+  static constexpr int kSmem = 1024 + kBars + 8 * (3 * kBwdDqQB + 4 * kBwdDqST);
+};
+
+template <int D>
+__global__ void __launch_bounds__(kBwdThreads, 1)
+flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tq,
+                   const __grid_constant__ CUtensorMap tg,
+                   const __grid_constant__ CUtensorMap tk,
+                   const __grid_constant__ CUtensorMap tv,
+                   const float* __restrict__ lse,
+                   const float* __restrict__ delta, int ld,
+                   __nv_bfloat16* __restrict__ dq, Strides dqs,
+                   int* __restrict__ next, int H, int B, int G, int Sq,
+                   int Sk, float scale, float scale_log2, bool causal,
+                   int window, bool head_major) {
+  using L = DqLayout<D>;
+  constexpr int QB = kBwdDqQB, ST = kBwdDqST, BM = L::BM, BN = L::BN;
+  extern __shared__ __align__(128) unsigned char smem_dq[];
+  const uint32_t sQ = (smem_addr(smem_dq) + 1023) & ~1023u;   // [QB] Q, dO
+  const uint32_t sK = sQ + QB * 2 * L::kQ;         // [ST]
+  const uint32_t sV = sK + ST * L::kK;             // [ST]
+  const uint32_t bar_q = sQ + L::kBars;            // full Q/dO [QB]
+  const uint32_t bar_eq = bar_q + 8 * QB;          // empty Q/dO [QB]
+  const uint32_t bar_k = bar_eq + 8 * QB;          // full K [ST]
+  const uint32_t bar_v = bar_k + 8 * ST;           // full V [ST]
+  const uint32_t bar_ek = bar_v + 8 * ST;          // empty K [ST]
+  const uint32_t bar_ev = bar_ek + 8 * ST;         // empty V [ST]
+  volatile int* item_slot = reinterpret_cast<volatile int*>(
+      smem_dq + (bar_ev + 8 * ST - smem_addr(smem_dq)));
+
+  const int nq = (Sq + BM - 1) / BM;
+  const int n_items = nq * H * B;
+  auto tiles = [&](int q0, int& t0, int& n_tiles) {
+    t0 = first_key_tile<BN>(q0, window) / BN;
+    n_tiles = ((causal ? min(Sk, q0 + BM) : Sk) + BN - 1) / BN;
+  };
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < QB; ++i) {
+      mbar_init(bar_q + 8 * i, 1);
+      mbar_init(bar_eq + 8 * i, 4 * kBwdNC);     // one arrival a consumer warp
+    }
+    for (int s = 0; s < ST; ++s) {
+      mbar_init(bar_k + 8 * s, 1);
+      mbar_init(bar_v + 8 * s, 1);
+      mbar_init(bar_ek + 8 * s, 4 * kBwdNC);
+      mbar_init(bar_ev + 8 * s, 4 * kBwdNC);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {
+    // ---- producer ----
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    if (threadIdx.x == 0) {
+      int ring = 0;
+      for (int j = 0;; ++j) {
+        const int qb = j % QB;
+        const int item = atomicAdd(next, 1);
+        mbar_wait(bar_eq + 8 * qb, ((j / QB) & 1) ^ 1);
+        if (item >= n_items) {
+          item_slot[2 * qb] = -1;
+          mbar_arrive(bar_q + 8 * qb);
+          break;
+        }
+        item_slot[2 * qb] = item;
+        const WgItem w = wg_item(item, nq, BM, H, B, head_major);
+        const int hk = w.h / G;
+        const uint32_t dst = sQ + qb * 2 * L::kQ;
+        mbar_expect_tx(bar_q + 8 * qb, 2 * L::kQ);
+        for (int c = 0; c < D / kSwCols; ++c) {
+          tma_load(dst + c * BM * 128, &tq, bar_q + 8 * qb, c * kSwCols,
+                   w.q0, w.h, w.b);
+          tma_load(dst + L::kQ + c * BM * 128, &tg, bar_q + 8 * qb,
+                   c * kSwCols, w.q0, w.h, w.b);
+        }
+        int t0, n_tiles;
+        tiles(w.q0, t0, n_tiles);
+        for (int t = t0; t < n_tiles; ++t, ++ring) {
+          const int s = ring % ST;
+          const uint32_t free = ((ring / ST) & 1) ^ 1;
+          mbar_wait(bar_ek + 8 * s, free);
+          mbar_expect_tx(bar_k + 8 * s, L::kK);
+          for (int c = 0; c < D / kSwCols; ++c)
+            tma_load(sK + s * L::kK + c * BN * 128, &tk, bar_k + 8 * s,
+                     c * kSwCols, t * BN, hk, w.b);
+          mbar_wait(bar_ev + 8 * s, free);
+          mbar_expect_tx(bar_v + 8 * s, L::kK);
+          for (int c = 0; c < D / kSwCols; ++c)
+            tma_load(sV + s * L::kK + c * BN * 128, &tv, bar_v + 8 * s,
+                     c * kSwCols, t * BN, hk, w.b);
+        }
+      }
+    }
+  } else {
+    // ---- consumers: 64 q rows each of every item ----
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kBwdRegs));
+    const int cw = (threadIdx.x >> 7) - 1;
+    const int warp = (threadIdx.x >> 5) & 3;
+    const int lane = threadIdx.x & 31;
+    const int g = lane >> 2;
+    const int tig = lane & 3;
+    int ring = 0;
+
+    auto release = [&](uint32_t bar) {
+      __syncwarp();
+      if (lane == 0) mbar_arrive(bar);
+    };
+    for (int j = 0;; ++j) {
+      const int qb = j % QB;
+      mbar_wait(bar_q + 8 * qb, (j / QB) & 1);
+      const int item = item_slot[2 * qb];
+      if (item < 0) break;
+      const uint32_t sQw = sQ + qb * 2 * L::kQ + cw * kBwdRows * 128;
+      const uint32_t sGw = sQw + L::kQ;
+      const uint32_t bar_eqj = bar_eq + 8 * qb;
+      const WgItem w = wg_item(item, nq, BM, H, B, head_major);
+      int t0, n_tiles;
+      tiles(w.q0, t0, n_tiles);
+      const int r0 = w.q0 + cw * kBwdRows;
+      const int wrow = r0 + warp * 16;
+      const int row0 = wrow + g;        // this thread's rows: row0, row0 + 8
+      const int lo = first_key_tile<BN>(r0, window) / BN;
+      const int hi =
+          r0 >= Sq ? 0
+                   : ((causal ? min(Sk, r0 + kBwdRows) : Sk) + BN - 1) / BN;
+      const int a = min(lo, n_tiles);
+      const int z = max(a, hi);
+      const int base = ring - t0;
+      auto stage = [&](int t) { return (base + t) % ST; };
+      auto phase = [&](int t) { return (uint32_t)((base + t) / ST) & 1; };
+
+      // the rows' -lse log2(e) and delta (0 past Sq)
+      float nl[2], dl[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int row = row0 + 8 * r;
+        const long long at = ((long long)w.b * H + w.h) * ld + row;
+        nl[r] = row < Sq ? -lse[at] * kLog2e : 0.f;
+        dl[r] = row < Sq ? delta[at] : 0.f;
+      }
+      float acc[D / 2];
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+      uint32_t dsa[BN / 16][4];         // dS of a tile as bf16 A fragments
+
+      auto skip = [&](int t) {
+        mbar_wait(bar_k + 8 * stage(t), phase(t));
+        mbar_wait(bar_v + 8 * stage(t), phase(t));
+        release(bar_ek + 8 * stage(t));
+        release(bar_ev + 8 * stage(t));
+      };
+      // S = Q K^T and dP = dO V^T of tile t, one committed group
+      auto issue_sdp = [&](int t, float (&sc)[BN / 2], float (&dp)[BN / 2]) {
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk) {
+          const uint32_t col = (kk / 4) * BN * 128 + (kk % 4) * 32;
+          wgmma_ss<BN>(sc,
+                       wg_desc(sQw + (kk / 4) * BM * 128 + (kk % 4) * 32, 16,
+                               1024),
+                       wg_desc(sK + stage(t) * L::kK + col, 16, 1024),
+                       kk > 0);
+        }
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk) {
+          const uint32_t col = (kk / 4) * BN * 128 + (kk % 4) * 32;
+          wgmma_ss<BN>(dp,
+                       wg_desc(sGw + (kk / 4) * BM * 128 + (kk % 4) * 32, 16,
+                               1024),
+                       wg_desc(sV + stage(t) * L::kK + col, 16, 1024),
+                       kk > 0);
+        }
+        wg_commit();
+      };
+      // dQ += dS K of tile t (dS in dsa), one committed group
+      auto issue_dq = [&](int t) {
+#pragma unroll
+        for (int kk = 0; kk < BN / 16; ++kk)
+          wgmma_rs<D>(acc, dsa[kk],
+                      wg_desc(sK + stage(t) * L::kK + kk * 16 * 128,
+                              BN * 128, 1024));
+        wg_commit();
+      };
+      // tile t's S and dP become dS = P (dP - delta) in sc, P = exp(S
+      // scale - lse), 0 where masked
+      auto grad_scores = [&](int t, float (&sc)[BN / 2],
+                             const float (&dp)[BN / 2]) {
+        const int k0 = t * BN;
+        const bool mask = (causal && k0 + BN - 1 > wrow) ||
+                          (window > 0 && k0 <= wrow + 15 - window) ||
+                          k0 + BN > Sk;
+#pragma unroll
+        for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int r = e >> 1;
+            float p = ex2(fmaf(sc[4 * j + e], scale_log2, nl[r]));
+            float ds = p * (dp[4 * j + e] - dl[r]);
+            if (mask) {
+              const int key = k0 + j * 8 + 2 * tig + (e & 1);
+              const int row = row0 + r * 8;
+              if (key >= Sk || (causal && key > row) ||
+                  (window > 0 && row - key >= window))
+                ds = 0.f;
+            }
+            sc[4 * j + e] = ds;
+          }
+      };
+      auto pack = [&](const float (&sc)[BN / 2]) {
+#pragma unroll
+        for (int kk = 0; kk < BN / 16; ++kk) {
+          dsa[kk][0] = pack_bf16(sc[8 * kk], sc[8 * kk + 1]);
+          dsa[kk][1] = pack_bf16(sc[8 * kk + 2], sc[8 * kk + 3]);
+          dsa[kk][2] = pack_bf16(sc[8 * kk + 4], sc[8 * kk + 5]);
+          dsa[kk][3] = pack_bf16(sc[8 * kk + 6], sc[8 * kk + 7]);
+        }
+      };
+
+      for (int t = t0; t < a; ++t) skip(t);
+      if (a < z) {
+        {
+          float sc[BN / 2], dp[BN / 2];
+          mbar_wait(bar_k + 8 * stage(a), phase(a));
+          mbar_wait(bar_v + 8 * stage(a), phase(a));
+          reg_fence(acc);
+          wg_fence();
+          issue_sdp(a, sc, dp);
+          wg_wait<0>();
+          reg_fence(sc);
+          reg_fence(dp);
+          release(bar_ev + 8 * stage(a));
+          if (a + 1 == z) release(bar_eqj);       // Q and dO are done
+          grad_scores(a, sc, dp);
+          pack(sc);
+        }
+        for (int t = a + 1; t < z; ++t) {
+          float sc[BN / 2], dp[BN / 2];
+          mbar_wait(bar_k + 8 * stage(t), phase(t));
+          mbar_wait(bar_v + 8 * stage(t), phase(t));
+          reg_fence(acc);
+          reg_fence(dsa);
+          wg_fence();
+          issue_sdp(t, sc, dp);
+          issue_dq(t - 1);
+          wg_wait<1>();
+          reg_fence(sc);
+          reg_fence(dp);
+          release(bar_ev + 8 * stage(t));
+          if (t + 1 == z) release(bar_eqj);
+          grad_scores(t, sc, dp);
+          wg_wait<0>();
+          reg_fence(acc);
+          reg_fence(dsa);
+          release(bar_ek + 8 * stage(t - 1));
+          pack(sc);
+        }
+        reg_fence(acc);
+        reg_fence(dsa);
+        wg_fence();
+        issue_dq(z - 1);
+        wg_wait<0>();
+        reg_fence(acc);
+        release(bar_ek + 8 * stage(z - 1));
+      } else {
+        release(bar_eqj);
+      }
+      for (int t = z; t < n_tiles; ++t) skip(t);
+      if (n_tiles > t0) ring += n_tiles - t0;
+
+      // ---- dq = scale acc, rounded once to bf16, from the fragments ----
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int row = row0 + r * 8;
+        if (row >= Sq) continue;
+        __nv_bfloat16* out = dq + w.b * dqs.b + w.h * dqs.h +
+                             (long long)row * dqs.s + 2 * tig;
+#pragma unroll
+        for (int jj = 0; jj < D / 8; ++jj)
+          *reinterpret_cast<uint32_t*>(out + jj * 8) =
+              pack_bf16(acc[4 * jj + 2 * r] * scale,
+                        acc[4 * jj + 2 * r + 1] * scale);
+      }
+    }
+  }
+}
+
+// Shared memory of flash_bwd_dkdv_wgmma: the item's K and V (BN keys),
+// ST stages of Q and dO (64 rows each), ST stages of lse and delta (64
+// f32 each), the barriers (full and empty K/V; full and empty a stage)
+// and the item.
+template <int D>
+struct DkvLayout {
+  static constexpr int BN = kBwdNC * kBwdRows;     // keys an item
+  static constexpr int BQ = kBwdRows;              // q rows a tile
+  static constexpr uint32_t kKV = BN * D * 2;      // one of K, V
+  static constexpr uint32_t kT = BQ * D * 2;       // one of Q, dO
+  static constexpr uint32_t kStats = 2 * BQ * 4;   // lse and delta
+  static constexpr uint32_t kBars =
+      2 * kKV + kBwdKvST * (2 * kT + kStats);
+  static constexpr int kSmem = 1024 + kBars + 8 * (2 + 2 * kBwdKvST) + 8;
+};
+
+template <int D>
+__global__ void __launch_bounds__(kBwdThreads, 1)
+flash_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap tk,
+                     const __grid_constant__ CUtensorMap tv,
+                     const __grid_constant__ CUtensorMap tq,
+                     const __grid_constant__ CUtensorMap tg,
+                     const float* __restrict__ lse,
+                     const float* __restrict__ delta, int ld,
+                     __nv_bfloat16* __restrict__ dk, Strides dks,
+                     __nv_bfloat16* __restrict__ dv, Strides dvs,
+                     int* __restrict__ next, int Hkv, int B, int G, int Sq,
+                     int Sk, float scale, float scale_log2, bool causal,
+                     int window) {
+  using L = DkvLayout<D>;
+  constexpr int ST = kBwdKvST, BN = L::BN, BQ = L::BQ;
+  extern __shared__ __align__(128) unsigned char smem_kv[];
+  const uint32_t sK = (smem_addr(smem_kv) + 1023) & ~1023u;
+  const uint32_t sV = sK + L::kKV;
+  const uint32_t sT = sV + L::kKV;                 // [ST] Q, dO
+  const uint32_t sSt = sT + ST * 2 * L::kT;        // [ST] lse, delta
+  const uint32_t bar_kv = sK + L::kBars;           // full K/V
+  const uint32_t bar_ekv = bar_kv + 8;             // empty K/V
+  const uint32_t bar_s = bar_ekv + 8;              // full stage [ST]
+  const uint32_t bar_es = bar_s + 8 * ST;          // empty stage [ST]
+  volatile int* item_slot = reinterpret_cast<volatile int*>(
+      smem_kv + (bar_es + 8 * ST - smem_addr(smem_kv)));
+
+  const int H = Hkv * G;
+  const int nk = (Sk + BN - 1) / BN;
+  const int nq = (Sq + BQ - 1) / BQ;
+  const int n_items = nk * Hkv * B;
+  // the q tiles [qa, qz) that keys [k0, k0 + BN) see
+  auto qtiles = [&](int k0, int& qa, int& qz) {
+    qa = causal ? k0 / BQ : 0;
+    qz = window > 0 ? min(nq, (k0 + BN + window - 2) / BQ + 1) : nq;
+  };
+  // item: key tile by key tile (the first, the heaviest when causal, first)
+  auto decode = [&](int item, int& kt, int& hk, int& b) {
+    const int hb = item % (Hkv * B);
+    kt = item / (Hkv * B);
+    hk = hb % Hkv;
+    b = hb / Hkv;
+  };
+
+  if (threadIdx.x == 0) {
+    mbar_init(bar_kv, 1);
+    mbar_init(bar_ekv, 4 * kBwdNC);
+    for (int s = 0; s < ST; ++s) {
+      mbar_init(bar_s + 8 * s, 1);
+      mbar_init(bar_es + 8 * s, 4 * kBwdNC);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {
+    // ---- producer ----
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    if (threadIdx.x == 0) {
+      int ring = 0;
+      for (int j = 0;; ++j) {
+        const int item = atomicAdd(next, 1);
+        mbar_wait(bar_ekv, (j & 1) ^ 1);
+        if (item >= n_items) {
+          *item_slot = -1;
+          mbar_arrive(bar_kv);
+          break;
+        }
+        *item_slot = item;
+        int kt, hk, b;
+        decode(item, kt, hk, b);
+        const int k0 = kt * BN;
+        mbar_expect_tx(bar_kv, 2 * L::kKV);
+        for (int c = 0; c < D / kSwCols; ++c) {
+          tma_load(sK + c * BN * 128, &tk, bar_kv, c * kSwCols, k0, hk, b);
+          tma_load(sV + c * BN * 128, &tv, bar_kv, c * kSwCols, k0, hk, b);
+        }
+        int qa, qz;
+        qtiles(k0, qa, qz);
+        for (int gi = 0; gi < G; ++gi) {
+          const int h = hk * G + gi;
+          for (int qt = qa; qt < qz; ++qt, ++ring) {
+            const int s = ring % ST;
+            mbar_wait(bar_es + 8 * s, ((ring / ST) & 1) ^ 1);
+            const uint32_t bar = bar_s + 8 * s;
+            const uint32_t dst = sT + s * 2 * L::kT;
+            mbar_expect_tx(bar, 2 * L::kT + L::kStats);
+            for (int c = 0; c < D / kSwCols; ++c) {
+              tma_load(dst + c * BQ * 128, &tq, bar, c * kSwCols, qt * BQ, h,
+                       b);
+              tma_load(dst + L::kT + c * BQ * 128, &tg, bar, c * kSwCols,
+                       qt * BQ, h, b);
+            }
+            const long long at = ((long long)b * H + h) * ld + qt * BQ;
+            bulk_load(sSt + s * L::kStats, lse + at, BQ * 4, bar);
+            bulk_load(sSt + s * L::kStats + BQ * 4, delta + at, BQ * 4, bar);
+          }
+        }
+      }
+    }
+  } else {
+    // ---- consumers: 64 keys each of every item ----
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kBwdRegs));
+    const int cw = (threadIdx.x >> 7) - 1;
+    const int warp = (threadIdx.x >> 5) & 3;
+    const int lane = threadIdx.x & 31;
+    const int g = lane >> 2;
+    const int tig = lane & 3;
+    int ring = 0;
+
+    auto release = [&](uint32_t bar) {
+      __syncwarp();
+      if (lane == 0) mbar_arrive(bar);
+    };
+    for (int j = 0;; ++j) {
+      mbar_wait(bar_kv, j & 1);
+      const int item = *item_slot;
+      if (item < 0) break;
+      int kt, hk, b;
+      decode(item, kt, hk, b);
+      const int k0 = kt * BN;
+      const int kc0 = k0 + cw * kBwdRows;   // this consumer's keys
+      const int kw = kc0 + warp * 16;       // this warp's 16
+      const int key0 = kw + g;              // this thread's: key0, key0 + 8
+      int qa, qz;
+      qtiles(k0, qa, qz);
+
+      float dka[D / 2], dva[D / 2];
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) dka[i] = dva[i] = 0.f;
+
+      for (int gi = 0; gi < G; ++gi) {
+        for (int qt = qa; qt < qz; ++qt, ++ring) {
+          const int s = ring % ST;
+          const int q0 = qt * BQ;
+          mbar_wait(bar_s + 8 * s, (ring / ST) & 1);
+          // no valid pair of this consumer's keys in the tile
+          if (kc0 >= Sk || (causal && q0 + BQ - 1 < kc0) ||
+              (window > 0 && q0 - (kc0 + kBwdRows - 1) >= window)) {
+            release(bar_es + 8 * s);
+            continue;
+          }
+          const uint32_t sQs = sT + s * 2 * L::kT;
+          const uint32_t sGs = sQs + L::kT;
+          const uint32_t stats = sSt + s * L::kStats;
+          float st[BQ / 2], dpt[BQ / 2];
+          reg_fence(dka);
+          reg_fence(dva);
+          wg_fence();
+          // S^T = K Q^T, dP^T = V dO^T (keys as the rows)
+#pragma unroll
+          for (int kk = 0; kk < D / 16; ++kk) {
+            const uint32_t col = (kk % 4) * 32;
+            wgmma_ss<BQ>(st,
+                         wg_desc(sK + (kk / 4) * BN * 128 +
+                                     cw * kBwdRows * 128 + col,
+                                 16, 1024),
+                         wg_desc(sQs + (kk / 4) * BQ * 128 + col, 16, 1024),
+                         kk > 0);
+          }
+#pragma unroll
+          for (int kk = 0; kk < D / 16; ++kk) {
+            const uint32_t col = (kk % 4) * 32;
+            wgmma_ss<BQ>(dpt,
+                         wg_desc(sV + (kk / 4) * BN * 128 +
+                                     cw * kBwdRows * 128 + col,
+                                 16, 1024),
+                         wg_desc(sGs + (kk / 4) * BQ * 128 + col, 16, 1024),
+                         kk > 0);
+          }
+          wg_commit();
+          wg_wait<0>();
+          reg_fence(st);
+          reg_fence(dpt);
+          // P^T and dS^T; mask only where the tile crosses the diagonal,
+          // the band's edge, Sq or Sk for this warp's 16 keys
+          const bool mask = (causal && q0 < kw + 15) ||
+                            (window > 0 && q0 + BQ - 1 - kw >= window) ||
+                            q0 + BQ > Sq || kw + 16 > Sk;
+#pragma unroll
+          for (int jq = 0; jq < BQ / 8; ++jq) {
+            const int col = 8 * jq + 2 * tig;
+            const float2 ls = ld_shared_f2(stats + col * 4);
+            const float2 dl = ld_shared_f2(stats + BQ * 4 + col * 4);
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const float l = (e & 1) ? ls.y : ls.x;
+              const float d = (e & 1) ? dl.y : dl.x;
+              float p = ex2(fmaf(st[4 * jq + e], scale_log2, -l * kLog2e));
+              float ds = p * (dpt[4 * jq + e] - d);
+              if (mask) {
+                const int key = key0 + 8 * (e >> 1);
+                const int qq = q0 + col + (e & 1);
+                if (key >= Sk || qq >= Sq || (causal && qq < key) ||
+                    (window > 0 && qq - key >= window))
+                  p = ds = 0.f;
+              }
+              st[4 * jq + e] = p;
+              dpt[4 * jq + e] = ds;
+            }
+          }
+          uint32_t pa[BQ / 16][4], dsa[BQ / 16][4];
+#pragma unroll
+          for (int kk = 0; kk < BQ / 16; ++kk) {
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+              pa[kk][i] = pack_bf16(st[8 * kk + 2 * i], st[8 * kk + 2 * i + 1]);
+              dsa[kk][i] =
+                  pack_bf16(dpt[8 * kk + 2 * i], dpt[8 * kk + 2 * i + 1]);
+            }
+          }
+          // dV += P^T dO, dK += dS^T Q (dO and Q read MN-major)
+          reg_fence(pa);
+          reg_fence(dsa);
+          wg_fence();
+#pragma unroll
+          for (int kk = 0; kk < BQ / 16; ++kk)
+            wgmma_rs<D>(dva, pa[kk],
+                        wg_desc(sGs + kk * 16 * 128, BQ * 128, 1024));
+#pragma unroll
+          for (int kk = 0; kk < BQ / 16; ++kk)
+            wgmma_rs<D>(dka, dsa[kk],
+                        wg_desc(sQs + kk * 16 * 128, BQ * 128, 1024));
+          wg_commit();
+          wg_wait<0>();
+          reg_fence(dka);
+          reg_fence(dva);
+          release(bar_es + 8 * s);
+        }
+      }
+      release(bar_ekv);                 // this consumer's K and V are done
+
+      // ---- dk = scale dka, dv = dva, rounded once to bf16 ----
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int key = key0 + r * 8;
+        if (key >= Sk) continue;
+        __nv_bfloat16* ok =
+            dk + b * dks.b + hk * dks.h + (long long)key * dks.s + 2 * tig;
+        __nv_bfloat16* ov =
+            dv + b * dvs.b + hk * dvs.h + (long long)key * dvs.s + 2 * tig;
+#pragma unroll
+        for (int jj = 0; jj < D / 8; ++jj) {
+          *reinterpret_cast<uint32_t*>(ok + jj * 8) =
+              pack_bf16(dka[4 * jj + 2 * r] * scale,
+                        dka[4 * jj + 2 * r + 1] * scale);
+          *reinterpret_cast<uint32_t*>(ov + jj * 8) =
+              pack_bf16(dva[4 * jj + 2 * r], dva[4 * jj + 2 * r + 1]);
+        }
+      }
+    }
+  }
+}
+
+struct BwdArgs {
+  const void *q, *k, *v, *o, *dout;
+  float *lse, *delta;
+  void *dq, *dk, *dv;
+  int* work;                          // two zeroed ints: dq's and dkdv's
+  int B, H, G, Sq, Sk, ld;
+  Strides qs, ks, vs, os, gs, dqs, dks, dvs;
+  float scale;
+  bool causal;
+  int window;
+};
+
+// delta, then dq, then dk and dv, on `stream`
+template <int D>
+cudaError_t launch_bwd(const BwdArgs& a, cudaStream_t stream) {
+  int device, sms;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                 device);
+  if (err != cudaSuccess) return err;
+  const int Hkv = a.H / a.G;
+  const long long rows = (long long)a.B * a.H * a.ld;
+  constexpr int kRowsPerBlock = 256 / (D / 8);
+  const long long want = (rows + kRowsPerBlock - 1) / kRowsPerBlock;
+  flash_bwd_delta<D><<<(int)(want < 16LL * sms ? want : 16LL * sms), 256, 0,
+                       stream>>>(
+      static_cast<const __nv_bfloat16*>(a.o),
+      static_cast<const __nv_bfloat16*>(a.dout), a.delta, a.H, a.Sq, a.ld,
+      a.os, a.gs, rows);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+
+  using LQ = DqLayout<D>;
+  CUtensorMap tq, tg, tk, tv;
+  err = tensor_map(&tq, a.q, a.B, a.H, a.Sq, D, a.qs, LQ::BM);
+  if (err == cudaSuccess)
+    err = tensor_map(&tg, a.dout, a.B, a.H, a.Sq, D, a.gs, LQ::BM);
+  if (err == cudaSuccess)
+    err = tensor_map(&tk, a.k, a.B, Hkv, a.Sk, D, a.ks, LQ::BN);
+  if (err == cudaSuccess)
+    err = tensor_map(&tv, a.v, a.B, Hkv, a.Sk, D, a.vs, LQ::BN);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(flash_bwd_dq_wgmma<D>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               LQ::kSmem);
+  if (err != cudaSuccess) return err;
+  const long long dq_items =
+      (long long)((a.Sq + LQ::BM - 1) / LQ::BM) * a.H * a.B;
+  const int dq_blocks = dq_items < sms ? (int)dq_items : sms;
+  flash_bwd_dq_wgmma<D><<<dq_blocks, kBwdThreads, LQ::kSmem, stream>>>(
+      tq, tg, tk, tv, a.lse, a.delta, a.ld,
+      static_cast<__nv_bfloat16*>(a.dq), a.dqs, a.work, a.H, a.B, a.G, a.Sq,
+      a.Sk, a.scale, a.scale * kLog2e, a.causal, a.window,
+      head_major_order<LQ::BN, LQ::BM>(a.B, a.H, a.Sq, a.Sk, a.causal,
+                                       a.window, dq_blocks));
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+
+  using LK = DkvLayout<D>;
+  err = tensor_map(&tk, a.k, a.B, Hkv, a.Sk, D, a.ks, LK::BN);
+  if (err == cudaSuccess)
+    err = tensor_map(&tv, a.v, a.B, Hkv, a.Sk, D, a.vs, LK::BN);
+  if (err == cudaSuccess)
+    err = tensor_map(&tq, a.q, a.B, a.H, a.Sq, D, a.qs, LK::BQ);
+  if (err == cudaSuccess)
+    err = tensor_map(&tg, a.dout, a.B, a.H, a.Sq, D, a.gs, LK::BQ);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(flash_bwd_dkdv_wgmma<D>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               LK::kSmem);
+  if (err != cudaSuccess) return err;
+  const long long kv_items =
+      (long long)((a.Sk + LK::BN - 1) / LK::BN) * Hkv * a.B;
+  const int kv_blocks = kv_items < sms ? (int)kv_items : sms;
+  flash_bwd_dkdv_wgmma<D><<<kv_blocks, kBwdThreads, LK::kSmem, stream>>>(
+      tk, tv, tq, tg, a.lse, a.delta, a.ld,
+      static_cast<__nv_bfloat16*>(a.dk), a.dks,
+      static_cast<__nv_bfloat16*>(a.dv), a.dvs, a.work + 1, Hkv, a.B, a.G,
+      a.Sq, a.Sk, a.scale, a.scale * kLog2e, a.causal, a.window);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -1543,8 +2352,11 @@ extern "C" {
 // 0 <= q - k < window; 0 is no band.
 // bf16 needs 16-byte aligned rows (base addresses and strides), which the
 // wrapper checks.  `device` is the CUDA ordinal the tensors and `stream`
-// belong to.  `work` is a zeroed int32 on that device, where the d 192 and
-// 256 bf16 route takes its blocks' work from (unused by the others).
+// belong to.  `work` is a zeroed int32 on that device, where the bf16
+// wgmma route takes its blocks' work from (unused by the others).  `lse`
+// (null on the serving path) asks for the training instance, which also
+// stores each row's log-sum-exp to the f32 (B, H, lse_ld) rows at `lse`,
+// lse_ld >= Sq a multiple of 64 (bf16 (128, 128) alone).
 // Returns the cudaError_t of the launch.
 int ciao_flash_attention(int device, int dtype, int d, int dv, const void* q,
                          const void* k, const void* v, void* o, void* work,
@@ -1553,24 +2365,72 @@ int ciao_flash_attention(int device, int dtype, int d, int dv, const void* q,
                          long long ksh, long long kss, long long vsb,
                          long long vsh, long long vss, long long osb,
                          long long osh, long long oss, float scale,
-                         int causal, int window, void* stream) {
+                         int causal, int window, void* lse, int lse_ld,
+                         void* stream) {
   if (B == 0 || H == 0 || Sq == 0) return 0;
   if (Hkv <= 0 || H % Hkv) return cudaErrorInvalidValue;
   if (window < 0 || (window > 0 && !causal)) return cudaErrorInvalidValue;
-  const Launch launch = pick(dtype, d, dv).launch;
+  if (lse != nullptr && (lse_ld < Sq || lse_ld % 64))
+    return cudaErrorInvalidValue;
+  const Launch launch = pick(dtype, d, dv, lse != nullptr).launch;
   if (launch == nullptr) return cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   const Strides qs{qsb, qsh, qss}, ks{ksb, ksh, kss}, vs{vsb, vsh, vss},
       os{osb, osh, oss};
   return launch(q, k, v, o, work, B, H, H / Hkv, Sq, Sk, qs, ks, vs, os,
-                scale, causal != 0, window, (cudaStream_t)stream);
+                scale, causal != 0, window, static_cast<float*>(lse),
+                lse_ld, (cudaStream_t)stream);
 }
 
 // dynamic shared memory of one block of the (dtype, d, dv) instance in
 // bytes; 0 where there is none
 int ciao_flash_smem_bytes(int dtype, int d, int dv) {
   return pick(dtype, d, dv).smem;
+}
+
+// The backward of the bf16 (d, dv) = (128, 128) attention above: dq
+// (B, H, Sq, d), dk and dv (B, Hkv, Sk, d) in bf16 from q, k, v, the
+// forward's output o, its gradient dout (B, H, Sq, d), and lse, the
+// training forward's f32 (B, H, ld) log-sum-exp rows (ld >= Sq, a
+// multiple of 64).  `delta` is f32 (B, H, ld) scratch, `work` two zeroed
+// int32; every tensor on `device`, strides in elements with the last dim
+// contiguous and rows 16-byte aligned (the wrapper checks).  Three
+// launches on `stream`; returns the cudaError_t of the first that fails.
+int ciao_flash_attention_bwd(
+    int device, int d, int dv, const void* q, const void* k, const void* v,
+    const void* o, const void* dout, void* lse, void* delta, void* dq,
+    void* dk, void* dvp, void* work, int B, int H, int Hkv, int Sq, int Sk,
+    long long qsb, long long qsh, long long qss, long long ksb,
+    long long ksh, long long kss, long long vsb, long long vsh,
+    long long vss, long long osb, long long osh, long long oss,
+    long long gsb, long long gsh, long long gss, long long dqsb,
+    long long dqsh, long long dqss, long long dksb, long long dksh,
+    long long dkss, long long dvsb, long long dvsh, long long dvss, int ld,
+    float scale, int causal, int window, void* stream) {
+  if (B == 0 || H == 0 || Sq == 0 || Sk == 0) return 0;
+  if (Hkv <= 0 || H % Hkv) return cudaErrorInvalidValue;
+  if (window < 0 || (window > 0 && !causal)) return cudaErrorInvalidValue;
+  if (ld < Sq || ld % 64 || work == nullptr) return cudaErrorInvalidValue;
+  if (d != 128 || dv != 128) return cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  const BwdArgs a{q, k, v, o, dout, static_cast<float*>(lse),
+                  static_cast<float*>(delta), dq, dk, dvp,
+                  static_cast<int*>(work), B, H, H / Hkv, Sq, Sk, ld,
+                  Strides{qsb, qsh, qss}, Strides{ksb, ksh, kss},
+                  Strides{vsb, vsh, vss}, Strides{osb, osh, oss},
+                  Strides{gsb, gsh, gss}, Strides{dqsb, dqsh, dqss},
+                  Strides{dksb, dksh, dkss}, Strides{dvsb, dvsh, dvss},
+                  scale, causal != 0, window};
+  return launch_bwd<128>(a, (cudaStream_t)stream);
+}
+
+// dynamic shared memory of one block of the backward's dq (which 0) or
+// dk/dv (which 1) kernel at (d, d), in bytes; 0 where there is none
+int ciao_flash_bwd_smem_bytes(int d, int which) {
+  if (d != 128) return 0;
+  return which == 0 ? DqLayout<128>::kSmem : DkvLayout<128>::kSmem;
 }
 
 const char* ciao_error_string(int err) {

@@ -16,7 +16,10 @@ comparison in ``chip_smoke.py``; no path calls them on a card.
     (``csrc/flash_attention.cu``, wrapper
     :mod:`repro_torch.kernels.flash_attention`), and
     ``flash_attention_ref_bf16p``, the numerics of that kernel's bf16
-    route (an oracle for the card; the CPU path keeps the former).
+    route (an oracle for the card; the CPU path keeps the former);
+    ``flash_attention_lse_ref``, the row log-sum-exp its training
+    instance stores, and ``flash_attention_bwd_ref_bf16p``, the numerics
+    of its backward kernel.
 
 The plain version of the scan kernel is
 :func:`repro_torch.kernels.scan_fused.scan_core`.
@@ -219,6 +222,23 @@ FLASH_TILES = {
 }
 
 
+class FlashBwdTile(NamedTuple):
+    """The tiles of kernel F's backward, ``flash_bwd_dkdv_wgmma``: keys
+    a work item (one (b, kv head)), q rows a tile of its walk over the
+    group's query heads, and keys a consumer, the keys whose own q tiles
+    it computes.  ``flash_bwd_dq_wgmma`` walks the keys on the forward's
+    plan, with :data:`FLASH_BWD_DQ_TILE`.  Every tile is masked for a
+    warp's 16 rows (keys or q rows)."""
+    key_rows: int
+    q_tile: int
+    consumer_keys: int
+
+
+#: the backward's tiles at (128, 128), the source's kBwdRows and kBwdNC
+FLASH_BWD_DKDV_TILE = FlashBwdTile(128, 64, 64)
+FLASH_BWD_DQ_TILE = FlashTile(128, 64, 64)
+
+
 def flash_key_tile(d: int, dv: int) -> int:
     """Keys per K/V tile of kernel F's bf16 instance for ``(d, dv)``."""
     return FLASH_TILES[(d, dv)].key_tile
@@ -242,3 +262,91 @@ def flash_attention_ref_bf16p(q, k, v, *, causal: bool = True,
         k_chunk=flash_key_tile(q.shape[3], v.shape[3]),
         p_dtype=torch.bfloat16)
     return out.transpose(1, 2)
+
+
+def _flash_valid(q0: int, n: int, Sk: int, causal: bool, window: int,
+                 device) -> torch.Tensor:
+    """bool (n, Sk): key k is valid for query q0 + i (F's masks)."""
+    qp = torch.arange(q0, q0 + n, device=device)[:, None]
+    kp = torch.arange(Sk, device=device)[None, :]
+    valid = torch.ones((n, Sk), dtype=torch.bool, device=device)
+    if causal:
+        valid &= qp >= kp
+    if window:
+        valid &= qp - kp < window
+    return valid
+
+
+def flash_attention_lse_ref(q, k, *, causal: bool = True, window: int = 0,
+                            key_tile: int = 64) -> torch.Tensor:
+    """Plain version of the row log-sum-exp that kernel F's training
+    instance stores: f32 ``(B, H, Sq)``, ``m + ln l`` of the scaled scores
+    ``q.k d**-0.5`` over each row's valid keys, by the kernel's online
+    softmax over ``key_tile``-key tiles (m the running max, l the running
+    sum rescaled as the max moves); ``1e30`` for a row that sees no key.
+    q ``(B, H, Sq, d)``, k ``(B, Hkv, Sk, d)``, F's layout."""
+    B, H, Sq, d = q.shape
+    Hkv, Sk = k.shape[1], k.shape[2]
+    kf = k.float().repeat_interleave(H // Hkv, dim=1)
+    s_all = q.float() @ kf.transpose(-1, -2) * d ** -0.5   # (B, H, Sq, Sk)
+    valid = _flash_valid(0, Sq, Sk, causal, window, q.device)
+    m = torch.full((B, H, Sq), -1e30, dtype=torch.float32, device=q.device)
+    l_ = torch.zeros((B, H, Sq), dtype=torch.float32, device=q.device)
+    for k0 in range(0, Sk, key_tile):
+        s = s_all[..., k0:k0 + key_tile]
+        ok = valid[:, k0:k0 + key_tile]
+        s = torch.where(ok, s, -1e30)
+        m_new = torch.maximum(m, s.amax(-1))
+        p = torch.where(ok, torch.exp(s - m_new[..., None]), 0.0)
+        l_ = l_ * torch.exp(m - m_new) + p.sum(-1)
+        m = m_new
+    return torch.where(l_ > 0, m + torch.log(l_.clamp(min=1e-30)), 1e30)
+
+
+def flash_attention_bwd_ref_bf16p(q, k, v, o, do, lse, *, causal: bool = True,
+                                  window: int = 0, delta=None,
+                                  p_dtype: torch.dtype | None = torch.bfloat16,
+                                  q_rows: int = 256):
+    """Plain version of kernel F's backward kernel: ``(dq, dk, dv)`` in
+    f32, F's ``(B, heads, S, d)`` layout (dk and dv summed over each kv
+    head's G query heads).
+
+    From the forward's row log-sum-exp ``lse`` (f32 ``(B, H, Sq)``) and
+    ``delta = rowsum(do o)`` in f32 (computed from ``o`` unless given):
+    ``P = exp(S scale - lse)``, ``dP = dO V^T``, ``dS = P (dP - delta)``,
+    0 where masked; ``dV = P^T dO``, ``dK = scale dS^T Q``, ``dQ = scale dS
+    K``, with S, dP and the products summed in f32 and P and dS rounded to
+    ``p_dtype`` as the operands of their products, where the kernel rounds
+    them (``None``: f32 throughout, the exact gradient of the attention
+    given ``lse`` and ``delta``).  The kernel's tiles only order its f32
+    sums, so this works on whole rows, ``q_rows`` queries at a time."""
+    B, H, Sq, d = q.shape
+    Hkv, Sk, dv_ = k.shape[1], k.shape[2], v.shape[3]
+    G = H // Hkv
+    scale = d ** -0.5
+    qf, of, gf = q.float(), o.float(), do.float()
+    kf = k.float().repeat_interleave(G, dim=1)
+    vf = v.float().repeat_interleave(G, dim=1)
+    if delta is None:
+        delta = (gf * of).sum(-1)
+
+    def rnd(t):
+        return t if p_dtype is None else t.to(p_dtype).float()
+
+    dq = torch.empty((B, H, Sq, d), dtype=torch.float32, device=q.device)
+    dk = torch.zeros((B, H, Sk, d), dtype=torch.float32, device=q.device)
+    dv = torch.zeros((B, H, Sk, dv_), dtype=torch.float32, device=q.device)
+    for q0 in range(0, Sq, q_rows):
+        qs, gs = qf[:, :, q0:q0 + q_rows], gf[:, :, q0:q0 + q_rows]
+        valid = _flash_valid(q0, qs.shape[2], Sk, causal, window, q.device)
+        s = qs @ kf.transpose(-1, -2)
+        p = torch.where(valid, torch.exp(
+            s * scale - lse[:, :, q0:q0 + q_rows, None].float()), 0.0)
+        dp = gs @ vf.transpose(-1, -2)
+        ds = torch.where(valid, p * (
+            dp - delta[:, :, q0:q0 + q_rows, None].float()), 0.0)
+        dv += rnd(p).transpose(-1, -2) @ gs
+        dk += rnd(ds).transpose(-1, -2) @ qs
+        dq[:, :, q0:q0 + q_rows] = rnd(ds) @ kf
+    return (dq * scale, (dk * scale).view(B, Hkv, G, Sk, d).sum(2),
+            dv.view(B, Hkv, G, Sk, dv_).sum(2))

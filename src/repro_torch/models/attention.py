@@ -14,8 +14,9 @@ The port of ``repro.models.attention``.
     plain version on a card.  F takes v at its own head dim (MLA: v 128
     under q and k at 192), as the JAX package's attention does
     (:func:`run_flash_kernel`).  Where a gradient is wanted it
-    launches F through :class:`FlashAttention`, whose backward is the
-    gradient of :func:`flash_attention_plain`.
+    launches F through :class:`FlashAttention`, whose backward is F's
+    backward kernel in bf16 on a card at (128, 128), else the gradient of
+    :func:`flash_attention_plain`.
   * On a mesh (q, k, v DTensors) :func:`flash_attention` runs on each
     rank's own heads under ``local_map`` (``shard_map``'s counterpart):
     the batch over (pod, data), the query heads over ``model`` where they
@@ -327,29 +328,60 @@ class FlashAttention(torch.autograd.Function):
     layout, positions 0..S-1 (``window > 0``: the causal band).
 
     The forward launches F through its wrapper, as a prefill does (on a
-    CPU tensor the wrapper runs F's plain version), and saves q, k and v.
-    The backward recomputes the attention with autograd through
-    :func:`flash_attention_plain`, at the call's chunk sizes, and returns
-    ``torch.autograd.grad`` of it.  This is the port of the JAX package's
-    training, which differentiates its chunked jnp attention
+    CPU tensor the wrapper runs F's plain version).  The backward's route
+    follows what the call can observe
+    (:func:`repro_torch.kernels.flash_attention.backward_on_kernel`):
+
+    * bf16 on a card at a pair of F's ``BACKWARD_PAIRS`` ((128, 128):
+      qwen3, llama4, internvl2): the forward launches F's training
+      instance, which also stores each row's log-sum-exp, and saves q, k,
+      v, the output and that; the backward is F's backward kernel
+      (``flash_attention_backward``: dq, dk and dv from those, P and dS
+      rounded to bf16 as the operands of their products).
+    * every other call (the CPU, f32, MLA's (192, 128), d 256, ...): the
+      forward saves q, k and v; the backward recomputes the attention with
+      autograd through :func:`flash_attention_plain`, at the call's chunk
+      sizes, and returns ``torch.autograd.grad`` of it (counted in F's
+      ``plain_backwards``).
+
+    The JAX package's training differentiates its chunked jnp attention
     (``repro.models.attention.flash_attention``) by autodiff: the TPU
-    kernel ``flash_attention_tpu`` has no ``custom_vjp``, so no TPU
-    backward kernel exists to be ported.
+    kernel ``flash_attention_tpu`` has no ``custom_vjp``, so the backward
+    kernel ports no TPU kernel, and the plain route is the port of that
+    autodiff.
     """
 
     @staticmethod
     def forward(ctx, q, k, v, causal: bool, q_chunk: int, k_chunk: int,
                 window: int = 0):
-        ctx.save_for_backward(q, k, v)
         ctx.mask = kernel_mask_mode(causal, window)
-        ctx.window, ctx.chunks = window, (q_chunk, k_chunk)
-        out = fa_kernel.flash_attention(
-            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-            causal=causal, window=window)
+        ctx.causal, ctx.window = causal, window
+        ctx.chunks = (q_chunk, k_chunk)
+        qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+        ctx.on_kernel = fa_kernel.backward_on_kernel(
+            q.device, q.dtype, q.shape[-1], v.shape[-1])
+        if ctx.on_kernel:
+            out, lse = fa_kernel.flash_attention(
+                qt, kt, vt, causal=causal, window=window, with_lse=True)
+            ctx.save_for_backward(q, k, v, out, lse)
+        else:
+            out = fa_kernel.flash_attention(qt, kt, vt, causal=causal,
+                                            window=window)
+            ctx.save_for_backward(q, k, v)
         return out.transpose(1, 2)
 
     @staticmethod
     def backward(ctx, grad_out):
+        if ctx.on_kernel:
+            with tracing.span("attention.backward"):
+                q, k, v, out, lse = ctx.saved_tensors
+                dq, dk, dv = fa_kernel.flash_attention_backward(
+                    q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                    out, lse, grad_out.transpose(1, 2), causal=ctx.causal,
+                    window=ctx.window)
+            return (dq.transpose(1, 2), dk.transpose(1, 2),
+                    dv.transpose(1, 2), None, None, None, None)
+        fa_kernel.count_plain_backward()
         with tracing.span("attention.backward"), torch.enable_grad():
             q, k, v = (t.detach().requires_grad_() for t in ctx.saved_tensors)
             out = flash_attention_plain(

@@ -31,10 +31,20 @@ instance's key tile, are held against the TPU kernel (0.05) and against
 the f32 plain version within the bound ``chip_smoke.py`` holds the
 kernel to (2e-2: the output's rounding, up to 2^-7 at |o| < 4, plus
 p's, at most 2^-9 |v| per unit of the other keys' weight).
+
+F's backward kernel (bf16 on a card at (128, 128)) cannot run here: its
+plain numerics, ``ref.flash_attention_bwd_ref_bf16p`` from the row
+log-sum-exp (``ref.flash_attention_lse_ref``, held against
+``torch.logsumexp``), are held against autograd through the f32 plain
+version and, in f32, against ``jax.grad`` of the JAX package's
+attention; its route, its source's tiles and its dk/dv tile plan (the
+source's expressions in Python, against the numpy mask) are checked as
+the forward's are.  The CPU keeps the plain recompute.
 """
 import re
 from pathlib import Path
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -631,3 +641,286 @@ def test_autograd_function_carries_the_band(window):
     for x, y in zip(torch.autograd.grad(out, a, g),
                     torch.autograd.grad(want, b, g)):
         assert torch.equal(x, y)
+
+
+# ---------------------------------------------------------------------------
+# F's backward: its oracle, the forward's row log-sum-exp, the route, the
+# tile plan of flash_bwd_dkdv_wgmma
+# ---------------------------------------------------------------------------
+
+#: the backward kernel's numerics (``ref.flash_attention_bwd_ref_bf16p``:
+#: P and dS rounded to bf16 as the operands of their products) against
+#: autograd through the f32 plain version, of each gradient's max |g|: a
+#: bf16 step of P or dS is 2^-8 of it and the sums over keys and queries
+#: average the steps down (0.0026 at worst on these shapes; the card's
+#: products only reorder the f32 sums)
+BWD_BF16P_TOL = 1e-2
+
+#: (B, H, Hkv, Sq, Sk, d, mode, window): G 1, 2 and 8, ragged S, causal,
+#: unmasked with Sq != Sk, the band
+BWD_CASES = [
+    (1, 2, 2, 64, 64, 32, "causal", 0),
+    (2, 4, 2, 100, 100, 32, "causal", 0),
+    (1, 8, 1, 70, 70, 16, "causal", 0),
+    (2, 4, 2, 37, 90, 32, "none", 0),
+    (1, 4, 2, 90, 37, 16, "none", 0),
+    (1, 4, 2, 80, 80, 32, "local", 9),
+    (1, 8, 1, 130, 130, 16, "local", 2),
+    (1, 2, 1, 66, 66, 128, "causal", 0),
+]
+
+
+def _bwd_inputs(case, seed: int):
+    """q, k, v and the output's gradient in the model's (B, S, heads, d)
+    layout, f32 holding bf16 values."""
+    B, H, Hkv, Sq, Sk, d, _, _ = case
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(_normal(rng, shape)).bfloat16().float()
+            for shape in ((B, Sq, H, d), (B, Sk, Hkv, d), (B, Sk, Hkv, d),
+                          (B, Sq, H, d))]
+
+
+def _rel(got, want) -> float:
+    return float((got.float() - want.float()).abs().max()
+                 / want.float().abs().max())
+
+
+def _T(t):
+    return t.transpose(1, 2)
+
+
+@pytest.mark.parametrize("case", BWD_CASES, ids=str)
+def test_bwd_oracle_within_bf16_tolerance_of_plain_autograd(case):
+    """The backward kernel's plain version, from the f32 lse and the
+    bf16-rounded output and gradient (what the card hands it), within
+    ``BWD_BF16P_TOL`` of each leaf's max |g| of autograd through the f32
+    plain version, on every mask, G 1 to 8 and ragged S."""
+    _, _, _, Sq, Sk, _, mode, window = case
+    q, k, v, g = _bwd_inputs(case, 300 + BWD_CASES.index(case))
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    out = t_attn.flash_attention_plain(
+        *leaves, q_positions=torch.arange(Sq), k_positions=torch.arange(Sk),
+        mask_mode=mode, window=window, q_chunk=32, k_chunk=32)
+    want = torch.autograd.grad(out, leaves, g)
+    causal = mode != "none"
+    lse = ref.flash_attention_lse_ref(_T(q), _T(k), causal=causal,
+                                      window=window)
+    got = ref.flash_attention_bwd_ref_bf16p(
+        _T(q), _T(k), _T(v), _T(out.detach()).bfloat16(), _T(g).bfloat16(),
+        lse, causal=causal, window=window, q_rows=48)
+    for name, x, y in zip("qkv", got, want):
+        assert x.shape == _T(y).shape
+        assert _rel(x, _T(y)) < BWD_BF16P_TOL, name
+
+
+@pytest.mark.parametrize("case", BWD_CASES, ids=str)
+def test_bwd_oracle_f32_matches_jax_autodiff(case):
+    """The oracle's f32 form (``p_dtype=None``), from the lse oracle and
+    the JAX package's output, against ``jax.grad`` of the reference,
+    ``repro.models.attention.flash_attention``, within 2e-5 of each
+    leaf's max |g| (f32 sums in another order)."""
+    _, _, _, Sq, Sk, _, mode, window = case
+    q, k, v, g = (t.numpy() for t in _bwd_inputs(case, 400 + BWD_CASES.index(
+        case)))
+    kw = dict(q_positions=jnp.arange(Sq, dtype=jnp.int32),
+              k_positions=jnp.arange(Sk, dtype=jnp.int32), mask_mode=mode,
+              window=window, q_chunk=32, k_chunk=32)
+
+    def loss(q_, k_, v_):
+        return jnp.sum(j_attn.flash_attention(q_, k_, v_, **kw) * g)
+
+    jq, jk, jv = (jnp.asarray(a) for a in (q, k, v))
+    want = jax.grad(loss, argnums=(0, 1, 2))(jq, jk, jv)
+    o = torch.from_numpy(np.array(j_attn.flash_attention(jq, jk, jv, **kw)))
+    q, k, v, g = (torch.from_numpy(a) for a in (q, k, v, g))
+    causal = mode != "none"
+    lse = ref.flash_attention_lse_ref(_T(q), _T(k), causal=causal,
+                                      window=window)
+    got = ref.flash_attention_bwd_ref_bf16p(
+        _T(q), _T(k), _T(v), _T(o), _T(g), lse, causal=causal,
+        window=window, p_dtype=None, q_rows=32)
+    for name, x, y in zip("qkv", got, want):
+        y = _T(torch.from_numpy(np.array(y)))
+        assert _rel(x, y) < F32_TOL, name
+
+
+@pytest.mark.parametrize("key_tile", [16, 64])
+@pytest.mark.parametrize("Sq,Sk,mode,window", [
+    (64, 64, "causal", 0), (100, 100, "causal", 0), (37, 90, "none", 0),
+    (90, 37, "none", 0), (80, 80, "local", 9), (70, 70, "local", 1),
+    (100, 10, "local", 5),           # rows 14 on see no key
+])
+def test_lse_oracle_matches_logsumexp_of_plain_scores(Sq, Sk, mode, window,
+                                                      key_tile):
+    """The row log-sum-exp that F's training instance stores (its oracle,
+    the online max and sum over key tiles) equals ``torch.logsumexp`` of
+    the masked scaled scores within 2e-5, at any key tile; a row that sees
+    no key reads 1e30 (its P is then 0)."""
+    B, H, Hkv, d = 2, 4, 2, 32
+    rng = np.random.default_rng(Sq + Sk + window + key_tile)
+    q = torch.from_numpy(_normal(rng, (B, H, Sq, d)))
+    k = torch.from_numpy(_normal(rng, (B, Hkv, Sk, d)))
+    causal = mode != "none"
+    got = ref.flash_attention_lse_ref(q, k, causal=causal, window=window,
+                                      key_tile=key_tile)
+    s = q @ k.repeat_interleave(H // Hkv, dim=1).transpose(-1, -2) * d ** -0.5
+    valid = torch.from_numpy(np.broadcast_to(_valid(
+        np.arange(Sq), np.arange(Sk), Sk, causal, window), (Sq, Sk)).copy())
+    want = torch.logsumexp(torch.where(valid, s, -torch.inf), dim=-1)
+    seen = valid.any(dim=1)
+    assert got.shape == (B, H, Sq) and got.dtype == torch.float32
+    assert float((got[..., seen] - want[..., seen]).abs().max()) < F32_TOL
+    assert bool((got[..., ~seen] == 1e30).all())
+    assert bool(seen.all()) == (window != 5)
+
+
+@pytest.mark.parametrize("pair", fa.PAIRS)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("device", ["cuda", "cpu", "meta"])
+def test_backward_route_follows_device_dtype_and_pair(device, dtype, pair):
+    """F's backward takes its kernel for bf16 on a card at (128, 128)
+    (qwen3, llama4, internvl2) and the plain recompute for every other
+    call: the CPU, ``meta``, f32, and every other pair (MLA's (192, 128),
+    d 256, seamless's 64, the small configs' 16 and 32).  The route reads
+    only what the call can observe."""
+    want = (device == "cuda" and dtype == torch.bfloat16
+            and pair in fa.BACKWARD_PAIRS)
+    assert fa.backward_on_kernel(torch.device(device), dtype, *pair) == want
+    assert fa.BACKWARD_PAIRS == ((128, 128),)
+
+
+@pytest.mark.parametrize("d,dtype", [(128, torch.bfloat16),
+                                     (128, torch.float32),
+                                     (32, torch.bfloat16)])
+def test_cpu_backward_takes_the_plain_recompute(d, dtype):
+    """On CPU tensors ``FlashAttention``'s backward is the plain recompute
+    at every pair and dtype: ``plain_backwards`` counts it, no backward
+    kernel counts a launch, and the gradients equal autograd through the
+    plain version bit for bit.  The wrapper refuses ``with_lse`` and the
+    backward kernel on the CPU."""
+    B, S, H, Hkv = 1, 24, 4, 2
+    rng = np.random.default_rng(d)
+    base = [torch.from_numpy(_normal(rng, (B, S, h, d))).to(dtype)
+            for h in (H, Hkv, Hkv)]
+    a = [t.clone().requires_grad_() for t in base]
+    b = [t.clone().requires_grad_() for t in base]
+    bwd = ("flash_bwd_delta", "flash_bwd_dq_wgmma", "flash_bwd_dkdv_wgmma")
+    launches = [fa.route_launches[n] for n in bwd]
+    plain = fa.plain_backwards
+    out = t_attn.FlashAttention.apply(*a, True, 16, 16, 0)
+    pos = torch.arange(S)
+    want = t_attn.flash_attention_plain(*b, q_positions=pos, k_positions=pos,
+                                        q_chunk=16, k_chunk=16)
+    g = torch.from_numpy(_normal(rng, tuple(out.shape))).to(dtype)
+    for x, y in zip(torch.autograd.grad(out, a, g),
+                    torch.autograd.grad(want, b, g)):
+        assert torch.equal(x, y)
+    assert fa.plain_backwards == plain + 1
+    assert [fa.route_launches[n] for n in bwd] == launches
+    q, k, v = (_T(t.detach()) for t in a)
+    with pytest.raises(ValueError, match="with_lse"):
+        fa.flash_attention(q, k, v, with_lse=True)
+    with pytest.raises(ValueError, match="backward kernel"):
+        fa.flash_attention_backward(q, k, v, q, q[..., 0].float(), q)
+
+
+def test_backward_source_matches_the_oracles_tiles():
+    """The backward's tiles in its source are ``ref``'s: 64 rows a
+    consumer, two consumers a block (so 128 keys a dk/dv item and 128 q
+    rows a dq item); the forward stores lse only in its training instance
+    (every ``store_lse`` under ``if constexpr (LSE)``, the flag off by
+    default), and ``pick`` gives the training instance for (128, 128)
+    alone."""
+    from repro_torch.kernels import cuda_build
+    text = (cuda_build.CSRC / cuda_build.SOURCES["flash_attention"]
+            ).read_text()
+    rows = int(re.search(r"constexpr int kBwdRows = (\d+);", text).group(1))
+    nc = int(re.search(r"constexpr int kBwdNC = (\d+);", text).group(1))
+    tile = ref.FLASH_BWD_DKDV_TILE
+    assert (tile.key_rows, tile.q_tile, tile.consumer_keys) == (
+        rows * nc, rows, rows)
+    assert ref.FLASH_BWD_DQ_TILE == ref.FlashTile(rows * nc, rows, rows)
+    calls = re.findall(r"(.*)store_lse\(r\);", text)
+    assert len(calls) == 2 and all("if constexpr (LSE)" in c for c in calls)
+    assert "class W, bool LSE = false>\n__global__" in text
+    pick = text[text.index("Instance pick("):]
+    lse_branch = pick[:pick.index("if (dtype == 0)")]
+    assert lse_branch.count("wg_instance<") == 1
+    assert "wg_instance<128, 128, 64, WgDesign<3, 4, 2, true, false>," \
+           in lse_branch
+    for needle in ("flash_bwd_delta", "flash_bwd_dq_wgmma",
+                   "flash_bwd_dkdv_wgmma", "ciao_flash_attention_bwd",
+                   "cp.async.bulk.shared::cluster.global"):
+        assert needle in text, needle
+
+
+def _dkdv_q_tiles(k0: int, Sq: int, causal: bool, window: int) -> range:
+    """The q tiles flash_bwd_dkdv_wgmma's item of keys ``[k0, k0 +
+    key_rows)`` walks for each query head of its group (the source's
+    ``qtiles``)."""
+    t = ref.FLASH_BWD_DKDV_TILE
+    nq = -(-Sq // t.q_tile)
+    first = k0 // t.q_tile if causal else 0
+    end = (min(nq, (k0 + t.key_rows + window - 2) // t.q_tile + 1)
+           if window else nq)
+    return range(first, end)
+
+
+def _dkdv_idle(q0: int, kc0: int, Sk: int, causal: bool, window: int):
+    """The source's test that a consumer's keys from ``kc0`` hold no
+    valid pair with the q tile from ``q0`` (it skips the tile)."""
+    t = ref.FLASH_BWD_DKDV_TILE
+    return (kc0 >= Sk or (causal and q0 + t.q_tile - 1 < kc0)
+            or (window > 0 and q0 - (kc0 + t.consumer_keys - 1) >= window))
+
+
+def _dkdv_needs_mask(q0: int, kw: int, Sq: int, Sk: int, causal: bool,
+                     window: int) -> bool:
+    """The source's test whether the q tile from ``q0`` is masked for the
+    warp of keys ``[kw, kw + 16)``."""
+    B = ref.FLASH_BWD_DKDV_TILE.q_tile
+    return ((causal and q0 < kw + 15)
+            or (window > 0 and q0 + B - 1 - kw >= window)
+            or q0 + B > Sq or kw + 16 > Sk)
+
+
+@pytest.mark.parametrize("Sq,Sk,causal,window", [
+    (Sq, Sq, True, w)
+    for Sq in (1, 15, 64, 65, 200, 700, 2048)
+    for w in (0, 1, 7, 37, 64, 65, 128, 2048, 5000)
+] + [(300, 700, False, 0), (700, 300, False, 0), (100, 300, True, 0),
+     (300, 100, True, 0), (130, 130, True, 0)])
+def test_dkdv_tile_plan_visits_every_valid_pair_and_masks_the_rest(
+        Sq, Sk, causal, window):
+    """For each item of keys of flash_bwd_dkdv_wgmma: the q tiles it walks
+    cover every valid pair of its keys; each consumer skips only tiles
+    that hold no valid pair of its keys; and each 16-key warp masks every
+    tile it computes that holds an invalid pair for one of its keys (q
+    rows past Sq and keys past Sk included)."""
+    t = ref.FLASH_BWD_DKDV_TILE
+    rows = np.arange(Sq)
+    for k0 in range(0, Sk, t.key_rows):
+        tiles = list(_dkdv_q_tiles(k0, Sq, causal, window))
+        seen = np.zeros(Sq, bool)
+        for qt in tiles:
+            seen[qt * t.q_tile:(qt + 1) * t.q_tile] = True
+        keys = np.arange(k0, min(k0 + t.key_rows, Sk))
+        valid = _valid(rows, keys, Sk, causal, window)
+        assert not (valid & ~seen[:, None]).any(), (k0, tiles)
+        for kc0 in range(k0, k0 + t.key_rows, t.consumer_keys):
+            for qt in tiles:
+                q0 = qt * t.q_tile
+                q_rows = np.arange(q0, min(q0 + t.q_tile, Sq))
+                mine = np.arange(kc0, kc0 + t.consumer_keys)
+                if _dkdv_idle(q0, kc0, Sk, causal, window):
+                    assert not _valid(q_rows, mine, Sk, causal,
+                                      window).any(), (kc0, q0)
+                    continue
+                for kw in range(kc0, kc0 + t.consumer_keys, 16):
+                    wkeys = np.arange(kw, kw + 16)
+                    tile_rows = np.arange(q0, q0 + t.q_tile)
+                    ok = (_valid(tile_rows, wkeys, Sk, causal, window)
+                          & (tile_rows < Sq)[:, None])
+                    if not ok.all():
+                        assert _dkdv_needs_mask(q0, kw, Sq, Sk, causal,
+                                                window), (kc0, kw, q0)
