@@ -2,8 +2,11 @@
 
 * ``BENCHMARK.json`` (the checkout's root): cells, metrics, run length.
 * ``perfbench/configs/<config>.json``: a configuration, published keys at
-  the top level, plus ``run`` (how the program runs it) and ``reference``
-  (the module of ``perfbench/reference`` that is its plain reference).
+  the top level, plus ``run`` (how the program runs it) and ``reference``,
+  which names its architecture (:func:`architecture`):
+  ``perfbench/reference/<reference>.py`` is its plain reference and
+  ``perfbench/harness/ports/<reference>.py`` builds the port's
+  configuration of it.
 * ``perfbench/traffic/<traffic>.json``: a traffic mix's parameters.
 * ``perfbench/limits/<workload>.json``: the numbers that decide
   ``correct`` in a cell and the limit of each.
@@ -11,9 +14,12 @@
 """
 from __future__ import annotations
 
+import importlib
 import importlib.util
 import json
 from pathlib import Path
+from types import ModuleType
+from typing import NamedTuple
 
 PERFBENCH = Path(__file__).resolve().parents[1]
 ROOT = PERFBENCH.parent
@@ -60,3 +66,44 @@ def metric_reader(name: str):
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod.read
+
+
+class Architecture(NamedTuple):
+    """A configuration's architecture.  ``reference`` (imports nothing of
+    the program): ``arch_from_config(conf)``, whose ``Arch`` counts
+    ``forward_flops(B, S, logit_positions)`` and
+    ``prefill_attention_bound_s(B, S, peak)``; ``request_logits(weights,
+    arch, tokens, n_prompt, prec)``; ``row_loss_sum(weights, arch, tokens,
+    prec)``; ``TINY``, the published-key overrides of CPU tests.  ``port``:
+    ``model_config(name, conf, run)``, the program's ``ModelConfig``."""
+    reference: ModuleType
+    port: ModuleType
+
+
+def architectures() -> list[str]:
+    """The architectures with a port adapter in ``perfbench/harness/ports``."""
+    return sorted(p.stem for p in (PERFBENCH / "harness" / "ports").glob("*.py")
+                  if p.stem != "__init__")
+
+
+def _module(module: str) -> ModuleType | None:
+    try:
+        return importlib.import_module(module)
+    except ModuleNotFoundError as e:
+        if e.name != module:
+            raise
+        return None
+
+
+def architecture(conf: dict) -> Architecture:
+    """The reference module and port adapter that the configuration's
+    ``reference`` names; a ``KeyError`` that lists the architectures where
+    either is missing."""
+    name = conf["reference"]
+    mods = [_module(f"{package}.{name}") if name.isidentifier() else None
+            for package in ("perfbench.reference", "perfbench.harness.ports")]
+    if None in mods:
+        raise KeyError(f"no architecture {name!r}: perfbench/reference/{name}.py and "
+                       f"perfbench/harness/ports/{name}.py are both needed; the "
+                       f"architectures are {architectures()}")
+    return Architecture(*mods)

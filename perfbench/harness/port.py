@@ -1,29 +1,13 @@
-"""The program's configuration objects, built from a configuration file.
+"""The program's optimizer configuration, built from a configuration file.
 
-The port takes a ``ModelConfig`` (and an ``OptConfig`` to train); this
-module fills them from the file's published keys and its ``run`` section,
-so the configuration that is run is the one the file states.
+The port trains with an ``OptConfig``; this module fills it from the
+file's ``run.optimizer``, so the optimizer that is run is the one the file
+states.  Each architecture's ``ModelConfig`` is built by its adapter in
+:mod:`perfbench.harness.ports`.
 """
 from __future__ import annotations
 
-from repro_torch.configs.base import ModelConfig
 from repro_torch.train.optimizer import OptConfig
-
-from perfbench.reference.arch import arch_from_config
-
-
-def model_config(name: str, conf: dict, run: dict | None = None) -> ModelConfig:
-    """``run``: how the program runs it (precision, remat), by default the
-    file's ``run`` (training); serving passes the file's ``serve``."""
-    a = arch_from_config(conf)           # refuses what is not modelled
-    run = conf["run"] if run is None else run
-    return ModelConfig(
-        name=name, family="decoder", n_layers=a.layers, d_model=a.d,
-        n_heads=a.heads, n_kv_heads=a.kv_heads, d_ff=a.ff, vocab_size=a.vocab,
-        head_dim=a.head_dim, qk_norm=a.qk_norm, rope_theta=a.theta,
-        tied_embeddings=a.tied, norm_eps=a.eps, param_dtype=run["param_dtype"],
-        compute_dtype=run["compute_dtype"], remat=run.get("remat", "full"),
-        microbatches=1)
 
 
 def opt_config(conf: dict) -> OptConfig:

@@ -22,10 +22,7 @@ from repro_torch.models.layers import torch_dtype
 from repro_torch.models.model import build_model
 from repro_torch.serve.engine import make_serve_fns
 
-from perfbench.reference import decoder
-from perfbench.reference.arch import arch_from_config
-
-from . import port, traffic as traffic_mod, weights as weights_mod
+from . import bench, traffic as traffic_mod, weights as weights_mod
 from .record import Tracer, sync
 from .runs import Run, free, log, memory_peak, now_ns
 
@@ -55,8 +52,9 @@ def run(cell: dict, seed: int, seconds: float, trace: bool, dev: torch.device,
         t0_ns: int, *, device_name: str = "", control: bool = False,
         make_fns=make_serve_fns) -> Run:
     conf, tr = cell["config"], cell["traffic"]
-    arch = arch_from_config(conf)
-    cfg = port.model_config(cell["workload"]["config"], conf, conf["serve"])
+    reference, adapter = bench.architecture(conf)
+    arch = reference.arch_from_config(conf)
+    cfg = adapter.model_config(cell["workload"]["config"], conf, conf["serve"])
     model = build_model(cfg)
     B, n_out = tr["batch"], tr["output_tokens"]
     lengths = sorted({int(k) for k in tr["prompt_lengths"]})
@@ -107,7 +105,7 @@ def run(cell: dict, seed: int, seconds: float, trace: bool, dev: torch.device,
         r.pop("logits")
     del fns, params, tracer
     free(dev)
-    run_.check = check(weights, arch, [run_.requests[i] for i in sample],
+    run_.check = check(reference, weights, arch, [run_.requests[i] for i in sample],
                        [kept[i] for i in sample], dev, control)
     return run_
 
@@ -124,10 +122,11 @@ def _sample(requests: list, n: int, seed: int) -> list[int]:
     return [first] + sorted(rest[int(i)] for i in more)
 
 
-def check(weights, arch, requests: list, logits: list, dev, control: bool) -> dict:
+def check(reference, weights, arch, requests: list, logits: list, dev, control: bool) -> dict:
     """The numbers compared, over every served position of the sample (a
     prompt's last position, then each decode step's), in units of the
-    reference logits' standard deviation there: ``served_gap_max``, the
+    reference logits' standard deviation there (``reference``: the
+    architecture's reference module): ``served_gap_max``, the
     widest gap by which a served token's logit lies below the reference's
     best, and ``logit_err_max``, the largest RMS difference of the served
     logits from the reference's.  ``positions`` keeps every (gap, error)
@@ -139,11 +138,11 @@ def check(weights, arch, requests: list, logits: list, dev, control: bool) -> di
         toks = np.concatenate([r["prompt"], r["served"][:, :-1]], axis=1)
         toks = torch.from_numpy(toks).to(dev).long()
         log(f"reference, prompt {r['L']}")
-        ref = decoder.request_logits(weights, arch, toks, r["L"])
+        ref = reference.request_logits(weights, arch, toks, r["L"], "f32")
         served = torch.from_numpy(r["served"]).to(dev).long()
         sides[""].append(_gap_err(ref, torch.stack(prog, 1), served))
         if control:
-            ctl = decoder.request_logits(weights, arch, toks, r["L"], prec="fp8")
+            ctl = reference.request_logits(weights, arch, toks, r["L"], "fp8")
             sides[".control"].append(_gap_err(ref, ctl, ctl.argmax(-1)))
         del ref
     out = {}

@@ -39,10 +39,9 @@ from repro_torch.models.model import build_model
 from repro_torch.train.train_step import init_opt_state, make_train_step
 
 from perfbench.reference import data as ref_data, train as ref_train
-from perfbench.reference.arch import arch_from_config
 from perfbench.reference.train import named_leaves
 
-from . import port, traffic as traffic_mod, weights as weights_mod
+from . import bench, port, traffic as traffic_mod, weights as weights_mod
 from .record import Tracer, sync
 from .runs import Run, free, log, memory_peak, now_ns
 
@@ -73,8 +72,9 @@ def run(cell: dict, seed: int, seconds: float, trace: bool, dev: torch.device,
         t0_ns: int, *, device_name: str = "", control: bool = False,
         make_step=make_train_step) -> Run:
     conf, tr = cell["config"], cell["traffic"]
-    arch = arch_from_config(conf)
-    cfg = port.model_config(cell["workload"]["config"], conf)
+    reference, adapter = bench.architecture(conf)
+    arch = reference.arch_from_config(conf)
+    cfg = adapter.model_config(cell["workload"]["config"], conf)
     model = build_model(cfg)
     opt_cfg = port.opt_config(conf)
     B, S = tr["batch"], tr["seq_len"]
@@ -140,8 +140,8 @@ def run(cell: dict, seed: int, seconds: float, trace: bool, dev: torch.device,
     log(f"window closed: {len(run_.steps)} steps in {run_.window_s:.3f} s")
     del values, opt_state, step_fn, tracer
     free(dev)
-    run_.check = check(cell, cfg, seed, dev, batcher, recipe, records, fed, readings,
-                       control)
+    run_.check = check(cell, reference, arch, cfg, seed, dev, batcher, recipe, records, fed,
+                       readings, control)
     return run_
 
 
@@ -152,7 +152,7 @@ def _gap(prog: dict, ref: dict, keys) -> float:
     return max(abs(prog[k] - ref[k]) / max(ref[k], med) for k in keys)
 
 
-def check(cell, cfg, seed, dev, batcher, recipe, records, fed, readings,
+def check(cell, reference, arch, cfg, seed, dev, batcher, recipe, records, fed, readings,
           control: bool) -> dict:
     """``data_mismatch``: records the data path selects and no plain filter
     does or the reverse, plus tokens fed that differ from the plain
@@ -161,9 +161,9 @@ def check(cell, cfg, seed, dev, batcher, recipe, records, fed, readings,
     leaf's gap of gradient and change norms (:func:`_gap`; leaves whose
     reference gradient is under a thousandth of the median leaf's are left
     out of the change).  With ``control``, the f32 reference against the
-    same reference rounded to fp8 (``*.control``)."""
+    same reference rounded to fp8 (``*.control``).  ``reference``:
+    the architecture's reference module, ``arch`` its shape."""
     conf, tr = cell["config"], cell["traffic"]
-    arch = arch_from_config(conf)
     B, S = tr["batch"], tr["seq_len"]
     clause = [{"kind": t.kind.value, "key": t.key, "value": t.value}
               for c in recipe.clauses for t in c.terms]
@@ -189,7 +189,8 @@ def check(cell, cfg, seed, dev, batcher, recipe, records, fed, readings,
     for prec in ("f32", "fp8") if control else ("f32",):
         log(f"reference: {n} steps, {prec}")
         w = weights_mod.make_weights(cfg, seed, dev, torch.float32)
-        refs[prec] = ref_train.train(w, arch, batches, opt, initial, prec)
+        refs[prec] = ref_train.train(reference.row_loss_sum, w, arch, batches, opt,
+                                     initial, prec)
         del w
         free(dev)
     ref = refs["f32"]

@@ -6,7 +6,9 @@ device, in the type the program holds them in.  Norm scales (stored as
 offsets from one) and anything the program's layout marks ``zeros`` start
 at zero; embeddings keep the program's stated scale (0.02); every other
 matrix is normal times ``fan_in ** -0.5``, ``fan_in`` being the dims a
-product contracts, so each layer's output starts at unit scale.
+product contracts, so each layer's output starts at unit scale.  A stacked
+axis is no such dim: neither the layers' nor an ``expert`` axis, over
+which each expert's matrix contracts alone.
 
 The same seed gives the same weights, leaf for leaf, so the plain
 reference draws its own copy again after the program's state is freed.
@@ -24,7 +26,7 @@ from perfbench.reference.train import named_leaves
 
 
 def _fan_in(shape, axes) -> int:
-    dims = list(zip(shape, axes))
+    dims = [(n, a) for n, a in zip(shape, axes) if a != "expert"]
     if len(dims) == 1:
         return dims[0][0]
     out = 2 if [a for _, a in dims[-2:]] == ["heads", "head_dim"] else 1

@@ -2,12 +2,13 @@
 
 The loss is the mean next-token cross-entropy over every position of the
 batch (each row's loss summed, divided by ``B * (S - 1)``), its gradient
-taken by autograd through :func:`decoder.row_loss_sum` one row at a time
-(the rows' gradients add up to the batch's).  Then the global norm is
-clipped to ``grad_clip`` and AdamW updates every leaf: moments with
-``b1``/``b2``, bias-corrected, ``eps`` outside the root, decoupled weight
-decay on every leaf, the learning rate warmed up linearly and decayed on a
-cosine, all as the configuration file's ``run.optimizer`` states.
+taken by autograd through the architecture's reference ``row_loss_sum``
+one row at a time (the rows' gradients add up to the batch's).  Then the
+global norm is clipped to ``grad_clip`` and AdamW updates every leaf:
+moments with ``b1``/``b2``, bias-corrected, ``eps`` outside the root,
+decoupled weight decay on every leaf, the learning rate warmed up linearly
+and decayed on a cosine, all as the configuration file's ``run.optimizer``
+states.
 """
 from __future__ import annotations
 
@@ -15,8 +16,7 @@ import math
 
 import torch
 
-from . import decoder
-from .arch import Arch
+from .precision import exact_f32
 
 
 def named_leaves(tree, prefix: str = ""):
@@ -38,17 +38,18 @@ def learning_rate(opt: dict, step: int) -> float:
     return opt["learning_rate"] * warm * frac
 
 
-def train(weights, arch: Arch, batches, opt: dict, initial, prec: str = "f32"):
+def train(row_loss_sum, weights, arch, batches, opt: dict, initial, prec: str = "f32"):
     """Run one step a batch (each (B, S) int64 on the weights' device) on
-    f32 ``weights``, updated in place.  Returns each step's loss, the first
-    step's clipped gradient norm a leaf, and each leaf's change norm after
-    the last step against ``initial()``, an iterator of ``(path, leaf)``
-    of the starting weights."""
-    with decoder.exact_f32():
-        return _train(weights, arch, batches, opt, initial, prec)
+    f32 ``weights``, updated in place; ``row_loss_sum(weights, arch, row,
+    prec)`` is the architecture's reference loss of one row.  Returns each
+    step's loss, the first step's clipped gradient norm a leaf, and each
+    leaf's change norm after the last step against ``initial()``, an
+    iterator of ``(path, leaf)`` of the starting weights."""
+    with exact_f32():
+        return _train(row_loss_sum, weights, arch, batches, opt, initial, prec)
 
 
-def _train(weights, arch, batches, opt, initial, prec):
+def _train(row_loss_sum, weights, arch, batches, opt, initial, prec):
     leaves = list(named_leaves(weights))
     params = [p.requires_grad_() for _, p in leaves]
     m = [torch.zeros_like(p) for p in params]
@@ -58,7 +59,7 @@ def _train(weights, arch, batches, opt, initial, prec):
         B, S = batch.shape
         total = 0.0
         for b in range(B):
-            loss = decoder.row_loss_sum(weights, arch, batch[b], prec) / (B * (S - 1))
+            loss = row_loss_sum(weights, arch, batch[b], prec) / (B * (S - 1))
             loss.backward()
             total += float(loss.detach())
         losses.append(total)

@@ -1,6 +1,6 @@
 """Run one cell of the benchmark once and print its result line.
 
-    python3 -m perfbench.run --workload qwen3-longdoc --seed 7 --seconds 30 --trace 0
+    python3 -m perfbench.run --workload <cell> --seed 7 --seconds 30 --trace 0
 
 From the root of a checkout that holds the program (``src/repro_torch``),
 on a machine with as many CUDA cards as the cell asks for.  Set-up, then a

@@ -1,5 +1,5 @@
 """The frozen FLOP and kernel-F counts against hand counts at the cells'
-shapes."""
+shapes (F's bound summed over a prefill's 28 calls, one a layer)."""
 import pytest
 
 from perfbench.harness import bench, flops
@@ -37,7 +37,8 @@ def test_kernel_f_bound_by_operations_or_bytes(B, S, bound):
     byts = 2 * B * S * (16 * 128 + 8 * 128 + 8 * 128 + 16 * 128)
     want = ops / 989e12 if bound == "ops" else byts / 3.35e12
     assert want == pytest.approx(max(ops / 989e12, byts / 3.35e12))
-    assert flops.attention_call_bound_s(a, B, S, PEAK) == pytest.approx(want, rel=1e-12)
+    assert flops.prefill_attention_bound_s(a, B, S, PEAK) == pytest.approx(28 * want,
+                                                                           rel=1e-12)
 
 
 def test_peaks_by_device_name():

@@ -15,7 +15,10 @@ def test_harness_imports_no_jax_in_a_fresh_process():
         f"sys.path[:0] = [{str(ROOT / 'src')!r}, {str(ROOT)!r}]\n"
         "import perfbench.run as r, perfbench.calibrate, perfbench.faults\n"
         "from perfbench.harness import bench, flops, port, record, runs, serve, train, traffic, weights\n"
-        "from perfbench.reference import arch, data, decoder, train as rt\n"
+        "from perfbench.harness.ports import decoder as port_decoder\n"
+        "from perfbench.reference import arch, data, decoder, precision, train as rt\n"
+        "for c in bench.benchmark()['configs']:\n"
+        "    bench.architecture(bench.load_json('configs', c['name']))\n"
         "for m in bench.benchmark()['end_to_end'] + bench.benchmark()['per_layer']:\n"
         "    bench.metric_reader(m['name'])\n"
         "print(r.forbidden_modules())\n")

@@ -11,8 +11,9 @@ from repro_torch.models.model import build_model
 from repro_torch.serve.engine import make_serve_fns
 from repro_torch.train.train_step import init_opt_state, make_train_step
 
-from perfbench.harness import port, traffic, weights
-from perfbench.reference import decoder, train as ref_train
+from perfbench.harness import bench, port, traffic, weights
+from perfbench.harness.ports import decoder as decoder_port
+from perfbench.reference import decoder, precision, train as ref_train
 from perfbench.reference.arch import arch_from_config
 from perfbench.reference.train import named_leaves
 from perfbench.tests import tiny
@@ -29,9 +30,9 @@ def _f32(name):
 
 @pytest.mark.parametrize("name,run", [("qwen3-longdoc", "serve"), ("qwen3-train", "run")])
 def test_port_config_is_the_registrys(name, run):
-    from perfbench.harness import bench
     full = bench.cell(name)["config"]
-    ours = port.model_config("qwen3-1.7b", full, full[run])
+    assert bench.architecture(full).port is decoder_port
+    ours = decoder_port.model_config("qwen3-1.7b", full, full[run])
     reg = get_config("qwen3-1.7b")
     reg = dataclasses.replace(reg, n_layers=ours.n_layers, param_dtype=ours.param_dtype,
                               microbatches=1, opt_dtype=ours.param_dtype)
@@ -47,7 +48,7 @@ def test_request_logits_match_prefill_and_decode(seed, B):
     c = _f32("qwen3-longdoc")
     conf = c["config"]
     a = arch_from_config(conf)
-    cfg = port.model_config("tiny", conf)
+    cfg = decoder_port.model_config("tiny", conf)
     model = build_model(cfg)
     w = weights.make_weights(cfg, seed, CPU, torch.float32)
     L, n_out = 40, 6
@@ -70,7 +71,7 @@ def test_qwen3_train_step_matches_reference():
     c = _f32("qwen3-train")
     conf = c["config"]
     a = arch_from_config(conf)
-    cfg = port.model_config("tiny", conf)
+    cfg = decoder_port.model_config("tiny", conf)
     model = build_model(cfg)
     opt_cfg = port.opt_config(conf)
     seed = 4
@@ -89,7 +90,8 @@ def test_qwen3_train_step_matches_reference():
                      for p, t in named_leaves(state["m"])}
     start = dict(weights.iter_weights(cfg, seed, CPU, torch.float32))
     change = {p: float((t - start[p]).norm()) for p, t in named_leaves(w)}
-    ref = ref_train.train(weights.make_weights(cfg, seed, CPU, torch.float32), a, batches,
+    ref = ref_train.train(decoder.row_loss_sum,
+                          weights.make_weights(cfg, seed, CPU, torch.float32), a, batches,
                           conf["run"]["optimizer"],
                           lambda: weights.iter_weights(cfg, seed, CPU, torch.float32))
     assert losses == pytest.approx(ref["losses"], rel=1e-5)
@@ -100,6 +102,6 @@ def test_qwen3_train_step_matches_reference():
 
 def test_fp8_control_differs_and_f32_products_are_exact():
     x = torch.randn(64, 64)
-    assert torch.equal(decoder.mm(x, x, "f32"), x @ x)
-    err = (decoder.mm(x, x, "fp8") - x @ x).abs().max() / (x @ x).abs().max()
+    assert torch.equal(precision.mm(x, x, "f32"), x @ x)
+    err = (precision.mm(x, x, "fp8") - x @ x).abs().max() / (x @ x).abs().max()
     assert 1e-3 < float(err) < 0.2

@@ -1,4 +1,7 @@
-"""Tiny cells for CPU tests: the benchmark's cells with every size cut."""
+"""Tiny cells for CPU tests: the benchmark's cells with every size cut.
+
+A configuration's sizes come from its reference module's ``TINY``, a
+traffic mix's by its ``kind``."""
 from __future__ import annotations
 
 import copy
@@ -8,21 +11,24 @@ import torch
 
 from perfbench.harness import bench
 
-QWEN = dict(hidden_size=64, num_attention_heads=4, num_key_value_heads=2, head_dim=16,
-            intermediate_size=128, num_hidden_layers=2, vocab_size=512)
 TRAFFIC = {
-    "qwen3-longdoc": dict(prompt_lengths={"24": 2, "40": 1}, output_tokens=6,
-                          check_requests=3),
-    "qwen3-train": dict(batch=2, seq_len=64, clients=2, chunks_per_client=2,
-                        chunk_records=256),
+    "serve_closed_loop": dict(prompt_lengths={"24": 2, "40": 1}, output_tokens=6,
+                              check_requests=3),
+    "train_ciao": dict(batch=2, seq_len=64, clients=2, chunks_per_client=2,
+                       chunk_records=256),
 }
 
 
-def cell(name: str) -> dict:
-    c = copy.deepcopy(bench.cell(name))
-    c["config"].update(QWEN)
-    c["traffic"].update(TRAFFIC[name])
+def cut(c: dict) -> dict:
+    """A copy of the cell ``c`` at CPU size."""
+    c = copy.deepcopy(c)
+    c["config"].update(bench.architecture(c["config"]).reference.TINY)
+    c["traffic"].update(TRAFFIC[c["traffic"]["kind"]])
     return c
+
+
+def cell(name: str) -> dict:
+    return cut(bench.cell(name))
 
 
 def run(name: str, seed: int = 3, seconds: float = 0.5, **kw):
